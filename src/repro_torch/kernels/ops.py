@@ -1,0 +1,653 @@
+"""The compile->execute pipeline behind every entry point, on PyTorch.
+
+Pipeline: ``Program`` -> :func:`~repro_torch.core.gates.levelize` slot
+schedule -> :class:`~repro_torch.kernels.plan.ExecPlan` -> resolved
+executor operands on the plan's device -> executor -> unpack.
+
+Two branches run the same slot-scan executor:
+
+* **fused** (every port <= 32 cells): per-row values go to the device as
+  int32[n_ports, n_rows] and the executor does the bit transposes itself
+  (the CUDA kernel with warp ballots, the plain version with the
+  butterfly);
+* **io** (a port wider than 32 cells, or object-dtype values): the host
+  packs port rows with numpy (:func:`_pack_port_words`) and unpacks the
+  output rows (:func:`_unpack_sub`).
+
+The ``cuda`` backend runs the kernel (``kernels.pim_exec``), ``ref`` the
+plain version (``kernels.slots``) on the plan's device, ``numpy`` the
+gate-serial oracle (``Program.exec_packed``).
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import hashlib
+import weakref
+from typing import Dict, Iterable, Optional
+
+import numpy as np
+import torch
+
+from ..core.gates import LevelSchedule, levelize
+from ..runtime import telemetry
+from . import pim_exec
+from . import slots as kslots
+from .plan import DEFAULT_PLAN, ROWS32, ExecPlan, as_plan
+
+_FULL = np.uint32(0xFFFFFFFF)
+
+
+# --------------------------------------------------------------------------
+# plan-keyed compiled-program cache (bounded, weighted LRU)
+# --------------------------------------------------------------------------
+#
+# Programs are levelized (and their schedule operands copied to a device)
+# once per (structure, plan compile key): the key pairs a content hash of
+# the instruction stream + ports with ``plan.compile_key``.  Eviction is
+# safe -- an evicted structure is rebuilt on next use, bit-identically.
+# The cache is bounded by entry count and by total schedule weight (levels
+# x slot width), so one huge program cannot silently displace the hot set;
+# weight pressure alone never shrinks it below ``_COMPILED_MIN_RESIDENT``
+# unpinned entries.
+
+_COMPILED_CAP = 64
+_COMPILED_WEIGHT_CAP = 8 << 20
+_COMPILED_MIN_RESIDENT = 4
+
+_key_memo: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_compiled: "collections.OrderedDict[tuple, _Compiled]" = \
+    collections.OrderedDict()
+# Serial-order modeled costs for the numpy oracle, weak-keyed and kept out
+# of ``_compiled`` so oracle runs cannot churn the weighted LRU.
+_serial_model_memo: "weakref.WeakKeyDictionary" = \
+    weakref.WeakKeyDictionary()
+
+#: Compiled-program LRU counters (``pim.cache.hits``/``misses``/
+#: ``evictions``/``levelized``) on the global telemetry registry.
+_CACHE = telemetry.REGISTRY.group("pim.cache")
+
+# Pinned entries (cache key -> refcount) are exempt from eviction.
+_pinned: Dict[tuple, int] = {}
+
+
+def _serial_model(program) -> "telemetry.ModeledCost":
+    m = _serial_model_memo.get(program)
+    if m is None:
+        m = telemetry.COST_MODEL.program_cost(program.cost())
+        _serial_model_memo[program] = m
+    return m
+
+
+def clear_compiled_cache() -> int:
+    """Drop every *unpinned* compiled-program entry; returns the number
+    dropped."""
+    victims = [k for k in _compiled if k not in _pinned]
+    for k in victims:
+        del _compiled[k]
+    return len(victims)
+
+
+def _evict_over_cap(protect: Optional[tuple] = None) -> None:
+    """Drop least-recently-used *unpinned* entries while over either cap
+    (entry count or total schedule weight).  ``protect`` exempts the entry
+    a caller is in the middle of handing out."""
+    weight = sum(e.weight for e in _compiled.values())
+    for key in list(_compiled):
+        over_n = len(_compiled) > _COMPILED_CAP
+        over_w = weight > _COMPILED_WEIGHT_CAP
+        if not (over_n or over_w):
+            break
+        if key in _pinned or key == protect:
+            continue
+        if not over_n:      # weight pressure only: respect the floor
+            unpinned = sum(1 for k in _compiled
+                           if k not in _pinned and k != protect)
+            if unpinned <= _COMPILED_MIN_RESIDENT:
+                break
+        weight -= _compiled[key].weight
+        del _compiled[key]
+        _CACHE.add("evictions")
+
+
+def set_compiled_cache_cap(cap: int, weight_cap: Optional[int] = None) -> int:
+    """Set the compiled-program LRU capacity (entries) and, optionally, the
+    total schedule-weight cap; returns the old entry cap.  Shrinking evicts
+    unpinned entries immediately."""
+    global _COMPILED_CAP, _COMPILED_WEIGHT_CAP
+    if cap < 1:
+        raise ValueError(f"cache cap must be >= 1, got {cap}")
+    old, _COMPILED_CAP = _COMPILED_CAP, cap
+    if weight_cap is not None:
+        if weight_cap < 1:
+            raise ValueError(f"weight cap must be >= 1, got {weight_cap}")
+        _COMPILED_WEIGHT_CAP = weight_cap
+    _evict_over_cap()
+    return old
+
+
+def cache_key(program, plan: Optional[ExecPlan] = None) -> tuple:
+    """The compiled-program cache key: (program content hash,
+    plan.compile_key)."""
+    plan = DEFAULT_PLAN if plan is None else plan
+    return (content_key(program), plan.compile_key)
+
+
+def pin_program(program, plan: Optional[ExecPlan] = None) -> tuple:
+    """Pin ``program``'s compiled-cache entry against eviction; returns the
+    cache key (the token :func:`unpin_program` takes).  Pins nest."""
+    key = cache_key(program, plan)
+    if key not in _compiled:
+        _compiled[key] = _Compiled()
+        _CACHE.add("misses")
+        _evict_over_cap(protect=key)
+    _pinned[key] = _pinned.get(key, 0) + 1
+    return key
+
+
+def unpin_program(key: tuple) -> bool:
+    """Release one pin on ``key``; returns True while pins remain."""
+    n = _pinned.get(key, 0)
+    if n > 1:
+        _pinned[key] = n - 1
+        return True
+    _pinned.pop(key, None)
+    _evict_over_cap()
+    return False
+
+
+def content_key(program) -> bytes:
+    """Structural hash of a Program (instrs, ports, cells, schedule hints);
+    equal to ``repro.kernels.ops.content_key`` for the same program."""
+    try:
+        return _key_memo[program]
+    except (KeyError, TypeError):
+        pass
+    h = hashlib.blake2b(digest_size=16)
+    h.update(int(program.n_cells).to_bytes(8, "little"))
+    flat = []
+    for ins in program.instrs:
+        flat.extend((int(ins.op), len(ins.ins)))
+        flat.extend(int(c) for c in ins.ins)
+        flat.extend(int(c) for c in ins.outs)
+        flat.append(-1)
+    h.update(np.asarray(flat, np.int64).tobytes())
+    for name in sorted(program.ports):
+        h.update(name.encode())
+        h.update(b"\x00i" if name in program.in_ports else b"\x00o")
+        h.update(np.asarray(program.ports[name], np.int64).tobytes())
+    if program.parallel_steps is not None:
+        for idxs in program.parallel_steps:
+            h.update(np.asarray(list(idxs) + [-1], np.int64).tobytes())
+    key = h.digest()
+    try:
+        _key_memo[program] = key
+    except TypeError:
+        pass
+    return key
+
+
+def _stacked_cells(cell_lists) -> np.ndarray:
+    """Concatenate per-port cell lists into one int32 index vector."""
+    if not cell_lists:
+        return np.zeros(0, np.int32)
+    return np.concatenate(
+        [np.asarray(c, np.int64) for c in cell_lists]).astype(np.int32)
+
+
+def _as_run(idx) -> Optional[int]:
+    """Start of the single contiguous ascending run ``idx`` forms, or None."""
+    idx = np.asarray(idx)
+    if idx.size == 0:
+        return 0
+    start = int(idx[0])
+    if np.array_equal(idx, np.arange(start, start + idx.size)):
+        return start
+    return None
+
+
+def output_names(ports_owner) -> list:
+    """The port names ``run_program`` returns, sorted: the declared output
+    ports, falling back to *every* port for direction-less programs."""
+    return sorted(getattr(ports_owner, "out_ports", None)
+                  or ports_owner.ports)
+
+
+# --------------------------------------------------------------------------
+# schedules
+# --------------------------------------------------------------------------
+
+def _check_slot_schedule(s: LevelSchedule) -> None:
+    """Reject a slot schedule whose indices leave the state: the kernel
+    indexes shared memory with them unchecked."""
+    if s.a.shape != s.b.shape or s.a.shape != s.out.shape or s.a.ndim != 2:
+        raise ValueError("schedule arrays a/b/out must share one 2-D shape")
+    if s.n_levels:
+        idx = np.concatenate([s.a.ravel(), s.b.ravel(), s.out.ravel()])
+        if idx.min() < 0 or idx.max() >= s.n_cells:
+            raise ValueError(f"schedule index outside [0, {s.n_cells})")
+        lanes = np.arange(s.width)
+        if not np.array_equal(s.out, s.out[:, :1] + lanes):
+            raise ValueError("slot schedule levels must write contiguous "
+                             "bands (out[l] == out[l, 0] + lane)")
+    cells = [c for cs in list(s.ports.values()) + list(s.in_cells.values())
+             for c in cs]
+    if cells and not 0 <= min(cells) <= max(cells) < s.n_cells:
+        raise ValueError(f"port cell outside [0, {s.n_cells})")
+    if s.one_cell is not None and not 0 <= s.one_cell < s.n_cells:
+        raise ValueError(f"one_cell {s.one_cell} outside [0, {s.n_cells})")
+
+
+def schedule_from_arrays(d: dict) -> LevelSchedule:
+    """Build a slot :class:`LevelSchedule` from another levelizer's fields,
+    given as numpy arrays and plain scalars: ``a``, ``b``, ``out``,
+    ``level_width``, ``ports`` (name -> cells), ``in_ports``,
+    ``out_ports``, ``one_cell``, ``n_cells``, ``alloc`` (must be
+    ``"slots"``) and ``width`` (the slot width), plus optional
+    ``in_cells`` and ``copy_gates``.  Tests feed one schedule to executors
+    of both packages with it."""
+    if d["alloc"] != "slots":
+        raise ValueError(f"only slot schedules execute here "
+                         f"(got alloc={d['alloc']!r})")
+    a = np.ascontiguousarray(d["a"], np.int32)
+    width = int(d["width"])
+    if a.shape[0] and a.shape[1] != width:
+        raise ValueError(f"schedule arrays are {a.shape[1]} lanes wide, "
+                         f"width is {width}")
+    level_width = np.ascontiguousarray(d["level_width"], np.int32)
+    s = LevelSchedule(
+        n_cells=int(d["n_cells"]), sink=-1,
+        one_cell=None if d["one_cell"] is None else int(d["one_cell"]),
+        ports={n: [int(c) for c in cs] for n, cs in d["ports"].items()},
+        in_cells={n: [int(c) for c in cs]
+                  for n, cs in d.get("in_cells", {}).items()},
+        in_ports=frozenset(d["in_ports"]), out_ports=frozenset(d["out_ports"]),
+        a=a, b=np.ascontiguousarray(d["b"], np.int32),
+        out=np.ascontiguousarray(d["out"], np.int32),
+        level_width=level_width, n_gates=int(level_width.sum()),
+        source_gates=int(level_width.sum()), source_cells=int(d["n_cells"]),
+        alloc="slots", slot_width=width,
+        copy_gates=int(d.get("copy_gates", 0)))
+    _check_slot_schedule(s)
+    return s
+
+
+# --------------------------------------------------------------------------
+# per-(structure, plan) compilation artifacts
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class _Resolved:
+    """One plan + program + input-set binding, resolved once: the device
+    schedule operands, the bridge index vectors, the static widths and the
+    kernel's launch shape."""
+    sched: LevelSchedule
+    la: torch.Tensor
+    lb: torch.Tensor
+    lo: torch.Tensor
+    out_idx: torch.Tensor
+    names: list
+    out_base: Optional[int]
+    in_idx: torch.Tensor
+    in_base: Optional[int]
+    one_cell: Optional[int]
+    in_widths: tuple
+    out_widths: tuple
+    k_out: int
+    fused_ok: bool                   # every port fits a 32-bit transpose
+    words_per_cta: int               # CTA width of the cuda kernel
+    model: Optional["telemetry.ModeledCost"] = None  # analytical cost gauge
+
+
+@dataclasses.dataclass
+class _Compiled:
+    """Lazily built artifacts for one (program structure, plan compile key)
+    cache entry: the slot schedule and, per device, its operands."""
+    sched: Optional[LevelSchedule] = None
+    devs: Dict[str, tuple] = dataclasses.field(default_factory=dict)
+    in_idx: Dict[tuple, tuple] = dataclasses.field(default_factory=dict)
+    resolved: Dict[tuple, _Resolved] = dataclasses.field(default_factory=dict)
+
+    @property
+    def weight(self) -> int:
+        """Levels x slot width of the resident schedule -- what the LRU's
+        weight cap bounds."""
+        s = self.sched
+        return 0 if s is None else int(s.n_levels) * int(s.width)
+
+    def get_schedule(self, program, plan: ExecPlan) -> LevelSchedule:
+        if self.sched is None:
+            s = levelize(program, alloc="slots",
+                         max_width=plan.backend.slot_width)
+            _CACHE.add("levelized")
+            _check_slot_schedule(s)
+            self.sched = s
+        return self.sched
+
+    def get_sched_dev(self, program, plan: ExecPlan, device: str):
+        dev = self.devs.get(device)
+        if dev is None:
+            s = self.get_schedule(program, plan)
+            names = output_names(s)
+            cells = _stacked_cells([s.ports[n] for n in names])
+            dev = tuple(torch.from_numpy(np.ascontiguousarray(x, np.int32)
+                                         ).to(device)
+                        for x in (s.a, s.b, s.out, cells)) + \
+                (names, _as_run(cells))
+            self.devs[device] = dev
+        return dev
+
+    def get_in_idx(self, program, plan: ExecPlan, device: str, in_names):
+        key = (device, tuple(in_names))
+        if key not in self.in_idx:
+            s = self.get_schedule(program, plan)
+            cells = _stacked_cells([s.pack_cells(n) for n in in_names])
+            self.in_idx[key] = (torch.from_numpy(cells).to(device),
+                                _as_run(cells))
+        return self.in_idx[key]
+
+    def resolve(self, program, plan: ExecPlan, in_names: tuple) -> _Resolved:
+        """Bind ``plan`` to this program for one input-name set: levelize,
+        copy the operands to the plan's device, freeze the static widths
+        and size the kernel's CTAs.  Memoized."""
+        device = str(torch.device(plan.device))
+        if torch.device(device).type == "cuda" and \
+                not torch.cuda.is_available():
+            raise RuntimeError(
+                f"no CUDA device for device={plan.device!r}; pass "
+                "device='cpu', backend='ref' to run the plain version on "
+                "the CPU")
+        memo_key = (plan.backend.name, plan.backend.words_per_cta, device,
+                    in_names)
+        r = self.resolved.get(memo_key)
+        if r is not None:
+            return r
+        sched = self.get_schedule(program, plan)
+        la, lb, lo, out_idx, names, out_base = \
+            self.get_sched_dev(program, plan, device)
+        in_idx, in_base = self.get_in_idx(program, plan, device, in_names)
+        in_widths = tuple(len(sched.pack_cells(n)) for n in in_names)
+        out_widths = tuple(len(sched.ports[n]) for n in names)
+        r = _Resolved(
+            sched=sched, la=la, lb=lb, lo=lo, out_idx=out_idx, names=names,
+            out_base=out_base, in_idx=in_idx, in_base=in_base,
+            one_cell=None if sched.one_cell is None else int(sched.one_cell),
+            in_widths=in_widths, out_widths=out_widths,
+            k_out=sum(out_widths),
+            fused_ok=bool(in_names) and
+            max(in_widths + out_widths, default=0) <= 32,
+            words_per_cta=pim_exec.fit_words_per_cta(
+                sched.n_cells, plan.backend.words_per_cta),
+            model=telemetry.COST_MODEL.schedule_cost(sched))
+        self.resolved[memo_key] = r
+        return r
+
+
+def compiled(program, plan: Optional[ExecPlan] = None) -> _Compiled:
+    key = cache_key(program, plan)
+    entry = _compiled.get(key)
+    if entry is None:
+        entry = _compiled[key] = _Compiled()
+        _CACHE.add("misses")
+    else:
+        _compiled.move_to_end(key)
+        _CACHE.add("hits")
+    _evict_over_cap(protect=key)
+    return entry
+
+
+def is_compiled(program, plan: Optional[ExecPlan] = None) -> bool:
+    """True when the cache already holds ``program``'s levelized schedule
+    under ``plan``.  A pure query: never creates an entry, never touches
+    LRU order."""
+    entry = _compiled.get(cache_key(program, plan))
+    return entry is not None and entry.sched is not None
+
+
+def program_schedule(program, plan: Optional[ExecPlan] = None
+                     ) -> LevelSchedule:
+    """The levelized slot schedule of ``program``, cached per (structure,
+    plan compile key)."""
+    plan = DEFAULT_PLAN if plan is None else plan
+    return compiled(program, plan).get_schedule(program, plan)
+
+
+# --------------------------------------------------------------------------
+# row-major <-> packed-column host bridges (numpy, fully vectorized)
+# --------------------------------------------------------------------------
+
+def _ports_of(ports_or_program) -> Dict[str, list]:
+    return getattr(ports_or_program, "ports", ports_or_program)
+
+
+def _value_limbs(vals, n_limbs: int, pad_rows: int) -> np.ndarray:
+    """uint32[pad_rows, n_limbs] little-endian 32-bit limbs of per-row
+    integers.  Wide ports (> 64 bits) go through an object-dtype array so
+    arbitrary-precision values split without any per-row Python loop."""
+    vals = np.asarray(vals)
+    n = len(vals)
+    limbs = np.zeros((pad_rows, n_limbs), np.uint32)
+    if n_limbs <= 2 and vals.dtype != object:
+        v = np.zeros(pad_rows, np.uint64)
+        v[:n] = vals.astype(np.uint64)
+        for j in range(n_limbs):
+            limbs[:, j] = ((v >> np.uint64(32 * j))
+                           & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    else:
+        v = np.zeros(pad_rows, object)
+        v[:n] = vals.astype(object)
+        for j in range(n_limbs):
+            limbs[:, j] = ((v >> (32 * j)) & 0xFFFFFFFF).astype(np.uint32)
+    return limbs
+
+
+def _le_bytes(arr: np.ndarray) -> np.ndarray:
+    """Little-endian uint8 view of an integer array (copy only on BE hosts),
+    so bit k of element e is bit k%8 of byte e*itemsize + k//8."""
+    return np.ascontiguousarray(arr).astype(
+        arr.dtype.newbyteorder("<"), copy=False).view(np.uint8)
+
+
+def _pack_port_words(vals, nc: int, n_words: int) -> np.ndarray:
+    """Packed words of one port's per-row integers: uint32[nc, n_words]
+    (bit w of word i is row 32*i + w)."""
+    n_limbs = (nc + 31) // 32
+    limbs = _value_limbs(vals, n_limbs, n_words * 32)
+    # [pad_rows, 32 * n_limbs] -> cell-major [nc, pad_rows] bit matrix
+    bits = np.unpackbits(_le_bytes(limbs), axis=1, bitorder="little")
+    cols = np.ascontiguousarray(bits.T[:nc])
+    words = np.packbits(cols.reshape(nc, n_words, 32), axis=2,
+                        bitorder="little")                   # [nc, n_words, 4]
+    return words.reshape(nc, -1).view("<u4")
+
+
+def pack_rows(values: Dict[str, np.ndarray], ports, n_rows: int,
+              n_cells: int, one_cell: Optional[int] = None,
+              pad_to: int = 1) -> np.ndarray:
+    """Pack per-row port integers into column-major word state
+    uint32[n_cells, n_words] (bit w of state[c, i] = cell c of row
+    32*i + w).  ``ports`` is a name -> cell-list mapping (or any object
+    with a ``.ports`` attribute); ``one_cell``, when given, is filled with
+    ones (the schedule's folded INIT1 constant)."""
+    ports = _ports_of(ports)
+    n_words = ROWS32.n_words(n_rows, pad_to)
+    state = np.zeros((n_cells, n_words), np.uint32)
+    if one_cell is not None:
+        state[one_cell, :] = _FULL
+    for name, vals in values.items():
+        cells = np.asarray(ports[name], np.int64)
+        state[cells, :] = _pack_port_words(vals, len(cells), n_words)
+    return state
+
+
+def unpack_rows(state: np.ndarray, ports, n_rows: int,
+                names: Optional[Iterable[str]] = None
+                ) -> Dict[str, np.ndarray]:
+    """Inverse of :func:`pack_rows` (row-major ints); ``names`` restricts
+    which ports are unpacked (default: all).  Ports wider than 63 cells
+    come back as object arrays of Python ints."""
+    ports = _ports_of(ports)
+    names = list(ports if names is None else names)
+    all_cells = np.concatenate(
+        [np.asarray(ports[n], np.int64) for n in names]) if names else \
+        np.zeros(0, np.int64)
+    return _unpack_sub(np.asarray(state)[all_cells],
+                       [(n, len(ports[n])) for n in names], n_rows)
+
+
+def _unpack_sub(sub: np.ndarray, name_widths, n_rows: int
+                ) -> Dict[str, np.ndarray]:
+    """Unpack pre-gathered port rows (uint32[sum widths, n_words], stacked
+    in ``name_widths`` order)."""
+    sub = np.asarray(sub)
+    out = {}
+    off = 0
+    for name, nc in name_widths:
+        w = sub[off:off + nc]                                  # [nc, n_words]
+        off += nc
+        n_limbs = (nc + 31) // 32
+        # word bits -> row-major bit matrix [n_rows, nc] -> limb matrix
+        bits = np.unpackbits(_le_bytes(w), axis=1,
+                             bitorder="little")[:, :n_rows]
+        by = np.packbits(np.ascontiguousarray(bits.T), axis=1,
+                         bitorder="little")                # [n_rows, ceil/8]
+        if by.shape[1] != 4 * n_limbs:
+            pad = np.zeros((n_rows, 4 * n_limbs), np.uint8)
+            pad[:, :by.shape[1]] = by
+            by = pad
+        limbs = by.view("<u4")                             # [n_rows, n_limbs]
+        if nc > 63:
+            acc = np.zeros(n_rows, object)
+            for j in range(n_limbs):
+                acc |= limbs[:, j].astype(object) << (32 * j)
+            out[name] = acc
+        else:
+            acc = limbs[:, 0].astype(np.uint64)
+            if n_limbs > 1:
+                acc |= limbs[:, 1].astype(np.uint64) << np.uint64(32)
+            out[name] = acc
+    return out
+
+
+def _to_device(a: np.ndarray, device: str) -> torch.Tensor:
+    """uint32 host array -> int32 bit patterns on ``device``."""
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(device)
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """int32 bit patterns (any device) -> uint32 host array."""
+    return t.cpu().numpy().view(np.uint32)
+
+
+# --------------------------------------------------------------------------
+# execution
+# --------------------------------------------------------------------------
+
+def _dispatch_levelized(program, inputs: Dict[str, np.ndarray], n_rows: int,
+                        plan: ExecPlan):
+    """Pack ``inputs`` and launch one levelized execution under ``plan``;
+    returns a zero-arg ``finalize`` that waits for the device result and
+    unpacks it.  The launch is asynchronous, so a caller can pack its next
+    chunk on the host while this one runs."""
+    comp = compiled(program, plan)
+    in_names = sorted(inputs)
+    r = comp.resolve(program, plan, tuple(in_names))
+    telemetry.record_dispatch(n_rows, r.model)
+    device = str(torch.device(plan.device))
+    ex = pim_exec if plan.backend.name == "cuda" else kslots
+    sched_args = (r.in_idx, r.la, r.lb, r.lo, r.out_idx)
+    common = dict(n_cells=r.sched.n_cells, one_cell=r.one_cell,
+                  in_base=r.in_base, out_base=r.out_base,
+                  words_per_cta=r.words_per_cta)
+    vals = [np.asarray(inputs[n]) for n in in_names]
+    if r.fused_ok and all(v.dtype != object for v in vals):
+        in_vals = np.empty((len(vals), n_rows), np.uint32)
+        for p, v in enumerate(vals):
+            in_vals[p] = v                     # same-kind cast in place
+        outs = ex.slots_fused(_to_device(in_vals, device), *sched_args,
+                              in_widths=r.in_widths, out_widths=r.out_widths,
+                              **common)
+
+        def finalize() -> Dict[str, np.ndarray]:
+            o = _to_host(outs)                 # waits for the device
+            return {n: o[p].astype(np.uint64) for p, n in enumerate(r.names)}
+        return finalize
+    n_words = ROWS32.n_words(n_rows)
+    if in_names:
+        in_rows = np.concatenate(
+            [_pack_port_words(inputs[n], len(r.sched.pack_cells(n)), n_words)
+             for n in in_names], axis=0)
+    else:
+        in_rows = np.zeros((0, n_words), np.uint32)
+    sub = ex.slots_io(_to_device(in_rows, device), *sched_args,
+                      k_out=r.k_out, **common)
+
+    def finalize():
+        return _unpack_sub(_to_host(sub),
+                           [(n, len(r.sched.ports[n])) for n in r.names],
+                           n_rows)
+    return finalize
+
+
+def run_program(program, inputs: Dict[str, np.ndarray], n_rows: int,
+                plan=None, levelized: bool = True, *, backend=None,
+                schedule=None, layout=None, device=None
+                ) -> Dict[str, np.ndarray]:
+    """Element-parallel execution of a gate program over ``n_rows`` rows.
+
+    ``plan`` is an :class:`ExecPlan` -- or a backend name ('cuda' the
+    Hopper kernel, 'ref' its plain PyTorch version, 'numpy' the
+    gate-serial oracle); the keywords build a plan at this boundary.
+    Returns the program's output ports (every port for direction-less
+    programs, the :func:`output_names` contract)."""
+    plan = as_plan(plan, backend=backend, schedule=schedule, layout=layout,
+                   device=device)
+    if not levelized:
+        raise NotImplementedError("the gate-serial executors "
+                                  "(levelized=False) are not ported yet "
+                                  "(ROADMAP A6)")
+    if plan.backend.name == "numpy":
+        telemetry.record_dispatch(n_rows, _serial_model(program))
+        state = pack_rows(inputs, program.ports, n_rows, program.n_cells)
+        st = np.ascontiguousarray(state.T)
+        program.exec_packed(st)
+        return unpack_rows(st.T, program.ports, n_rows,
+                           names=output_names(program))
+    return _dispatch_levelized(program, inputs, n_rows, plan)()
+
+
+def run_program_streaming(program, inputs: Dict[str, np.ndarray],
+                          n_rows: int, plan=None, *, backend=None,
+                          chunk_rows=None, schedule=None, layout=None,
+                          device=None) -> Dict[str, np.ndarray]:
+    """Chunked, pipelined execution over ``n_rows`` on one device.
+
+    Rows are tiled into word-aligned chunks of the plan's chunk size; the
+    loop launches chunk ``k``, packs chunk ``k+1`` on the host while ``k``
+    runs, then waits for ``k``'s result."""
+    plan = as_plan(plan, backend=backend, chunk_rows=chunk_rows,
+                   schedule=schedule, layout=layout, device=device)
+    if plan.backend.name == "numpy":
+        raise ValueError("streaming requires a levelized backend "
+                         "('cuda' or 'ref'), got 'numpy'")
+    chunk = plan.effective_chunk_rows
+    if n_rows <= chunk:
+        return run_program(program, inputs, n_rows, plan)
+    inputs = {n: np.asarray(v) for n, v in inputs.items()}
+    for n, v in inputs.items():
+        if len(v) != n_rows:
+            raise ValueError(
+                f"input {n!r} has {len(v)} rows, expected {n_rows}")
+    parts = []
+    pending = None
+    for start in range(0, n_rows, chunk):
+        rows_k = min(chunk, n_rows - start)
+        chunk_in = {n: v[start:start + rows_k] for n, v in inputs.items()}
+        fin = _dispatch_levelized(program, chunk_in, rows_k, plan)
+        if pending is not None:
+            parts.append(pending())     # waits on k-1 while k runs
+        pending = fin
+    parts.append(pending())
+    return {name: np.concatenate([p[name] for p in parts])
+            for name in parts[0]}

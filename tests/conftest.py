@@ -10,3 +10,9 @@ except ImportError:
 
     hyp = sys.modules["hypothesis"] = _hypothesis_shim
     sys.modules["hypothesis.strategies"] = hyp.strategies
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and the CUDA toolkit; skips "
+        "without them")
