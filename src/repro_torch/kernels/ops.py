@@ -1,22 +1,31 @@
 """The compile->execute pipeline behind every entry point, on PyTorch.
 
-Pipeline: ``Program`` -> :func:`~repro_torch.core.gates.levelize` slot
-schedule -> :class:`~repro_torch.kernels.plan.ExecPlan` -> resolved
-executor operands on the plan's device -> executor -> unpack.
+Pipeline: ``Program`` -> :func:`~repro_torch.core.gates.levelize`
+schedule (slot or dense allocation) -> :class:`~repro_torch.kernels.plan.ExecPlan`
+-> resolved executor operands on the plan's device -> executor -> unpack.
+The dispatch rules are the reference's (``repro.kernels.ops``), with
+``cuda`` in the place of ``pallas``:
 
-Two branches run the same slot-scan executor:
+* ``schedule="slots"`` runs the slot-scan executor (B1); ``"dense"`` the
+  level-gather executor (B3); ``"slots-static"`` the straight-line form --
+  the generated static-slice kernel (B2) for fused calls on ``cuda`` whose
+  inputs are the leading run (every other ``cuda`` call runs B1), the
+  segmented static chain on ``ref``.  A slot layout the slot executors
+  cannot take (no contiguous output band, or on ``cuda`` no contiguous
+  input run) falls to the dense schedule, as in the reference.
+* **fused** branch (every port <= 32 cells): per-row values go to the
+  device as int32[n_ports, n_rows] and the executor does the bit
+  transposes itself; **io** branch (a port wider than 32 cells, or
+  object-dtype values): the host packs port rows with numpy
+  (:func:`_pack_port_words`) and unpacks the output rows
+  (:func:`_unpack_sub`).  ``layout="rows64"`` runs both branches on the
+  paired 64-row word layout.
+* ``run_program(levelized=False)`` runs the gate-serial executor (B4) over
+  the whole state, packed and unpacked on the host (rows32 only).
 
-* **fused** (every port <= 32 cells): per-row values go to the device as
-  int32[n_ports, n_rows] and the executor does the bit transposes itself
-  (the CUDA kernel with warp ballots, the plain version with the
-  butterfly);
-* **io** (a port wider than 32 cells, or object-dtype values): the host
-  packs port rows with numpy (:func:`_pack_port_words`) and unpacks the
-  output rows (:func:`_unpack_sub`).
-
-The ``cuda`` backend runs the kernel (``kernels.pim_exec``), ``ref`` the
-plain version (``kernels.slots``) on the plan's device, ``numpy`` the
-gate-serial oracle (``Program.exec_packed``).
+The ``cuda`` backend runs the kernels (``kernels.pim_exec``), ``ref`` their
+plain versions (``kernels.slots``, ``kernels.ref``) on the plan's device,
+``numpy`` the gate-serial oracle (``Program.exec_packed``).
 """
 
 from __future__ import annotations
@@ -33,8 +42,9 @@ import torch
 from ..core.gates import LevelSchedule, levelize
 from ..runtime import telemetry
 from . import pim_exec
+from . import ref as kref
 from . import slots as kslots
-from .plan import DEFAULT_PLAN, ROWS32, ExecPlan, as_plan
+from .plan import DEFAULT_PLAN, ROWS32, ExecPlan, WordLayout, as_plan
 
 _FULL = np.uint32(0xFFFFFFFF)
 
@@ -218,19 +228,13 @@ def output_names(ports_owner) -> list:
 # schedules
 # --------------------------------------------------------------------------
 
-def _check_slot_schedule(s: LevelSchedule) -> None:
-    """Reject a slot schedule whose indices leave the state: the kernel
-    indexes shared memory with them unchecked."""
+def _check_shape_and_cells(s: LevelSchedule) -> None:
     if s.a.shape != s.b.shape or s.a.shape != s.out.shape or s.a.ndim != 2:
         raise ValueError("schedule arrays a/b/out must share one 2-D shape")
     if s.n_levels:
         idx = np.concatenate([s.a.ravel(), s.b.ravel(), s.out.ravel()])
         if idx.min() < 0 or idx.max() >= s.n_cells:
             raise ValueError(f"schedule index outside [0, {s.n_cells})")
-        lanes = np.arange(s.width)
-        if not np.array_equal(s.out, s.out[:, :1] + lanes):
-            raise ValueError("slot schedule levels must write contiguous "
-                             "bands (out[l] == out[l, 0] + lane)")
     cells = [c for cs in list(s.ports.values()) + list(s.in_cells.values())
              for c in cs]
     if cells and not 0 <= min(cells) <= max(cells) < s.n_cells:
@@ -239,17 +243,42 @@ def _check_slot_schedule(s: LevelSchedule) -> None:
         raise ValueError(f"one_cell {s.one_cell} outside [0, {s.n_cells})")
 
 
+def _check_slot_schedule(s: LevelSchedule) -> None:
+    """Reject a slot schedule whose indices leave the state: the kernels
+    index shared memory with them unchecked."""
+    _check_shape_and_cells(s)
+    if s.n_levels and not np.array_equal(s.out,
+                                         s.out[:, :1] + np.arange(s.width)):
+        raise ValueError("slot schedule levels must write contiguous "
+                         "bands (out[l] == out[l, 0] + lane)")
+
+
+def _check_dense_schedule(s: LevelSchedule) -> None:
+    """Reject a dense schedule whose indices leave the state or whose
+    level writes one cell twice: the level-gather kernel indexes shared
+    memory unchecked, and its lanes write in no set order."""
+    _check_shape_and_cells(s)
+    if s.n_levels:
+        srt = np.sort(s.out, axis=1)
+        if (srt[:, 1:] == srt[:, :-1]).any():
+            raise ValueError("dense schedule levels must write distinct "
+                             "cells (out[l] unique per level)")
+
+
 def schedule_from_arrays(d: dict) -> LevelSchedule:
-    """Build a slot :class:`LevelSchedule` from another levelizer's fields,
+    """Build a :class:`LevelSchedule` from another levelizer's fields,
     given as numpy arrays and plain scalars: ``a``, ``b``, ``out``,
     ``level_width``, ``ports`` (name -> cells), ``in_ports``,
-    ``out_ports``, ``one_cell``, ``n_cells``, ``alloc`` (must be
-    ``"slots"``) and ``width`` (the slot width), plus optional
-    ``in_cells`` and ``copy_gates``.  Tests feed one schedule to executors
-    of both packages with it."""
-    if d["alloc"] != "slots":
-        raise ValueError(f"only slot schedules execute here "
-                         f"(got alloc={d['alloc']!r})")
+    ``out_ports``, ``one_cell``, ``n_cells``, ``alloc`` (``"slots"``, or
+    ``"dense"`` -- levelize's ``"scan"`` allocation, which the name also
+    takes) and ``width`` (the slot width, or the dense lane count), plus
+    optional ``in_cells``, ``copy_gates`` and ``sink`` (dense).  Tests
+    feed one schedule to executors of both packages with it."""
+    alloc = d["alloc"]
+    if alloc not in ("slots", "dense", "scan"):
+        raise ValueError(f"unknown alloc {alloc!r}: slot schedules "
+                         "('slots') and dense schedules ('dense') execute "
+                         "here")
     a = np.ascontiguousarray(d["a"], np.int32)
     width = int(d["width"])
     if a.shape[0] and a.shape[1] != width:
@@ -257,7 +286,8 @@ def schedule_from_arrays(d: dict) -> LevelSchedule:
                          f"width is {width}")
     level_width = np.ascontiguousarray(d["level_width"], np.int32)
     s = LevelSchedule(
-        n_cells=int(d["n_cells"]), sink=-1,
+        n_cells=int(d["n_cells"]),
+        sink=-1 if alloc == "slots" else int(d.get("sink", -1)),
         one_cell=None if d["one_cell"] is None else int(d["one_cell"]),
         ports={n: [int(c) for c in cs] for n, cs in d["ports"].items()},
         in_cells={n: [int(c) for c in cs]
@@ -267,9 +297,10 @@ def schedule_from_arrays(d: dict) -> LevelSchedule:
         out=np.ascontiguousarray(d["out"], np.int32),
         level_width=level_width, n_gates=int(level_width.sum()),
         source_gates=int(level_width.sum()), source_cells=int(d["n_cells"]),
-        alloc="slots", slot_width=width,
+        alloc="slots" if alloc == "slots" else "scan",
+        slot_width=width if alloc == "slots" else None,
         copy_gates=int(d.get("copy_gates", 0)))
-    _check_slot_schedule(s)
+    (_check_slot_schedule if alloc == "slots" else _check_dense_schedule)(s)
     return s
 
 
@@ -277,11 +308,31 @@ def schedule_from_arrays(d: dict) -> LevelSchedule:
 # per-(structure, plan) compilation artifacts
 # --------------------------------------------------------------------------
 
+def _alloc_of(kind: str) -> str:
+    return "dense" if kind == "dense" else "slots"
+
+
+def _device_of(plan: ExecPlan) -> str:
+    """The plan's torch device as a string; raises when it names a CUDA
+    device and there is none (the port never drops to the CPU)."""
+    device = str(torch.device(plan.device))
+    if torch.device(device).type == "cuda" and \
+            not torch.cuda.is_available():
+        raise RuntimeError(
+            f"no CUDA device for device={plan.device!r}; pass "
+            "device='cpu', backend='ref' to run the plain version on "
+            "the CPU")
+    return device
+
+
 @dataclasses.dataclass
 class _Resolved:
-    """One plan + program + input-set binding, resolved once: the device
-    schedule operands, the bridge index vectors, the static widths and the
-    kernel's launch shape."""
+    """One plan + program + input-set binding, resolved once: the
+    effective schedule kind (the dense fallback for slot layouts the slot
+    executors cannot take is decided here), the device schedule operands,
+    the bridge index vectors, the static widths and the kernels' launch
+    shape."""
+    kind: str                        # effective schedule after fallback
     sched: LevelSchedule
     la: torch.Tensor
     lb: torch.Tensor
@@ -296,92 +347,178 @@ class _Resolved:
     out_widths: tuple
     k_out: int
     fused_ok: bool                   # every port fits a 32-bit transpose
-    words_per_cta: int               # CTA width of the cuda kernel
+    use_static: bool                 # the straight-line emission applies
+    words_per_cta: int               # CTA width of the cuda kernels
     model: Optional["telemetry.ModeledCost"] = None  # analytical cost gauge
 
 
 @dataclasses.dataclass
 class _Compiled:
     """Lazily built artifacts for one (program structure, plan compile key)
-    cache entry: the slot schedule and, per device, its operands."""
-    sched: Optional[LevelSchedule] = None
-    devs: Dict[str, tuple] = dataclasses.field(default_factory=dict)
+    cache entry: the lowered gate arrays, one levelized schedule per
+    allocation ("slots", "dense") with its operands per device, resolved
+    bindings, and the straight-line executors (static chains and
+    generated kernels)."""
+    arrays: Optional[tuple] = None              # (ops, a, b, o, n_cells)
+    scheds: Dict[str, LevelSchedule] = dataclasses.field(default_factory=dict)
+    devs: Dict[tuple, tuple] = dataclasses.field(default_factory=dict)
     in_idx: Dict[tuple, tuple] = dataclasses.field(default_factory=dict)
     resolved: Dict[tuple, _Resolved] = dataclasses.field(default_factory=dict)
+    static: Dict[tuple, object] = dataclasses.field(default_factory=dict)
+    gates: Dict[str, tuple] = dataclasses.field(default_factory=dict)
+    serial_model: Optional["telemetry.ModeledCost"] = None
 
     @property
     def weight(self) -> int:
-        """Levels x slot width of the resident schedule -- what the LRU's
-        weight cap bounds."""
-        s = self.sched
-        return 0 if s is None else int(s.n_levels) * int(s.width)
+        """Levels x width summed over the resident schedules -- what the
+        LRU's weight cap bounds."""
+        return sum(int(s.n_levels) * int(s.width)
+                   for s in self.scheds.values())
 
-    def get_schedule(self, program, plan: ExecPlan) -> LevelSchedule:
-        if self.sched is None:
-            s = levelize(program, alloc="slots",
-                         max_width=plan.backend.slot_width)
+    def get_arrays(self, program):
+        if self.arrays is None:
+            self.arrays = program.to_arrays()
+        return self.arrays
+
+    def get_serial_model(self, program) -> "telemetry.ModeledCost":
+        """Modeled cost of the gate-serial execution order, memoized."""
+        if self.serial_model is None:
+            self.serial_model = telemetry.COST_MODEL.program_cost(
+                program.cost())
+        return self.serial_model
+
+    def get_gates(self, program, device: str) -> tuple:
+        """The lowered stream ``(ops, a, b, o)`` on ``device``, its cell
+        indices checked once against the lowered state."""
+        g = self.gates.get(device)
+        if g is None:
+            ops, a, b, o, n_cells = self.get_arrays(program)
+            live = np.concatenate([a[ops >= 2], b[ops >= 2], o])
+            if live.size and not 0 <= live.min() <= live.max() < n_cells:
+                raise ValueError(f"gate cell index outside [0, {n_cells})")
+            g = self.gates[device] = tuple(
+                torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(device)
+                for x in (ops, a, b, o))
+        return g
+
+    def get_schedule(self, program, plan: ExecPlan,
+                     kind: Optional[str] = None) -> LevelSchedule:
+        alloc = _alloc_of(plan.schedule if kind is None else kind)
+        s = self.scheds.get(alloc)
+        if s is None:
+            if alloc == "dense":
+                s = levelize(program, max_width=plan.backend.level_max_width)
+                _check_dense_schedule(s)
+            else:
+                s = levelize(program, alloc="slots",
+                             max_width=plan.backend.slot_width)
+                _check_slot_schedule(s)
             _CACHE.add("levelized")
-            _check_slot_schedule(s)
-            self.sched = s
-        return self.sched
+            self.scheds[alloc] = s
+        return s
 
-    def get_sched_dev(self, program, plan: ExecPlan, device: str):
-        dev = self.devs.get(device)
+    def get_sched_dev(self, program, plan: ExecPlan, kind: str, device: str):
+        alloc = _alloc_of(kind)
+        dev = self.devs.get((alloc, device))
         if dev is None:
-            s = self.get_schedule(program, plan)
+            s = self.get_schedule(program, plan, kind)
             names = output_names(s)
             cells = _stacked_cells([s.ports[n] for n in names])
             dev = tuple(torch.from_numpy(np.ascontiguousarray(x, np.int32)
                                          ).to(device)
                         for x in (s.a, s.b, s.out, cells)) + \
-                (names, _as_run(cells))
-            self.devs[device] = dev
+                (names, _as_run(cells) if alloc == "slots" else None)
+            self.devs[(alloc, device)] = dev
         return dev
 
-    def get_in_idx(self, program, plan: ExecPlan, device: str, in_names):
-        key = (device, tuple(in_names))
+    def get_in_idx(self, program, plan: ExecPlan, kind: str, device: str,
+                   in_names):
+        key = (_alloc_of(kind), device, tuple(in_names))
         if key not in self.in_idx:
-            s = self.get_schedule(program, plan)
+            s = self.get_schedule(program, plan, kind)
             cells = _stacked_cells([s.pack_cells(n) for n in in_names])
             self.in_idx[key] = (torch.from_numpy(cells).to(device),
                                 _as_run(cells))
         return self.in_idx[key]
 
     def resolve(self, program, plan: ExecPlan, in_names: tuple) -> _Resolved:
-        """Bind ``plan`` to this program for one input-name set: levelize,
-        copy the operands to the plan's device, freeze the static widths
-        and size the kernel's CTAs.  Memoized."""
-        device = str(torch.device(plan.device))
-        if torch.device(device).type == "cuda" and \
-                not torch.cuda.is_available():
-            raise RuntimeError(
-                f"no CUDA device for device={plan.device!r}; pass "
-                "device='cpu', backend='ref' to run the plain version on "
-                "the CPU")
-        memo_key = (plan.backend.name, plan.backend.words_per_cta, device,
-                    in_names)
+        """Bind ``plan`` to this program for one input-name set: pick the
+        effective schedule (the dense fallback for slot layouts the slot
+        executors cannot take), copy the operands to the plan's device,
+        freeze the static widths and size the kernels' CTAs.  Memoized."""
+        device = _device_of(plan)
+        planes = plan.layout.planes
+        memo_key = (plan.schedule, plan.backend.name,
+                    plan.backend.words_per_cta, planes, device, in_names)
         r = self.resolved.get(memo_key)
         if r is not None:
             return r
-        sched = self.get_schedule(program, plan)
+        kind = plan.schedule
+        sched = self.get_schedule(program, plan, kind)
         la, lb, lo, out_idx, names, out_base = \
-            self.get_sched_dev(program, plan, device)
-        in_idx, in_base = self.get_in_idx(program, plan, device, in_names)
+            self.get_sched_dev(program, plan, kind, device)
+        in_idx, in_base = self.get_in_idx(program, plan, kind, device,
+                                          in_names)
+        k_out = sum(len(sched.ports[n]) for n in names)
+        slots_ok = kind != "dense" and out_base is not None and k_out > 0
+        if plan.backend.name == "cuda" and slots_ok and in_base is None:
+            slots_ok = False    # the reference's rule for its kernels
+        if not slots_ok and kind != "dense":
+            kind = "dense"
+            sched = self.get_schedule(program, plan, kind)
+            la, lb, lo, out_idx, names, out_base = \
+                self.get_sched_dev(program, plan, kind, device)
+            in_idx, in_base = self.get_in_idx(program, plan, kind, device,
+                                              in_names)
         in_widths = tuple(len(sched.pack_cells(n)) for n in in_names)
         out_widths = tuple(len(sched.ports[n]) for n in names)
         r = _Resolved(
-            sched=sched, la=la, lb=lb, lo=lo, out_idx=out_idx, names=names,
-            out_base=out_base, in_idx=in_idx, in_base=in_base,
+            kind=kind, sched=sched, la=la, lb=lb, lo=lo, out_idx=out_idx,
+            names=names, out_base=out_base, in_idx=in_idx, in_base=in_base,
             one_cell=None if sched.one_cell is None else int(sched.one_cell),
             in_widths=in_widths, out_widths=out_widths,
             k_out=sum(out_widths),
             fused_ok=bool(in_names) and
             max(in_widths + out_widths, default=0) <= 32,
+            use_static=plan.schedule == "slots-static" and slots_ok,
             words_per_cta=pim_exec.fit_words_per_cta(
-                sched.n_cells, plan.backend.words_per_cta),
+                sched.n_cells, plan.backend.words_per_cta, planes),
             model=telemetry.COST_MODEL.schedule_cost(sched))
         self.resolved[memo_key] = r
         return r
+
+    def get_static_chain(self, program, plan: ExecPlan, in_names, fused,
+                         in_widths, out_widths):
+        """B2's plain version (``slots.build_static_chain``), memoized."""
+        key = ("chain", tuple(in_names), fused, in_widths, out_widths,
+               plan.layout.planes)
+        if key not in self.static:
+            s = self.get_schedule(program, plan, "slots")
+            cells = _stacked_cells([s.pack_cells(n) for n in in_names])
+            self.static[key] = kslots.build_static_chain(
+                s, in_widths, out_widths, output_names(s), cells,
+                seg_levels=plan.backend.seg_levels, fused=fused,
+                planes=plan.layout.planes)
+        return self.static[key]
+
+    def get_static(self, program, plan: ExecPlan, in_names, in_widths,
+                   out_widths) -> "pim_exec.StaticKernel":
+        """B2: the generated static-slice kernel for this schedule, widths
+        and layout, compiled here -- at first resolve, so a warm-up keeps
+        ``nvcc`` out of every later call.  Memoized."""
+        key = ("kernel", tuple(in_names), in_widths, out_widths,
+               plan.layout.planes, plan.backend.words_per_cta)
+        if key not in self.static:
+            s = self.get_schedule(program, plan, "slots")
+            k = pim_exec.StaticKernel(
+                s, in_widths, out_widths, output_names(s),
+                _stacked_cells([s.pack_cells(n) for n in in_names]),
+                planes=plan.layout.planes,
+                words_per_cta=plan.backend.words_per_cta,
+                seg_levels=plan.backend.seg_levels)
+            k.build()
+            self.static[key] = k
+        return self.static[key]
 
 
 def compiled(program, plan: Optional[ExecPlan] = None) -> _Compiled:
@@ -399,16 +536,17 @@ def compiled(program, plan: Optional[ExecPlan] = None) -> _Compiled:
 
 def is_compiled(program, plan: Optional[ExecPlan] = None) -> bool:
     """True when the cache already holds ``program``'s levelized schedule
-    under ``plan``.  A pure query: never creates an entry, never touches
-    LRU order."""
+    for ``plan``'s schedule kind.  A pure query: never creates an entry,
+    never touches LRU order."""
+    plan = DEFAULT_PLAN if plan is None else plan
     entry = _compiled.get(cache_key(program, plan))
-    return entry is not None and entry.sched is not None
+    return entry is not None and _alloc_of(plan.schedule) in entry.scheds
 
 
 def program_schedule(program, plan: Optional[ExecPlan] = None
                      ) -> LevelSchedule:
-    """The levelized slot schedule of ``program``, cached per (structure,
-    plan compile key)."""
+    """The levelized schedule of ``program`` (slot or dense allocation per
+    the plan's schedule kind), cached per (structure, plan compile key)."""
     plan = DEFAULT_PLAN if plan is None else plan
     return compiled(program, plan).get_schedule(program, plan)
 
@@ -449,35 +587,56 @@ def _le_bytes(arr: np.ndarray) -> np.ndarray:
         arr.dtype.newbyteorder("<"), copy=False).view(np.uint8)
 
 
-def _pack_port_words(vals, nc: int, n_words: int) -> np.ndarray:
+def _pack_port_words(vals, nc: int, n_words: int,
+                     layout: WordLayout = ROWS32) -> np.ndarray:
     """Packed words of one port's per-row integers: uint32[nc, n_words]
-    (bit w of word i is row 32*i + w)."""
+    under rows32 (bit w of word i is row 32*i + w), or the planes-leading
+    uint32[planes, nc, n_words] under rows64 (plane h of word i covers
+    rows ``64*i + 32*h + w``)."""
     n_limbs = (nc + 31) // 32
-    limbs = _value_limbs(vals, n_limbs, n_words * 32)
+    n32 = n_words * layout.planes
+    limbs = _value_limbs(vals, n_limbs, n32 * 32)
     # [pad_rows, 32 * n_limbs] -> cell-major [nc, pad_rows] bit matrix
     bits = np.unpackbits(_le_bytes(limbs), axis=1, bitorder="little")
     cols = np.ascontiguousarray(bits.T[:nc])
-    words = np.packbits(cols.reshape(nc, n_words, 32), axis=2,
-                        bitorder="little")                   # [nc, n_words, 4]
-    return words.reshape(nc, -1).view("<u4")
+    words = np.packbits(cols.reshape(nc, n32, 32), axis=2,
+                        bitorder="little")                    # [nc, n32, 4]
+    w32 = words.reshape(nc, -1).view("<u4")
+    if layout.planes == 1:
+        return w32
+    # uint32 word planes*i + h of rows32 is plane h of word i
+    return np.ascontiguousarray(
+        np.moveaxis(w32.reshape(nc, n_words, layout.planes), -1, 0))
+
+
+def _sub_to_rows32(sub: np.ndarray) -> np.ndarray:
+    """Collapse a planes-leading packed block back to the rows32 word
+    order: (planes, k, n_words) -> (k, n_words * planes)."""
+    if sub.ndim == 2:
+        return sub
+    planes, k, n_words = sub.shape
+    return np.ascontiguousarray(
+        np.moveaxis(sub, 0, -1).reshape(k, n_words * planes))
 
 
 def pack_rows(values: Dict[str, np.ndarray], ports, n_rows: int,
               n_cells: int, one_cell: Optional[int] = None,
-              pad_to: int = 1) -> np.ndarray:
-    """Pack per-row port integers into column-major word state
-    uint32[n_cells, n_words] (bit w of state[c, i] = cell c of row
-    32*i + w).  ``ports`` is a name -> cell-list mapping (or any object
+              pad_to: int = 1, layout: WordLayout = ROWS32) -> np.ndarray:
+    """Pack per-row port integers into column-major word state:
+    uint32[n_cells, n_words] under rows32 (bit w of state[c, i] = cell c
+    of row 32*i + w), planes-leading uint32[planes, n_cells, n_words]
+    under rows64.  ``ports`` is a name -> cell-list mapping (or any object
     with a ``.ports`` attribute); ``one_cell``, when given, is filled with
     ones (the schedule's folded INIT1 constant)."""
     ports = _ports_of(ports)
-    n_words = ROWS32.n_words(n_rows, pad_to)
-    state = np.zeros((n_cells, n_words), np.uint32)
+    n_words = layout.n_words(n_rows, pad_to)
+    state = np.zeros(layout.state_shape(n_cells, n_words), np.uint32)
     if one_cell is not None:
-        state[one_cell, :] = _FULL
+        state[..., one_cell, :] = _FULL
     for name, vals in values.items():
         cells = np.asarray(ports[name], np.int64)
-        state[cells, :] = _pack_port_words(vals, len(cells), n_words)
+        state[..., cells, :] = _pack_port_words(vals, len(cells), n_words,
+                                                layout)
     return state
 
 
@@ -485,22 +644,24 @@ def unpack_rows(state: np.ndarray, ports, n_rows: int,
                 names: Optional[Iterable[str]] = None
                 ) -> Dict[str, np.ndarray]:
     """Inverse of :func:`pack_rows` (row-major ints); ``names`` restricts
-    which ports are unpacked (default: all).  Ports wider than 63 cells
-    come back as object arrays of Python ints."""
+    which ports are unpacked (default: all).  The layout is read from the
+    state's rank.  Ports wider than 63 cells come back as object arrays
+    of Python ints."""
     ports = _ports_of(ports)
     names = list(ports if names is None else names)
     all_cells = np.concatenate(
         [np.asarray(ports[n], np.int64) for n in names]) if names else \
         np.zeros(0, np.int64)
-    return _unpack_sub(np.asarray(state)[all_cells],
-                       [(n, len(ports[n])) for n in names], n_rows)
+    state = np.asarray(state)
+    sub = state[all_cells] if state.ndim == 2 else state[:, all_cells]
+    return _unpack_sub(sub, [(n, len(ports[n])) for n in names], n_rows)
 
 
 def _unpack_sub(sub: np.ndarray, name_widths, n_rows: int
                 ) -> Dict[str, np.ndarray]:
-    """Unpack pre-gathered port rows (uint32[sum widths, n_words], stacked
-    in ``name_widths`` order)."""
-    sub = np.asarray(sub)
+    """Unpack pre-gathered port rows (stacked in ``name_widths`` order;
+    rows32 2-D or planes-leading 3-D)."""
+    sub = _sub_to_rows32(np.asarray(sub))
     out = {}
     off = 0
     for name, nc in name_widths:
@@ -555,39 +716,83 @@ def _dispatch_levelized(program, inputs: Dict[str, np.ndarray], n_rows: int,
     r = comp.resolve(program, plan, tuple(in_names))
     telemetry.record_dispatch(n_rows, r.model)
     device = str(torch.device(plan.device))
-    ex = pim_exec if plan.backend.name == "cuda" else kslots
+    layout = plan.layout
+    on_cuda = plan.backend.name == "cuda"
+    dense = r.kind == "dense"
     sched_args = (r.in_idx, r.la, r.lb, r.lo, r.out_idx)
     common = dict(n_cells=r.sched.n_cells, one_cell=r.one_cell,
-                  in_base=r.in_base, out_base=r.out_base,
                   words_per_cta=r.words_per_cta)
     vals = [np.asarray(inputs[n]) for n in in_names]
     if r.fused_ok and all(v.dtype != object for v in vals):
         in_vals = np.empty((len(vals), n_rows), np.uint32)
         for p, v in enumerate(vals):
             in_vals[p] = v                     # same-kind cast in place
-        outs = ex.slots_fused(_to_device(in_vals, device), *sched_args,
-                              in_widths=r.in_widths, out_widths=r.out_widths,
-                              **common)
+        x = _to_device(in_vals, device)
+        widths = dict(in_widths=r.in_widths, out_widths=r.out_widths)
+        if r.use_static and not on_cuda:
+            outs = comp.get_static_chain(program, plan, in_names, True,
+                                         r.in_widths, r.out_widths)(x)
+        elif r.use_static and r.in_base == 0:
+            outs = comp.get_static(program, plan, in_names, r.in_widths,
+                                   r.out_widths)(x)
+        elif not dense:
+            outs = (pim_exec if on_cuda else kslots).slots_fused(
+                x, *sched_args, in_base=r.in_base, out_base=r.out_base,
+                planes=layout.planes, **widths, **common)
+        else:
+            outs = (pim_exec.level_fused if on_cuda
+                    else kref.pim_exec_ref_level_fused)(
+                x, *sched_args, planes=layout.planes, **widths, **common)
 
         def finalize() -> Dict[str, np.ndarray]:
             o = _to_host(outs)                 # waits for the device
             return {n: o[p].astype(np.uint64) for p, n in enumerate(r.names)}
         return finalize
-    n_words = ROWS32.n_words(n_rows)
+    n_words = layout.n_words(n_rows)
     if in_names:
         in_rows = np.concatenate(
-            [_pack_port_words(inputs[n], len(r.sched.pack_cells(n)), n_words)
-             for n in in_names], axis=0)
+            [_pack_port_words(inputs[n], len(r.sched.pack_cells(n)), n_words,
+                              layout) for n in in_names], axis=-2)
     else:
-        in_rows = np.zeros((0, n_words), np.uint32)
-    sub = ex.slots_io(_to_device(in_rows, device), *sched_args,
-                      k_out=r.k_out, **common)
+        in_rows = np.zeros(layout.state_shape(0, n_words), np.uint32)
+    x = _to_device(in_rows, device)
+    if r.use_static and not on_cuda:
+        sub = comp.get_static_chain(program, plan, in_names, False,
+                                    r.in_widths, r.out_widths)(x)
+    elif not dense:
+        # (slots-static on cuda has no wide-port static kernel; the slot
+        # scan is the closest shape, as in the reference)
+        sub = (pim_exec if on_cuda else kslots).slots_io(
+            x, *sched_args, k_out=r.k_out, in_base=r.in_base,
+            out_base=r.out_base, **common)
+    else:
+        sub = (pim_exec.level_io if on_cuda else kref.pim_exec_ref_level_io)(
+            x, *sched_args, **common)
 
     def finalize():
         return _unpack_sub(_to_host(sub),
                            [(n, len(r.sched.ports[n])) for n in r.names],
                            n_rows)
     return finalize
+
+
+def _run_gate_serial(program, inputs: Dict[str, np.ndarray], n_rows: int,
+                     plan: ExecPlan) -> Dict[str, np.ndarray]:
+    """The gate-serial executor (B4, or its plain version on ``ref``):
+    the whole lowered state is packed on the host, run one gate at a
+    time, and unpacked."""
+    device = _device_of(plan)
+    comp = compiled(program, plan)
+    telemetry.record_dispatch(n_rows, comp.get_serial_model(program))
+    n_cells = comp.get_arrays(program)[4]
+    gates = comp.get_gates(program, device)
+    state = pack_rows(inputs, program.ports, n_rows, n_cells)
+    fn = pim_exec.gate_serial if plan.backend.name == "cuda" \
+        else kref.pim_exec_ref
+    final = fn(_to_device(state, device), *gates,
+               words_per_cta=plan.backend.words_per_cta)
+    return unpack_rows(_to_host(final), program.ports, n_rows,
+                       names=output_names(program))
 
 
 def run_program(program, inputs: Dict[str, np.ndarray], n_rows: int,
@@ -597,16 +802,17 @@ def run_program(program, inputs: Dict[str, np.ndarray], n_rows: int,
     """Element-parallel execution of a gate program over ``n_rows`` rows.
 
     ``plan`` is an :class:`ExecPlan` -- or a backend name ('cuda' the
-    Hopper kernel, 'ref' its plain PyTorch version, 'numpy' the
+    Hopper kernels, 'ref' their plain PyTorch versions, 'numpy' the
     gate-serial oracle); the keywords build a plan at this boundary.
+    'cuda' and 'ref' run the plan's levelized schedule by default;
+    ``levelized=False`` selects the gate-serial executors (rows32 only).
     Returns the program's output ports (every port for direction-less
     programs, the :func:`output_names` contract)."""
     plan = as_plan(plan, backend=backend, schedule=schedule, layout=layout,
                    device=device)
-    if not levelized:
-        raise NotImplementedError("the gate-serial executors "
-                                  "(levelized=False) are not ported yet "
-                                  "(ROADMAP A6)")
+    if not levelized and plan.layout.planes > 1:
+        raise ValueError(f"layout {plan.layout.name!r} requires the "
+                         "levelized executors")
     if plan.backend.name == "numpy":
         telemetry.record_dispatch(n_rows, _serial_model(program))
         state = pack_rows(inputs, program.ports, n_rows, program.n_cells)
@@ -614,6 +820,8 @@ def run_program(program, inputs: Dict[str, np.ndarray], n_rows: int,
         program.exec_packed(st)
         return unpack_rows(st.T, program.ports, n_rows,
                            names=output_names(program))
+    if not levelized:
+        return _run_gate_serial(program, inputs, n_rows, plan)
     return _dispatch_levelized(program, inputs, n_rows, plan)()
 
 

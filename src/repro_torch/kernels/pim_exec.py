@@ -1,15 +1,27 @@
 """Hopper kernels of the PIM executor: build, binding and wrappers.
 
-``csrc/slot_scan.cu`` holds the slot-scan kernel, the CUDA counterpart of
-``repro.kernels.pim_exec._slot_scan_kernel`` with the bit-transpose
-bridges of ``repro.kernels.slots`` fused into its ``fused`` entry.  It is
-compiled with ``nvcc`` for ``sm_90a`` into a shared library with a plain C
-interface at first use (``build/repro_torch/`` at the checkout root, keyed
-on the source hash) and bound with ``ctypes``.
+Four CUDA kernels, one per TPU kernel of ``repro.kernels.pim_exec``:
 
-The wrappers take the plain versions' signatures (``kernels.slots``).  On
-a CPU tensor they call the plain version; on a CUDA tensor they launch the
-kernel or raise.  Each launch adds one to :data:`LAUNCHES`.
+* ``csrc/slot_scan.cu`` (B1) -- the slot-scan kernel, the counterpart of
+  ``_slot_scan_kernel``, with the bit-transpose bridges of
+  ``repro.kernels.slots`` fused into its ``fused`` entry;
+* ``csrc/level_gather.cu`` (B3) -- the dense-schedule kernel, the
+  counterpart of ``_pim_level_gather_kernel``;
+* a generated static-slice kernel per slot schedule (B2), the counterpart
+  of ``_pim_level_kernel``: :func:`static_source` writes the schedule out
+  as straight-line CUDA with every cell offset a constant;
+* ``csrc/gate_serial.cu`` (B4) -- the gate-serial kernel, the counterpart
+  of ``_pim_kernel``.
+
+B1, B2 and B3 share ``csrc/pim_state.cuh`` and run both word layouts.
+Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
+with a plain C interface at first use (``build/repro_torch/`` at the
+checkout root, keyed on the source's hash) and bound with ``ctypes``.
+
+The wrappers take the plain versions' signatures (``kernels.slots`` and
+``kernels.ref``).  On a CPU tensor they call the plain version; on a CUDA
+tensor they launch the kernel or raise.  Each launch adds one to its entry
+in :data:`LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -19,46 +31,70 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict, Optional, Sequence
 
 import torch
 
+from . import ref as kref
 from . import slots as kslots
-from .plan import SLOT_WIDTH
+from .plan import LEVEL_MAX_WIDTH, SLOT_SEG_LEVELS, SLOT_WIDTH, WORDS_PER_CTA
 
 _PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
 #: kernel name -> CUDA source
-SOURCES = {"slot_scan": _PKG / "csrc" / "slot_scan.cu"}
+SOURCES = {"slot_scan": CSRC / "slot_scan.cu",
+           "level_gather": CSRC / "level_gather.cu",
+           "gate_serial": CSRC / "gate_serial.cu"}
+#: Headers the sources include; part of every build's key.
+HEADERS = (CSRC / "pim_state.cuh",)
 BUILD_DIR = _PKG.parent.parent / "build" / "repro_torch"
 #: The CUDA toolkit consulted when ``nvcc`` is not on ``PATH``.
 CUDA_HOME = os.environ.get("CUDA_HOME", "/usr/local/cuda")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              f"-DPIM_LEVEL_MAX_WIDTH={LEVEL_MAX_WIDTH}")
 
-#: Kernel launches per entry (a launch is counted where it is issued).
-LAUNCHES = {"slot_scan_fused": 0, "slot_scan_io": 0}
+#: Kernel launches per entry (a launch is counted where it is issued);
+#: entries under the rows64 layout carry a ``_rows64`` suffix.
+LAUNCHES = {f"{e}{sfx}": 0
+            for e in ("slot_scan_fused", "slot_scan_io",
+                      "level_gather_fused", "level_gather_io",
+                      "slots_static_fused")
+            for sfx in ("", "_rows64")}
+LAUNCHES["gate_serial"] = 0
 
 #: Dynamic shared memory one CTA may opt into on sm_90 (227 KB).
 SMEM_PER_CTA = 232448
 
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[Path, ctypes.CDLL] = {}
+_named_libs: Dict[str, ctypes.CDLL] = {}
 _width_tensors: Dict[tuple, torch.Tensor] = {}
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_FUSED_ARGS = [_P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P,
+               _LL, _I, _I, _I, _I, _P]
+_IO_ARGS = [_P, _P, _I, _P, _P, _P, _I, _I, _P, _I, _P, _LL, _I, _I, _I, _I,
+            _P]
 _ARGTYPES = {
-    "slot_scan_fused": [_P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _P, _P, _I,
-                        _I, _P, _LL, _I, _I, _I, _P],
-    "slot_scan_io": [_P, _P, _I, _P, _P, _P, _I, _I, _P, _I, _P, _LL, _I,
-                     _I, _I, _P],
+    "slot_scan_fused": _FUSED_ARGS, "slot_scan_io": _IO_ARGS,
+    "level_gather_fused": _FUSED_ARGS, "level_gather_io": _IO_ARGS,
+    "gate_serial": [_P, _P, _P, _I, _LL, _I, _I, _P],
+    "slots_static_fused": [_P, _P, _I, _P, _I, _P, _P, _I, _I, _P, _LL, _I,
+                           _I, _I, _P],
 }
 
 
 def reset_counts() -> None:
     """Zero the kernel launch counters and the plain versions' counters."""
-    for counts in (LAUNCHES, kslots.CALLS):
+    for counts in (LAUNCHES, kslots.CALLS, kref.CALLS):
         for k in counts:
             counts[k] = 0
+
+
+def _entry(name: str, planes: int) -> str:
+    return name if planes == 1 else f"{name}_rows64"
 
 
 # --------------------------------------------------------------------------
@@ -76,52 +112,93 @@ def _nvcc() -> str:
                        "CUDA toolkit on the machine with the card")
 
 
-def _so_path(name: str) -> Path:
-    h = hashlib.sha256(SOURCES[name].read_bytes())
+def _build_key(source: bytes) -> str:
+    h = hashlib.sha256(source)
+    for header in HEADERS:
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    return h.hexdigest()[:16]
 
 
-def build(names: Optional[Sequence[str]] = None) -> Dict[str, str]:
-    """Compile the named kernels (default: all) that are not built yet,
-    one ``nvcc`` per source, all started together; returns each fresh
-    build's compiler report (``-Xptxas -v``: registers, shared memory,
-    spills).  Raises with the compiler's output if a build fails."""
-    names = list(SOURCES if names is None else names)
-    todo = [n for n in names if not _so_path(n).exists()]
-    if not todo:
-        return {}
+def _so_path(name: str) -> Path:
+    return BUILD_DIR / f"{name}-{_build_key(SOURCES[name].read_bytes())}.so"
+
+
+def _compile(jobs: Dict[str, tuple]) -> Dict[str, tuple]:
+    """Run one ``nvcc`` per job (name -> (source, library path)), all
+    started together; returns name -> (compiler report, seconds from the
+    start to that job's end).  Raises with the compiler's output if any
+    build fails."""
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for n in todo:
-        tmp = _so_path(n).with_suffix(f".{os.getpid()}.tmp")
-        procs[n] = (tmp, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[n])],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    logs, failed = {}, []
-    for n, (tmp, proc) in procs.items():
-        logs[n] = proc.communicate()[0]
+    t0 = time.perf_counter()
+    for n, (src, so) in jobs.items():
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        log = so.with_suffix(f".{os.getpid()}.log")
+        with open(log, "w") as f:      # a file, not a pipe: no job blocks
+            proc = subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+                 str(src)], stdout=f, stderr=subprocess.STDOUT)
+        procs[n] = (so, tmp, log, proc)
+    done: Dict[str, float] = {}
+    while len(done) < len(procs):
+        for n, (_, _, _, proc) in procs.items():
+            if n not in done and proc.poll() is not None:
+                done[n] = time.perf_counter() - t0
+        time.sleep(0.05)
+    out, failed = {}, []
+    for n, (so, tmp, log, proc) in procs.items():
+        out[n] = (log.read_text(), done[n])
+        log.unlink()
         if proc.returncode:
             failed.append(n)
         else:
-            os.replace(tmp, _so_path(n))
+            os.replace(tmp, so)
     if failed:
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n" +
-                           "\n".join(logs[n] for n in failed))
-    return logs
+                           "\n".join(out[n][0] for n in failed))
+    return out
 
 
-def _lib(name: str) -> ctypes.CDLL:
-    lib = _libs.get(name)
+def build(names: Optional[Sequence[str]] = None,
+          static: Sequence["StaticKernel"] = ()) -> Dict[str, tuple]:
+    """Compile the named fixed kernels (default: all) and the generated
+    ``static`` kernels that are not built yet, one ``nvcc`` per source,
+    all started together; returns each fresh build's (compiler report,
+    seconds), keyed by kernel name or static library name.  The report is
+    ``-Xptxas -v``'s: registers, shared memory, spills."""
+    names = list(SOURCES if names is None else names)
+    todo = {n: (SOURCES[n], _so_path(n)) for n in names
+            if not _so_path(n).exists()}
+    fresh = {k.so.name: k for k in static if not k.built}
+    if not todo and not fresh:
+        return {}
+    _nvcc()                          # raise before writing any source
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    for n, k in fresh.items():
+        k.cu.write_text(k.source)
+        todo[n] = (k.cu, k.so)
+    return _compile(todo)
+
+
+def _load(so: Path) -> ctypes.CDLL:
+    lib = _libs.get(so)
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(_so_path(name)))
+        lib = ctypes.CDLL(str(so))
         for fn, argtypes in _ARGTYPES.items():
             if hasattr(lib, fn):
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int
-        _libs[name] = lib
+        _libs[so] = lib
+    return lib
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    lib = _named_libs.get(name)
+    if lib is None:
+        build([name])
+        lib = _named_libs[name] = _load(_so_path(name))
     return lib
 
 
@@ -129,15 +206,16 @@ def _lib(name: str) -> ctypes.CDLL:
 # launch shape
 # --------------------------------------------------------------------------
 
-def fit_words_per_cta(n_cells: int, cap: int) -> int:
-    """Words per CTA for a state of ``n_cells`` cells: at most ``cap``, at
-    most what fits in one CTA's shared memory, and a multiple of 32 (one
-    warp) from 32 up.  Raises when a single 32-row column of the state
-    does not fit."""
-    fit = SMEM_PER_CTA // (4 * max(int(n_cells), 1))
+def fit_words_per_cta(n_cells: int, cap: int, planes: int = 1) -> int:
+    """Words per CTA for a state of ``n_cells`` cells of ``planes`` 32-bit
+    planes: at most ``cap``, at most what fits in one CTA's shared memory,
+    and a multiple of 32 (one warp) from 32 up.  Raises when a single word
+    column of the state does not fit."""
+    col_bytes = 4 * planes * max(int(n_cells), 1)
+    fit = SMEM_PER_CTA // col_bytes
     if fit < 1:
         raise ValueError(
-            f"a program state of {n_cells} cells needs {4 * n_cells} B of "
+            f"a program state of {n_cells} cells needs {col_bytes} B of "
             f"shared memory per word column, more than the {SMEM_PER_CTA} B "
             "a CTA can hold")
     wpc = max(1, min(int(cap), fit, 1024))
@@ -153,6 +231,12 @@ def _widths_tensor(widths: Sequence[int], device) -> torch.Tensor:
     return t
 
 
+def _on_cuda(x: torch.Tensor, entry: str) -> torch.device:
+    if x.device.type != "cuda":
+        raise ValueError(f"{entry} runs on CUDA tensors, got {x.device}")
+    return x.device
+
+
 def _check(device, **tensors) -> None:
     for name, t in tensors.items():
         if t.device != device:
@@ -163,16 +247,20 @@ def _check(device, **tensors) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def _schedule_args(la, lb, lo):
+def _schedule_args(la, lb, lo, dense: bool = False):
+    """(n_levels, width) of the schedule operands; refuses a width the
+    kernel is not built for (a gate-free schedule passes at any width)."""
     if la.dim() != 2 or la.shape != lb.shape or la.shape != lo.shape:
         raise ValueError(f"schedule operands must share one 2-D shape, got "
                          f"{tuple(la.shape)}, {tuple(lb.shape)}, "
                          f"{tuple(lo.shape)}")
     n_levels, width = la.shape
-    if n_levels and width != SLOT_WIDTH:
+    if n_levels and dense and not 1 <= width <= LEVEL_MAX_WIDTH:
+        raise ValueError(f"the level-gather kernel runs dense schedules of "
+                         f"1 to {LEVEL_MAX_WIDTH} lanes, got {width}")
+    if n_levels and not dense and width != SLOT_WIDTH:
         raise ValueError(f"the slot-scan kernel runs slot width {SLOT_WIDTH} "
-                         f"only, got {width}; other widths come with the "
-                         "dense schedule (ROADMAP A6)")
+                         f"only, got {width}")
     return n_levels, width
 
 
@@ -185,30 +273,20 @@ def _raise_on(err: int, entry: str) -> None:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
 
 
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
 # --------------------------------------------------------------------------
-# wrappers
+# B1 and B3: the slot-scan and level-gather wrappers
 # --------------------------------------------------------------------------
 
-def slots_fused(in_vals, in_idx, la, lb, lo, out_idx, *, n_cells, one_cell,
-                in_widths, out_widths, in_base: Optional[int] = None,
-                out_base: Optional[int] = None,
-                words_per_cta: int = 32):
-    """Fused slot executor: per-row values int32[n_in_ports, n_rows] in,
-    int32[n_out_ports, n_rows] out (ports of <= 32 cells, any ``n_rows``).
-    The kernel reads the input and output cells through ``in_idx`` /
-    ``out_idx``; ``in_base``/``out_base`` only steer the plain version.
-    ``words_per_cta`` caps the CTA width (see :func:`fit_words_per_cta`)."""
-    if in_vals.device.type == "cpu":
-        return kslots.slots_fused(
-            in_vals, in_idx, la, lb, lo, out_idx, n_cells=n_cells,
-            one_cell=one_cell, in_widths=in_widths, out_widths=out_widths,
-            in_base=in_base, out_base=out_base)
-    dev = in_vals.device
-    if dev.type != "cuda":
-        raise ValueError(f"slot_scan_fused runs on CUDA tensors, got {dev}")
+def _fused(lib_name, entry, in_vals, in_idx, la, lb, lo, out_idx, *, dense,
+           n_cells, one_cell, in_widths, out_widths, planes, words_per_cta):
+    dev = _on_cuda(in_vals, entry)
     _check(dev, in_vals=in_vals, in_idx=in_idx, la=la, lb=lb, lo=lo,
            out_idx=out_idx)
-    n_levels, width = _schedule_args(la, lb, lo)
+    n_levels, width = _schedule_args(la, lb, lo, dense)
     if in_vals.dim() != 2 or in_vals.shape[0] != len(in_widths):
         raise ValueError(f"in_vals must be [{len(in_widths)}, n_rows], got "
                          f"{tuple(in_vals.shape)}")
@@ -217,61 +295,350 @@ def slots_fused(in_vals, in_idx, la, lb, lo, out_idx, *, n_cells, one_cell,
     if in_idx.numel() != sum(in_widths) or \
             out_idx.numel() != sum(out_widths):
         raise ValueError("in_idx/out_idx must stack every port cell")
+    if planes not in (1, 2):
+        raise ValueError(f"planes must be 1 or 2, got {planes}")
     n_rows = in_vals.shape[1]
     out = torch.empty((len(out_widths), n_rows), dtype=torch.int32,
                       device=dev)
     if n_rows == 0 or not out_widths:
         return out
-    wpc = fit_words_per_cta(n_cells, words_per_cta)
-    lib = _lib("slot_scan")
+    wpc = fit_words_per_cta(n_cells, words_per_cta, planes)
+    fn = getattr(_lib(lib_name), entry)
     with torch.cuda.device(dev):
-        err = lib.slot_scan_fused(
-            _ptr(in_vals), _widths_tensor(in_widths, dev).data_ptr(),
-            len(in_widths), _ptr(in_idx), in_idx.numel(),
-            _ptr(la), _ptr(lb), _ptr(lo), n_levels, width, _ptr(out_idx),
-            _widths_tensor(out_widths, dev).data_ptr(), len(out_widths),
-            out_idx.numel(), out.data_ptr(), n_rows, n_cells,
-            -1 if one_cell is None else int(one_cell), wpc,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "slot_scan_fused")
-    LAUNCHES["slot_scan_fused"] += 1
+        err = fn(_ptr(in_vals), _widths_tensor(in_widths, dev).data_ptr(),
+                 len(in_widths), _ptr(in_idx), in_idx.numel(), _ptr(la),
+                 _ptr(lb), _ptr(lo), n_levels, width, _ptr(out_idx),
+                 _widths_tensor(out_widths, dev).data_ptr(), len(out_widths),
+                 out_idx.numel(), out.data_ptr(), n_rows, planes, n_cells,
+                 -1 if one_cell is None else int(one_cell), wpc,
+                 _stream(dev))
+    _raise_on(err, entry)
+    LAUNCHES[_entry(entry, planes)] += 1
     return out
+
+
+def _io(lib_name, entry, in_rows, in_idx, la, lb, lo, out_idx, *, dense,
+        n_cells, one_cell, k_out, words_per_cta):
+    dev = _on_cuda(in_rows, entry)
+    _check(dev, in_rows=in_rows, in_idx=in_idx, la=la, lb=lb, lo=lo,
+           out_idx=out_idx)
+    n_levels, width = _schedule_args(la, lb, lo, dense)
+    planes = 1 if in_rows.dim() == 2 else in_rows.shape[0]
+    if in_rows.dim() not in (2, 3) or planes not in (1, 2) or \
+            in_rows.shape[-2] != in_idx.numel():
+        raise ValueError(f"in_rows must be [{in_idx.numel()}, n_words] or "
+                         f"[2, {in_idx.numel()}, n_words], got "
+                         f"{tuple(in_rows.shape)}")
+    if out_idx.numel() != k_out:
+        raise ValueError(f"out_idx has {out_idx.numel()} cells, k_out is "
+                         f"{k_out}")
+    n_words = in_rows.shape[-1]
+    out = torch.empty(kslots.plane_shape(planes, k_out, n_words),
+                      dtype=torch.int32, device=dev)
+    if n_words == 0 or k_out == 0:
+        return out
+    wpc = fit_words_per_cta(n_cells, words_per_cta, planes)
+    fn = getattr(_lib(lib_name), entry)
+    with torch.cuda.device(dev):
+        err = fn(_ptr(in_rows), _ptr(in_idx), in_idx.numel(), _ptr(la),
+                 _ptr(lb), _ptr(lo), n_levels, width, _ptr(out_idx), k_out,
+                 out.data_ptr(), n_words, planes, n_cells,
+                 -1 if one_cell is None else int(one_cell), wpc,
+                 _stream(dev))
+    _raise_on(err, entry)
+    LAUNCHES[_entry(entry, planes)] += 1
+    return out
+
+
+def slots_fused(in_vals, in_idx, la, lb, lo, out_idx, *, n_cells, one_cell,
+                in_widths, out_widths, in_base: Optional[int] = None,
+                out_base: Optional[int] = None, planes: int = 1,
+                words_per_cta: int = WORDS_PER_CTA):
+    """Fused slot executor (B1): per-row values int32[n_in_ports, n_rows]
+    in, int32[n_out_ports, n_rows] out (ports of <= 32 cells, any
+    ``n_rows``, ``planes`` the word layout).  The kernel reads the input
+    and output cells through ``in_idx``/``out_idx``; ``in_base``/
+    ``out_base`` only steer the plain version.  ``words_per_cta`` caps the
+    CTA width (see :func:`fit_words_per_cta`)."""
+    if in_vals.device.type == "cpu":
+        return kslots.slots_fused(
+            in_vals, in_idx, la, lb, lo, out_idx, n_cells=n_cells,
+            one_cell=one_cell, in_widths=in_widths, out_widths=out_widths,
+            in_base=in_base, out_base=out_base, planes=planes)
+    return _fused("slot_scan", "slot_scan_fused", in_vals, in_idx, la, lb,
+                  lo, out_idx, dense=False, n_cells=n_cells,
+                  one_cell=one_cell, in_widths=in_widths,
+                  out_widths=out_widths, planes=planes,
+                  words_per_cta=words_per_cta)
 
 
 def slots_io(in_rows, in_idx, la, lb, lo, out_idx, *, n_cells, one_cell,
              k_out, in_base: Optional[int] = None,
-             out_base: Optional[int] = None, words_per_cta: int = 32):
-    """Slot executor over pre-packed port rows: int32[k_in, n_words] in,
-    int32[k_out, n_words] out (any port width)."""
+             out_base: Optional[int] = None,
+             words_per_cta: int = WORDS_PER_CTA):
+    """Slot executor over pre-packed port rows (B1): int32[k_in, n_words]
+    in, int32[k_out, n_words] out (planes-leading under rows64; any port
+    width)."""
     if in_rows.device.type == "cpu":
         return kslots.slots_io(
             in_rows, in_idx, la, lb, lo, out_idx, n_cells=n_cells,
             one_cell=one_cell, k_out=k_out, in_base=in_base,
             out_base=out_base)
-    dev = in_rows.device
-    if dev.type != "cuda":
-        raise ValueError(f"slot_scan_io runs on CUDA tensors, got {dev}")
-    _check(dev, in_rows=in_rows, in_idx=in_idx, la=la, lb=lb, lo=lo,
-           out_idx=out_idx)
-    n_levels, width = _schedule_args(la, lb, lo)
-    if in_rows.dim() != 2 or in_rows.shape[0] != in_idx.numel():
-        raise ValueError(f"in_rows must be [{in_idx.numel()}, n_words], got "
-                         f"{tuple(in_rows.shape)}")
-    if out_idx.numel() != k_out:
-        raise ValueError(f"out_idx has {out_idx.numel()} cells, k_out is "
-                         f"{k_out}")
-    n_words = in_rows.shape[1]
-    out = torch.empty((k_out, n_words), dtype=torch.int32, device=dev)
-    if n_words == 0 or k_out == 0:
+    return _io("slot_scan", "slot_scan_io", in_rows, in_idx, la, lb, lo,
+               out_idx, dense=False, n_cells=n_cells, one_cell=one_cell,
+               k_out=k_out, words_per_cta=words_per_cta)
+
+
+def level_fused(in_vals, in_idx, la, lb, lo, out_idx, *, n_cells, one_cell,
+                in_widths, out_widths, planes: int = 1,
+                words_per_cta: int = WORDS_PER_CTA):
+    """Fused dense executor (B3), the signature of
+    ``ref.pim_exec_ref_level_fused``: per-row values in and out, a dense
+    schedule of up to 8 lanes in between."""
+    if in_vals.device.type == "cpu":
+        return kref.pim_exec_ref_level_fused(
+            in_vals, in_idx, la, lb, lo, out_idx, n_cells=n_cells,
+            one_cell=one_cell, in_widths=in_widths, out_widths=out_widths,
+            planes=planes)
+    return _fused("level_gather", "level_gather_fused", in_vals, in_idx, la,
+                  lb, lo, out_idx, dense=True, n_cells=n_cells,
+                  one_cell=one_cell, in_widths=in_widths,
+                  out_widths=out_widths, planes=planes,
+                  words_per_cta=words_per_cta)
+
+
+def level_io(in_rows, in_idx, la, lb, lo, out_idx, *, n_cells,
+             one_cell=None, words_per_cta: int = WORDS_PER_CTA):
+    """Dense executor over pre-packed port rows (B3), the signature of
+    ``ref.pim_exec_ref_level_io``: int32[k_in, n_words] in (planes-leading
+    under rows64), the ``out_idx`` rows out."""
+    if in_rows.device.type == "cpu":
+        return kref.pim_exec_ref_level_io(
+            in_rows, in_idx, la, lb, lo, out_idx, n_cells=n_cells,
+            one_cell=one_cell)
+    return _io("level_gather", "level_gather_io", in_rows, in_idx, la, lb,
+               lo, out_idx, dense=True, n_cells=n_cells, one_cell=one_cell,
+               k_out=out_idx.numel(), words_per_cta=words_per_cta)
+
+
+# --------------------------------------------------------------------------
+# B4: the gate-serial wrapper
+# --------------------------------------------------------------------------
+
+def gate_serial(state, ops, a, b, o, *, words_per_cta: int = WORDS_PER_CTA):
+    """Gate-serial executor (B4), the signature of ``ref.pim_exec_ref``:
+    the lowered stream ``ops/a/b/o`` (int32[n_gates] each) over the whole
+    state int32[n_cells, n_words]; returns the final state (a new tensor
+    on the card, ``state`` itself on the CPU).  The kernel indexes shared
+    memory with ``a``/``b``/``o`` unchecked: callers pass a lowered
+    program's own arrays (``kernels.ops`` checks them once)."""
+    if state.device.type == "cpu":
+        return kref.pim_exec_ref(state, ops, a, b, o)
+    dev = _on_cuda(state, "gate_serial")
+    _check(dev, state=state, ops=ops, a=a, b=b, o=o)
+    if state.dim() != 2:
+        raise ValueError(f"the gate-serial kernel runs rows32 states "
+                         f"[n_cells, n_words], got {tuple(state.shape)}")
+    n_gates = ops.numel()
+    if not (a.numel() == b.numel() == o.numel() == n_gates):
+        raise ValueError("ops/a/b/o must have one entry per gate")
+    n_cells, n_words = state.shape
+    out = torch.empty_like(state)
+    if n_words == 0 or n_cells == 0:
         return out
+    gates = torch.stack((ops, a, b, o), dim=1).contiguous()
     wpc = fit_words_per_cta(n_cells, words_per_cta)
-    lib = _lib("slot_scan")
     with torch.cuda.device(dev):
-        err = lib.slot_scan_io(
-            _ptr(in_rows), _ptr(in_idx), in_idx.numel(), _ptr(la), _ptr(lb),
-            _ptr(lo), n_levels, width, _ptr(out_idx), k_out, out.data_ptr(),
-            n_words, n_cells, -1 if one_cell is None else int(one_cell), wpc,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "slot_scan_io")
-    LAUNCHES["slot_scan_io"] += 1
+        err = _lib("gate_serial").gate_serial(
+            state.data_ptr(), out.data_ptr(), _ptr(gates), n_gates, n_words,
+            n_cells, wpc, _stream(dev))
+    _raise_on(err, "gate_serial")
+    LAUNCHES["gate_serial"] += 1
     return out
+
+
+# --------------------------------------------------------------------------
+# B2: the generated static-slice kernel
+# --------------------------------------------------------------------------
+
+_STATIC_HEAD = """\
+// Static-slice executor for one slot schedule, written by
+// repro_torch.kernels.pim_exec.static_source: {n_levels} levels, {n_gates}
+// NOR lanes, {n_cells} cells, planes = {planes}, {wpc} words per CTA.
+//
+// Replaces the TPU kernel `_pim_level_kernel` (src/repro/kernels/pim_exec.py,
+// built by `make_slots_static`), with the fused bit-transpose bridges of
+// pim_state.cuh.  The slot-scan kernel (slot_scan.cu) runs the same schedule
+// from index arrays; here every level is unrolled and every cell offset is a
+// compile-time constant (`s[cell * {wpc}]`), so the level body is shared
+// loads, NORs and shared stores with immediate offsets and no index loads.
+// Only each level's real lanes are emitted, {n_fns} device function(s) of
+// at most {fn_levels} levels.  What bounds it: the slot scan's shared-memory
+// traffic without its index loads, and the instruction stream itself (one
+// instruction per shared access, far more than the instruction cache holds).
+
+#include "pim_state.cuh"
+
+namespace {{
+
+constexpr int P = {planes};
+constexpr int WPC = {wpc};
+constexpr int N_CELLS = {n_cells};
+using T = pim::WordOf<P>::T;
+"""
+
+_STATIC_TAIL = """
+__global__ void __launch_bounds__(1024) slots_static_kernel(
+    const pim::Params p) {{
+  pim::run<P, true>(p, [](int col) {{
+{calls}  }});
+}}
+
+}}  // namespace
+
+// Returns cudaGetLastError() of the launch (0 on success).
+extern "C" int slots_static_fused(
+    const void* in_vals, const void* in_widths, int n_in_ports,
+    const void* in_idx, int k_in, const void* out_idx,
+    const void* out_widths, int n_out_ports, int k_out, void* out_vals,
+    long long n_rows, int n_cells, int one_cell, int wpc, void* stream) {{
+  if (wpc != WPC || n_cells != N_CELLS) {{
+    return static_cast<int>(cudaErrorInvalidValue);
+  }}
+  const pim::Params p = pim::fused_params(
+      in_vals, in_widths, n_in_ports, in_idx, k_in, out_idx, out_widths,
+      n_out_ports, k_out, out_vals, n_rows, P, n_cells, one_cell, wpc);
+  return pim::launch<P>(slots_static_kernel, p, stream);
+}}
+"""
+
+
+def static_source(sched, planes: int, wpc: int,
+                  split: Optional[int] = None) -> str:
+    """CUDA source of the static-slice kernel for slot schedule ``sched``
+    under ``planes`` and ``wpc`` words per CTA: per level, its real lanes'
+    operands are read into registers, NORed, and written to the band at
+    constant offsets.  The body is one device function; ``split`` cuts it
+    into ``__noinline__`` functions of that many levels instead, which
+    only ``chip_smoke.py --split-probe`` builds (PERF.md: whole compiles in
+    seconds and runs no slower)."""
+    if sched.alloc != "slots":
+        raise ValueError("static emission requires a slot schedule "
+                         f"(got alloc={sched.alloc!r})")
+    seg = max(int(split or sched.n_levels), 1)
+    parts = [_STATIC_HEAD.format(
+        n_levels=sched.n_levels, n_gates=int(sched.level_width.sum()),
+        n_cells=sched.n_cells, planes=planes, wpc=wpc,
+        n_fns=-(-sched.n_levels // seg), fn_levels=seg)]
+    calls = []
+    for lo_row in range(0, sched.n_levels, seg):
+        name = f"seg{lo_row // seg}"
+        calls.append(f"    {name}(col);\n")
+        body = [f"\n__device__ __noinline__ void {name}(int col) {{\n",
+                "  T* s = pim::state<P>() + col;\n"]
+        for l in range(lo_row, min(lo_row + seg, sched.n_levels)):
+            w = int(sched.level_width[l])
+            off = int(sched.out[l, 0])
+            reads = " ".join(
+                f"const T v{k} = ~(s[{int(sched.a[l, k]) * wpc}] | "
+                f"s[{int(sched.b[l, k]) * wpc}]);" for k in range(w))
+            writes = " ".join(f"s[{(off + k) * wpc}] = v{k};"
+                              for k in range(w))
+            body.append(f"  {{ {reads} {writes} }}\n")
+        body.append("}\n")
+        parts.append("".join(body))
+    parts.append(_STATIC_TAIL.format(calls="".join(calls)))
+    return "".join(parts)
+
+
+class StaticKernel:
+    """B2 for one slot schedule, port widths and layout: the generated
+    kernel's source and library, and its plain version
+    (``slots.build_static_chain``), behind one call with the signature of
+    the reference's ``make_slots_static`` result: ``run(in_vals)``,
+    per-row values int32[n_in_ports, n_rows] in (any ``n_rows``),
+    int32[n_out_ports, n_rows] out.  On a CPU tensor it runs the plain
+    chain; on a CUDA tensor it launches the kernel, built by
+    :meth:`build` (:func:`build` builds several at once).  ``seg_levels``
+    is the plain chain's segment size; ``split`` goes to
+    :func:`static_source`."""
+
+    def __init__(self, sched, in_widths, out_widths, out_names, in_cells, *,
+                 planes: int = 1, words_per_cta: int = WORDS_PER_CTA,
+                 seg_levels: int = SLOT_SEG_LEVELS,
+                 split: Optional[int] = None):
+        self.sched = sched
+        self.in_widths = tuple(int(w) for w in in_widths)
+        self.out_widths = tuple(int(w) for w in out_widths)
+        self.out_names = list(out_names)
+        self.in_cells = [int(c) for c in in_cells]
+        if max(self.in_widths + self.out_widths, default=0) > 32:
+            raise ValueError("the static kernel takes ports of at most 32 "
+                             "cells")
+        self.planes = planes
+        self.seg_levels = seg_levels
+        self.wpc = fit_words_per_cta(sched.n_cells, words_per_cta, planes)
+        self.source = static_source(sched, planes, self.wpc, split)
+        key = _build_key(self.source.encode())
+        self.cu = BUILD_DIR / f"slots_static-{key}.cu"
+        self.so = BUILD_DIR / f"slots_static-{key}.so"
+        self._plain = None
+        self._idx: Dict[str, tuple] = {}
+
+    @property
+    def built(self) -> bool:
+        return self.so.exists()
+
+    def build(self) -> Dict[str, tuple]:
+        """Compile the kernel unless it is built; returns {library name:
+        (compiler report, seconds)} for a fresh build."""
+        return build([], static=[self])
+
+    def plain(self, in_vals):
+        if self._plain is None:
+            self._plain = kslots.build_static_chain(
+                self.sched, self.in_widths, self.out_widths, self.out_names,
+                self.in_cells, seg_levels=self.seg_levels, fused=True,
+                planes=self.planes)
+        return self._plain(in_vals)
+
+    def _operands(self, dev):
+        key = str(dev)
+        if key not in self._idx:
+            s = self.sched
+            out_cells = [c for n in self.out_names for c in s.ports[n]]
+            self._idx[key] = tuple(
+                torch.tensor(c or [0], dtype=torch.int32, device=dev)
+                for c in (self.in_cells, out_cells))
+        return self._idx[key]
+
+    def __call__(self, in_vals):
+        if in_vals.device.type == "cpu":
+            return self.plain(in_vals)
+        dev = _on_cuda(in_vals, "slots_static_fused")
+        _check(dev, in_vals=in_vals)
+        if in_vals.dim() != 2 or in_vals.shape[0] != len(self.in_widths):
+            raise ValueError(f"in_vals must be [{len(self.in_widths)}, "
+                             f"n_rows], got {tuple(in_vals.shape)}")
+        n_rows = in_vals.shape[1]
+        out = torch.empty((len(self.out_widths), n_rows), dtype=torch.int32,
+                          device=dev)
+        if n_rows == 0 or not self.out_widths:
+            return out
+        if not self.built:
+            self.build()
+        in_idx, out_idx = self._operands(dev)
+        s = self.sched
+        with torch.cuda.device(dev):
+            err = _load(self.so).slots_static_fused(
+                _ptr(in_vals), _widths_tensor(self.in_widths, dev).data_ptr(),
+                len(self.in_widths), in_idx.data_ptr(), len(self.in_cells),
+                out_idx.data_ptr(),
+                _widths_tensor(self.out_widths, dev).data_ptr(),
+                len(self.out_widths), sum(self.out_widths), out.data_ptr(),
+                n_rows, s.n_cells,
+                -1 if s.one_cell is None else int(s.one_cell), self.wpc,
+                _stream(dev))
+        _raise_on(err, "slots_static_fused")
+        LAUNCHES[_entry("slots_static_fused", self.planes)] += 1
+        return out

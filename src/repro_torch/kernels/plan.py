@@ -5,10 +5,11 @@ The PyTorch/CUDA counterpart of ``repro.kernels.plan``:
 * :class:`WordLayout` -- how rows pack into the trailing word axis of the
   executor state (``rows32``: 32 rows per 32-bit word, state
   ``[n_cells, n_words]``; ``rows64``: 64 rows per word pair, a leading
-  plane axis of 2).  Only ``rows32`` executes in this package so far.
+  plane axis of 2).
 * :class:`Backend` -- the executor family plus its tunables.  ``cuda`` is
-  the hand-written Hopper kernel (``kernels.pim_exec``), ``ref`` its plain
-  PyTorch version (``kernels.slots``), ``numpy`` the gate-serial oracle.
+  the hand-written Hopper kernels (``kernels.pim_exec``), ``ref`` their
+  plain PyTorch versions (``kernels.slots``, ``kernels.ref``), ``numpy``
+  the gate-serial oracle.
 * :class:`ExecPlan` -- one immutable description of how a program runs:
   backend, schedule kind, word layout, streaming chunk size and the torch
   device.  ``plan.key`` is the full execution identity, ``plan.compile_key``
@@ -27,9 +28,14 @@ import torch
 
 from ..runtime.faults import FaultModel, VerifyPolicy
 
-# Schedule compilation modes.  Only the contiguous-slot schedule has an
-# executor here; the others are named so that asking for them fails loudly
-# instead of silently running something else.
+# Schedule compilation modes, as in the reference:
+#   'slots'        -- contiguous-slot schedule, slot-scan executor (B1);
+#   'slots-static' -- slot schedule, straight-line executor: the generated
+#                     static-slice kernel (B2) on 'cuda' for fused calls
+#                     whose inputs are the leading run, the segmented
+#                     static chain on 'ref';
+#   'dense'        -- dense index-matrix schedule, gather -> NOR -> scatter
+#                     per level (B3).
 DEFAULT_SCHEDULE = "slots"
 SCHEDULES = ("slots", "slots-static", "dense")
 
@@ -74,9 +80,16 @@ DEFAULT_LAYOUT = ROWS32
 
 # Canonical tunable defaults, read by the Backend descriptors below.
 #
-# SLOT_WIDTH: W of the contiguous-slot allocator.  It stays at the
-# reference's 6 so both packages levelize to byte-identical schedules (the
-# parity tests hold the executors against each other on those).
+# SLOT_WIDTH: W of the contiguous-slot allocator, and LEVEL_MAX_WIDTH the
+# dense schedule's width cap.  Both stay at the reference's 6 and 8 so both
+# packages levelize to byte-identical schedules (the parity tests hold the
+# executors against each other on those).  They are also what the kernels
+# are built for: the slot scan runs W = 6 only, and the level gather
+# unrolls to LEVEL_MAX_WIDTH lanes (kMaxWidth in csrc/level_gather.cu), so
+# a cuda plan may narrow the dense cap but not widen it.
+# SLOT_SEG_LEVELS: levels per segment of the plain static chain, which
+# drops dead bands at each segment boundary as the reference's does.  The
+# generated static kernel is one function whatever it is (PERF.md).
 # WORDS_PER_CTA: cap on the 32-row word columns one CTA of the slot-scan
 # kernel owns (one thread per column, state in shared memory); the kernel
 # wrapper lowers it further when ``n_cells`` columns do not fit.  Small
@@ -89,6 +102,8 @@ DEFAULT_LAYOUT = ROWS32
 # caches: that chunk gave the fastest end-to-end run on the H100.
 # PERF.md records the H100 sweeps these two were chosen from.
 SLOT_WIDTH = 6
+LEVEL_MAX_WIDTH = 8
+SLOT_SEG_LEVELS = 128
 WORDS_PER_CTA = 16
 DEFAULT_CHUNK_ROWS = 1 << 20
 
@@ -99,8 +114,10 @@ class Backend:
     defaults above for what each knob does)."""
     name: str
     slot_width: int = SLOT_WIDTH
+    seg_levels: int = SLOT_SEG_LEVELS
     chunk_rows: int = DEFAULT_CHUNK_ROWS
     words_per_cta: int = WORDS_PER_CTA
+    level_max_width: int = LEVEL_MAX_WIDTH
 
     def __str__(self) -> str:
         return self.name
@@ -137,18 +154,20 @@ class ExecPlan:
         if self.schedule not in SCHEDULES:
             raise ValueError(f"unknown schedule {self.schedule!r} "
                              f"(expected one of {SCHEDULES})")
-        if self.schedule != "slots":
-            raise NotImplementedError(
-                f"schedule={self.schedule!r} is not ported yet "
-                "(ROADMAP A6); use schedule='slots'")
-        if self.layout.planes > 1:
-            raise NotImplementedError(
-                f"layout={self.layout.name!r} is not ported yet "
-                "(ROADMAP A6); use layout='rows32'")
+        if self.layout.planes > 1 and self.backend.name == "numpy":
+            raise ValueError(
+                f"layout {self.layout.name!r} requires a levelized "
+                f"backend (got backend={self.backend.name!r})")
         if self.faults is not None or self.verify is not None:
             raise NotImplementedError(
                 "fault injection and verified execution (faults=, verify=) "
                 "are not ported yet (ROADMAP A9)")
+        if self.backend.name == "cuda" and \
+                self.backend.level_max_width > LEVEL_MAX_WIDTH:
+            raise ValueError(
+                f"backend 'cuda' runs dense schedules of at most "
+                f"{LEVEL_MAX_WIDTH} lanes (got level_max_width="
+                f"{self.backend.level_max_width})")
         if self.backend.name == "cuda" and \
                 torch.device(self.device).type != "cuda":
             raise ValueError(
@@ -176,11 +195,14 @@ class ExecPlan:
 
     @property
     def compile_key(self) -> tuple:
-        """The plan fields that determine a cache entry's levelized
-        schedules: only the slot width.  Backend, layout and device
-        are excluded on purpose -- every executor consumes the same
-        schedule arrays, and one entry holds device copies per device."""
-        return (self.backend.slot_width,)
+        """The plan fields that determine a cache entry's compiled
+        artifacts: the allocators' widths and the straight-line segment
+        size.  Backend, schedule kind, layout and device are excluded on
+        purpose -- every executor consumes the same schedule arrays, and
+        one entry holds each alloc's schedule and its device copies per
+        device."""
+        return (self.backend.slot_width, self.backend.level_max_width,
+                self.backend.seg_levels)
 
 
 def _backend_of(backend) -> Backend:
@@ -283,7 +305,8 @@ DEFAULT_PLAN = ExecPlan()
 _tuned: dict = {}
 
 #: Backend fields a tuned override may set.
-TUNABLE_FIELDS = ("slot_width", "chunk_rows", "words_per_cta")
+TUNABLE_FIELDS = ("slot_width", "seg_levels", "level_max_width",
+                  "chunk_rows", "words_per_cta")
 
 
 def register_tuned(family: str, layout: str, backend: str,

@@ -11,8 +11,9 @@ execution streams through ``kernels.ops.run_program_streaming``.
     pim.fp_add(a, b)           # float16/float32, exact IEEE RNE
     pim.fp_mul(xb, yb, fmt="bf16")   # bf16 as uint16 bit patterns
 
-Calls run on the CUDA device through the hand-written kernel unless the
-caller asks otherwise: ``device="cpu", backend="ref"`` runs the plain
+Calls run on the CUDA device through the hand-written kernels unless the
+caller asks otherwise (``schedule=`` and ``layout=`` pick the kernel and
+the word layout, as in the reference): ``device="cpu", backend="ref"`` runs the plain
 PyTorch version on the CPU, ``backend="numpy"`` the gate-serial oracle.
 With no GPU a default call raises; it never drops to the CPU.
 
@@ -47,16 +48,19 @@ FP_OPS = ("fp_add", "fp_sub", "fp_mul", "fp_div")
 class Config:
     """Module-wide execution defaults; every ufunc takes keyword overrides.
 
-    backend: 'cuda' (the hand-written kernel, the default), 'ref' (its
-    plain PyTorch version, on any device) or 'numpy' (the gate-serial
-    oracle).  device: the torch device the executor runs on.  chunk_rows:
+    backend: 'cuda' (the hand-written kernels, the default), 'ref' (their
+    plain PyTorch versions, on any device) or 'numpy' (the gate-serial
+    oracle).  device: the torch device the executors run on.  chunk_rows:
     streaming chunk size (rows per kernel launch).  parallel: use the
-    bit-parallel builders instead of bit-serial.
+    bit-parallel builders instead of bit-serial.  schedule: 'slots' (the
+    slot-scan kernel), 'slots-static' (the generated straight-line kernel)
+    or 'dense' (the level-gather kernel).  layout: 'rows32' or 'rows64'
+    (64 rows per word).
 
-    schedule, layout, shards, faults, verify and cache_dir mirror the
-    reference's configuration; only their defaults run in this package,
-    and any other value raises ``NotImplementedError`` naming the ROADMAP
-    item that brings it.  tuned: apply registered tuned Backend defaults
+    shards, faults, verify and cache_dir mirror the reference's
+    configuration; only their defaults run in this package, and any other
+    value raises ``NotImplementedError`` naming the ROADMAP item that
+    brings it.  tuned: apply registered tuned Backend defaults
     (``kernels.plan.register_tuned``) per program family.
     """
     backend: str = kplan.DEFAULT_BACKEND
@@ -173,6 +177,14 @@ class Prepared:
         return self.plan.device
 
     @property
+    def schedule(self) -> str:
+        return self.plan.schedule
+
+    @property
+    def layout(self) -> str:
+        return self.plan.layout.name
+
+    @property
     def chunk_rows(self) -> int:
         return self.plan.effective_chunk_rows
 
@@ -200,8 +212,9 @@ class Prepared:
                                  self.plan))
 
     def warm(self, rows: int = 1) -> None:
-        """Levelize, copy the schedule to the device and build the kernel
-        without serving: run ``rows`` leading rows (discarded)."""
+        """Levelize, copy the schedule to the device and build the kernels
+        (the generated static kernel too) without serving: run ``rows``
+        leading rows (discarded)."""
         rows = min(self.n_rows, max(1, rows))
         if rows < 1 or self.plan.backend.name == "numpy":
             return

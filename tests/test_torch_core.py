@@ -29,8 +29,7 @@ FAMILIES = (
 # their 64-bit ports are covered by add/sub, their depth by the 32-bit ones.
 SCHEDULED = [c for c in FAMILIES
              if not (c[2] == 64 and c[1] in ("mul", "div"))]
-# The dense allocation is held only up to 32 bits: no executor here runs it.
-DENSE = [c for c in SCHEDULED if c[2] != 64]
+DENSE = SCHEDULED
 
 
 def _ids(cases):
@@ -83,6 +82,47 @@ def test_fp16_add_modeled_cycles():
     assert ttel.COST_MODEL.schedule_cost(t).cycles == 1835
 
 
+def test_dense_and_serial_modeled_cycles_match_reference():
+    """The dense schedule's modeled cost (1803 cycles for fp16 add) and the
+    gate-serial model (3830) are pure functions of the program, so the port
+    reproduces them exactly (BENCH_10's rows)."""
+    rprog = rpn.program_for("fp-serial", "add", "fp16")
+    tprog = tpn.program_for("fp-serial", "add", "fp16")
+    dense = tplan.as_plan(backend="ref", device="cpu", schedule="dense")
+    t = tops.program_schedule(tprog, dense)
+    r = rops.program_schedule(rprog, "dense")
+    _assert_same_schedule(r, t)
+    tc = ttel.COST_MODEL.schedule_cost(t)
+    assert tc.cycles == 1803
+    assert dataclasses.astuple(tc) == \
+        dataclasses.astuple(rtel.COST_MODEL.schedule_cost(r))
+    ts = tops.compiled(tprog, dense).get_serial_model(tprog)
+    rs = rops.compiled(rprog).get_serial_model(rprog)
+    assert ts.cycles == 3830
+    assert dataclasses.astuple(ts) == dataclasses.astuple(rs)
+
+
+def test_dense_schedule_from_arrays_roundtrips_and_rejects():
+    """A reference dense schedule carries across whole; a level that writes
+    one cell twice, or an index outside the state, is refused."""
+    r = rgates.levelize(rpn.program_for("int-serial", "add", 8), max_width=8)
+    d = dict(a=r.a, b=r.b, out=r.out, level_width=r.level_width,
+             ports=r.ports, in_ports=r.in_ports, out_ports=r.out_ports,
+             one_cell=r.one_cell, n_cells=r.n_cells, alloc="dense",
+             width=r.width, in_cells=r.in_cells, sink=r.sink)
+    t = tops.schedule_from_arrays(d)
+    for f in ("a", "b", "out", "level_width"):
+        assert np.array_equal(getattr(t, f), getattr(r, f))
+    assert (t.ports, t.one_cell, t.n_cells, t.sink, t.alloc) == \
+        (r.ports, r.one_cell, r.n_cells, r.sink, r.alloc)
+    out = r.out.copy()
+    out[0, 1] = out[0, 0]
+    with pytest.raises(ValueError, match="distinct cells"):
+        tops.schedule_from_arrays(dict(d, out=out))
+    with pytest.raises(ValueError, match="outside"):
+        tops.schedule_from_arrays(dict(d, n_cells=r.sink))
+
+
 def test_identity_program_matches_reference():
     assert tops.content_key(tpn.build_identity(12)) == \
         rops.content_key(rpn.build_identity(12))
@@ -102,7 +142,7 @@ def test_schedule_from_arrays_roundtrips_reference_schedule():
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(alloc="dense"), "slot schedules"),
+    (dict(alloc="banded"), "slot schedules"),
     (dict(width=5), "lanes wide"),
     (dict(n_cells=10), "outside"),
     (dict(one_cell=10**6), "outside"),
@@ -144,7 +184,8 @@ def test_plan_keys():
     """``key`` separates every execution choice; ``compile_key`` only the
     slot width, so backends and devices share one schedule."""
     base = tplan.as_plan(backend="ref", device="cpu")
-    assert base.compile_key == (6,)
+    assert base.compile_key == (6, 8, 128)
+    assert base.compile_key == rplan.ExecPlan().compile_key
     narrow = tplan.as_plan(backend=tplan.Backend("ref", slot_width=4),
                            device="cpu")
     wide_cta = tplan.as_plan(backend=tplan.Backend("ref", words_per_cta=64),

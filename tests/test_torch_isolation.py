@@ -16,8 +16,6 @@ import pytest
 import torch
 
 from repro_torch import pim_ufunc as pim
-from repro_torch.core.pim_numerics import program_for
-from repro_torch.kernels import ops
 from repro_torch.kernels import plan as kplan
 from repro_torch.runtime.faults import FaultModel, VerifyPolicy
 
@@ -61,7 +59,10 @@ def test_the_scan_sees_the_whole_package():
             "kernels/pim_exec.py", "kernels/slots.py", "kernels/plan.py",
             "runtime/telemetry.py", "runtime/faults.py",
             "pim_ufunc.py"} <= names
-    assert (PKG / "csrc" / "slot_scan.cu").exists()
+    assert {"kernels/ref.py"} <= names
+    for src in ("slot_scan.cu", "level_gather.cu", "gate_serial.cu",
+                "pim_state.cuh"):
+        assert (PKG / "csrc" / src).exists(), src
 
 
 def test_default_call_raises_without_a_gpu(monkeypatch):
@@ -83,9 +84,6 @@ def test_cuda_backend_refuses_the_cpu():
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"schedule": "dense"}, "A6"),
-    ({"schedule": "slots-static"}, "A6"),
-    ({"layout": "rows64"}, "A6"),
     ({"shards": 2}, "A7"),
     ({"mesh": object()}, "A7"),
     ({"faults": FaultModel(seed=1)}, "A9"),
@@ -104,14 +102,6 @@ def test_unported_configuration_raises():
     with pim.options(device="cpu", backend="ref", verify=True):
         with pytest.raises(NotImplementedError, match="ROADMAP A9"):
             pim.add(x, x)
-
-
-def test_gate_serial_execution_raises():
-    prog = program_for("int-serial", "add", 8)
-    x = np.uint8([1, 2])
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        ops.run_program(prog, {"x": x, "y": x}, 2, "ref", levelized=False,
-                        device="cpu")
 
 
 @pytest.mark.parametrize("name", ["lazy", "fuse", "reduce_sum", "dot",

@@ -1,13 +1,15 @@
-"""The slot-scan kernel's wrappers, launch shape and, on the card, the CUDA
-kernel against its plain PyTorch version.
+"""The kernel wrappers, launch shapes and builds and, on the card, every
+CUDA kernel entry against its plain PyTorch version: the slot scan (B1),
+the generated static-slice kernel (B2), the level gather (B3) and the
+gate-serial kernel (B4), under rows32 and rows64.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 with an NVIDIA GPU and no JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels.py
 
-The ``cuda``-marked tests skip without a card (the kernel has no CPU mode);
-the others run everywhere.
+The ``cuda``-marked tests skip without a card (the kernels have no CPU
+mode); the others run everywhere.
 """
 
 import numpy as np
@@ -20,6 +22,7 @@ from repro_torch.core.pim_numerics import program_for
 from repro_torch.kernels import ops
 from repro_torch.kernels import pim_exec
 from repro_torch.kernels import plan as kplan
+from repro_torch.kernels import ref
 from repro_torch.kernels import slots
 
 _FULL = np.uint32(0xFFFFFFFF)
@@ -118,8 +121,8 @@ def test_wrappers_take_the_plain_version_on_cpu_tensors():
     pim_exec.reset_counts()
     got = _call("fused", r, _t(vals))
     sub = _call("io", r, _t(rows))
-    assert slots.CALLS == {"slots_fused": 1, "slots_io": 1}
-    assert pim_exec.LAUNCHES == {"slot_scan_fused": 0, "slot_scan_io": 0}
+    assert (slots.CALLS["slots_fused"], slots.CALLS["slots_io"]) == (1, 1)
+    assert not any(pim_exec.LAUNCHES.values())
     assert np.array_equal(_np(got)[0], vals[0] + vals[1])
     assert np.array_equal(_np(sub), _oracle_rows(r, rows))
     pim_exec.reset_counts()
@@ -233,5 +236,295 @@ def test_main_path_launches_the_kernel(cuda):
     pim_exec.reset_counts()
     assert np.array_equal(pim.fp_add(a, b, chunk_rows=2048), a + b)
     assert np.array_equal(pim.add(x, x), x.astype(np.uint64) * 2)
-    assert pim_exec.LAUNCHES == {"slot_scan_fused": 3, "slot_scan_io": 1}
+    assert {k: v for k, v in pim_exec.LAUNCHES.items() if v} == \
+        {"slot_scan_fused": 3, "slot_scan_io": 1}
     assert not any(slots.CALLS.values())
+
+
+# --------------------------------------------------------------------------
+# everywhere: the B2, B3 and B4 wrappers, shapes and the static generator
+# --------------------------------------------------------------------------
+
+def _operands(name, kind="slots", device="cpu"):
+    """Schedule ``kind`` of a program with its stacked operands, built
+    directly (not through ``resolve``) so each entry gets its own kind."""
+    prog = PROGRAMS[name]()
+    plan = kplan.as_plan(backend="ref", device="cpu", schedule=kind)
+    s = ops.compiled(prog, plan).get_schedule(prog, plan)
+    in_names = sorted(prog.in_ports)
+    out_names = ops.output_names(s)
+    in_cells = ops._stacked_cells([s.pack_cells(n) for n in in_names])
+    out_cells = ops._stacked_cells([s.ports[n] for n in out_names])
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+
+    return dict(sched=s, prog=prog, in_cells=in_cells, out_names=out_names,
+                in_widths=tuple(len(s.pack_cells(n)) for n in in_names),
+                out_widths=tuple(len(s.ports[n]) for n in out_names),
+                args=(t(in_cells), t(s.a), t(s.b), t(s.out), t(out_cells)),
+                kw=dict(n_cells=s.n_cells, one_cell=s.one_cell))
+
+
+def _static(o, planes=1):
+    return pim_exec.StaticKernel(o["sched"], o["in_widths"],
+                                 o["out_widths"], o["out_names"],
+                                 o["in_cells"], planes=planes)
+
+
+def _vals(o, rng, n_rows):
+    vals = _bits(rng, (len(o["in_widths"]), n_rows))
+    for p, w in enumerate(o["in_widths"]):
+        vals[p] &= np.uint32((1 << w) - 1)
+    return vals
+
+
+def _io_rows(o, rng, n_words, planes=1):
+    k_in = int(o["args"][0].numel())
+    shape = (k_in, n_words) if planes == 1 else (planes, k_in, n_words)
+    return _bits(rng, shape)
+
+
+@pytest.mark.parametrize("entry", ["level_fused", "level_io", "static",
+                                   "gate_serial"])
+def test_dense_static_serial_wrappers_take_plain_version_on_cpu(entry):
+    """On CPU tensors each wrapper runs its plain version, counts a
+    plain call and launches nothing; the result matches the numpy
+    oracle."""
+    rng = np.random.default_rng(5)
+    pim_exec.reset_counts()
+    if entry == "gate_serial":
+        prog = PROGRAMS["uint16-add"]()
+        ops_, a, b, o, n_cells = prog.to_arrays()
+        x, y = rng.integers(0, 1 << 16, (2, 100), dtype=np.uint64)
+        state = ops.pack_rows({"x": x, "y": y}, prog.ports, 100, n_cells)
+        got = pim_exec.gate_serial(_t(state), *[torch.from_numpy(v)
+                                                for v in (ops_, a, b, o)])
+        assert ref.CALLS["gate_serial"] == 1
+        z = ops.unpack_rows(_np(got), prog.ports, 100, names=["z"])["z"]
+        assert np.array_equal(z, x + y)
+    else:
+        o = _operands("uint16-add", "dense" if entry != "static" else "slots")
+        vals = _vals(o, rng, 100)
+        if entry == "level_fused":
+            got = pim_exec.level_fused(_t(vals), *o["args"],
+                                       in_widths=o["in_widths"],
+                                       out_widths=o["out_widths"], **o["kw"])
+            assert ref.CALLS["level_fused"] == 1
+        elif entry == "static":
+            got = _static(o)(_t(vals))
+            assert slots.CALLS["static_chain"] == 1
+        else:
+            rows = _np(slots.pack_values(_t(np.pad(vals, ((0, 0), (0, 28)))),
+                                         o["in_widths"]))
+            sub = pim_exec.level_io(_t(rows), *o["args"], **o["kw"])
+            got = slots.unpack_values(sub, o["out_widths"])[:, :100]
+            assert ref.CALLS["level_io"] == 1
+        assert np.array_equal(_np(got)[0],
+                              vals[0].astype(np.uint64) + vals[1])
+    assert not any(pim_exec.LAUNCHES.values())
+
+
+def test_level_gather_takes_dense_widths_up_to_eight():
+    for width in (1, 5, 8):
+        sched = torch.zeros((3, width), dtype=torch.int32)
+        assert pim_exec._schedule_args(sched, sched, sched, dense=True) == \
+            (3, width)
+    wide = torch.zeros((3, 9), dtype=torch.int32)
+    with pytest.raises(ValueError, match="1 to 8 lanes"):
+        pim_exec._schedule_args(wide, wide, wide, dense=True)
+    # the plan refuses a cuda backend that would levelize wider than the
+    # kernel, before any schedule is built; narrower is fine
+    with pytest.raises(ValueError, match="at most 8 lanes"):
+        kplan.as_plan(backend=kplan.Backend("cuda", level_max_width=9),
+                      device="cuda")
+    kplan.as_plan(backend=kplan.Backend("cuda", level_max_width=4),
+                  device="cuda")
+    kplan.as_plan(backend=kplan.Backend("ref", level_max_width=9),
+                  device="cpu")
+    assert f"-DPIM_LEVEL_MAX_WIDTH={kplan.LEVEL_MAX_WIDTH}" in \
+        pim_exec.NVCC_FLAGS
+
+
+@pytest.mark.parametrize("n_cells,cap,planes,want", [
+    (444, 16, 2, 16), (444, 1024, 2, 64), (10304, 32, 1, 5),
+    (10304, 32, 2, 2), (25354, 32, 1, 2), (58112, 32, 2, 0)])
+def test_fit_words_per_cta_counts_planes(n_cells, cap, planes, want):
+    """rows64 doubles a column's shared memory; the largest states take a
+    few words per CTA, and a column past 227 KB raises."""
+    if not want:
+        with pytest.raises(ValueError, match="shared memory"):
+            pim_exec.fit_words_per_cta(n_cells, cap, planes)
+        return
+    got = pim_exec.fit_words_per_cta(n_cells, cap, planes)
+    assert got == want
+    assert got * n_cells * 4 * planes <= pim_exec.SMEM_PER_CTA
+
+
+@pytest.mark.parametrize("kind", ["dense", "gate-serial"])
+def test_largest_states_fit_one_column(kind):
+    """The widest dense state (int-parallel mul64) under rows64 and the
+    widest gate-serial state (int-parallel div64) still fit whole word
+    columns in one CTA: no kernel needs a device-memory state."""
+    if kind == "dense":
+        prog = program_for("int-parallel", "mul", 64)
+        plan = kplan.as_plan(backend="ref", device="cpu", schedule="dense")
+        n_cells, planes = ops.program_schedule(prog, plan).n_cells, 2
+    else:
+        n_cells = program_for("int-parallel", "div", 64).to_arrays()[4]
+        planes = 1
+    assert pim_exec.fit_words_per_cta(n_cells, 32, planes) >= 1
+
+
+def test_static_source_is_straight_line_code():
+    """Every real lane of every level becomes one NOR with constant
+    offsets, in one device function, or in functions of ``split`` levels;
+    the library is keyed on the source."""
+    o = _operands("uint16-add")
+    s = o["sched"]
+    src = pim_exec.static_source(s, planes=1, wpc=16)
+    assert src.count("~(s[") == int(s.level_width.sum())
+    assert src.count("__noinline__") == 1
+    split = pim_exec.static_source(s, planes=1, wpc=16, split=17)
+    assert split.count("~(s[") == int(s.level_width.sum())
+    assert split.count("__noinline__") == -(-s.n_levels // 17)
+    assert "__ldg(p.la" not in src and "p.la" not in src
+    a0, b0 = int(s.a[0, 0]) * 16, int(s.b[0, 0]) * 16
+    assert f"const T v0 = ~(s[{a0}] | s[{b0}]);" in src
+    k1, k2 = _static(o), _static(o, planes=2)
+    assert k1.so != k2.so and k1.so == _static(o).so
+    assert k1.so.parent == pim_exec.BUILD_DIR
+    with pytest.raises(ValueError, match="slot schedule"):
+        pim_exec.static_source(_operands("uint16-add", "dense")["sched"],
+                               1, 16)
+
+
+def test_static_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", "")
+    monkeypatch.setattr(pim_exec, "CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(pim_exec, "BUILD_DIR", tmp_path / "build")
+    k = _static(_operands("uint16-add"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        k.build()
+    assert not (tmp_path / "build").exists()
+
+
+# --------------------------------------------------------------------------
+# on the card: B2, B3, B4 and rows64 against their plain versions
+# --------------------------------------------------------------------------
+
+NEW_FUSED = ["fp16-add", "fp32-add", "uint16-add", "bp-mul16", "gate-free"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planes", [1, 2])
+@pytest.mark.parametrize("name", NEW_FUSED)
+def test_level_gather_fused_matches_plain_version(cuda, name, planes):
+    o = _operands(name, "dense")
+    oc = _operands(name, "dense", cuda)
+    vals = _vals(o, np.random.default_rng(6), 100_003)
+    want = _np(ref.pim_exec_ref_level_fused(
+        _t(vals), *o["args"], in_widths=o["in_widths"],
+        out_widths=o["out_widths"], planes=planes, **o["kw"]))
+    for wpc in (1, 13, 32):
+        got = pim_exec.level_fused(
+            _t(vals).to(cuda), *oc["args"], in_widths=o["in_widths"],
+            out_widths=o["out_widths"], planes=planes, words_per_cta=wpc,
+            **o["kw"])
+        torch.cuda.synchronize()
+        assert np.array_equal(_np(got), want), wpc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planes", [1, 2])
+@pytest.mark.parametrize("entry", ["slots", "dense"])
+@pytest.mark.parametrize("name", ["uint32-add", "uint32-mul", "no-input"])
+def test_io_entries_match_plain_version(cuda, name, entry, planes):
+    o = _operands(name, entry)
+    oc = _operands(name, entry, cuda)
+    rows = _io_rows(o, np.random.default_rng(7), 3001, planes)
+    if entry == "slots":
+        want = slots.slots_io(_t(rows), *o["args"], k_out=len(
+            o["args"][4]), **o["kw"])
+        got = pim_exec.slots_io(_t(rows).to(cuda), *oc["args"],
+                                k_out=len(o["args"][4]), **o["kw"])
+    else:
+        want = ref.pim_exec_ref_level_io(_t(rows), *o["args"], **o["kw"])
+        got = pim_exec.level_io(_t(rows).to(cuda), *oc["args"], **o["kw"])
+    torch.cuda.synchronize()
+    assert np.array_equal(_np(got), _np(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fp16-add", "bp-mul16", "gate-free"])
+def test_slot_scan_rows64_matches_plain_version(cuda, name):
+    o = _operands(name)
+    oc = _operands(name, "slots", cuda)
+    vals = _vals(o, np.random.default_rng(8), 100_003)
+    want = _np(slots.slots_fused(_t(vals), *o["args"],
+                                 in_widths=o["in_widths"],
+                                 out_widths=o["out_widths"], planes=2,
+                                 **o["kw"]))
+    got = pim_exec.slots_fused(_t(vals).to(cuda), *oc["args"],
+                               in_widths=o["in_widths"],
+                               out_widths=o["out_widths"], planes=2,
+                               **o["kw"])
+    torch.cuda.synchronize()
+    assert np.array_equal(_np(got), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planes", [1, 2])
+@pytest.mark.parametrize("name", ["fp16-add", "uint16-add", "gate-free",
+                                  "no-input"])
+def test_static_kernel_matches_plain_version(cuda, name, planes):
+    k = _static(_operands(name), planes)
+    vals = _vals(_operands(name), np.random.default_rng(9), 4099)
+    want = _np(k(_t(vals)))
+    got = k(_t(vals).to(cuda))
+    torch.cuda.synchronize()
+    assert np.array_equal(_np(got), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["uint16-add", "fp16-add", "uint32-mul"])
+def test_gate_serial_kernel_matches_plain_version(cuda, name):
+    prog = PROGRAMS[name]()
+    arrays = prog.to_arrays()
+    state = _bits(np.random.default_rng(10), (arrays[4], 3001 // 32 + 1))
+    gates = [torch.from_numpy(v) for v in arrays[:4]]
+    want = _np(ref.pim_exec_ref(_t(state), *gates))
+    got = pim_exec.gate_serial(_t(state).to(cuda), *[g.to(cuda)
+                                                     for g in gates])
+    torch.cuda.synchronize()
+    assert np.array_equal(_np(got), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw,key", [
+    ({"schedule": "dense"}, "level_gather_fused"),
+    ({"schedule": "slots-static"}, "slots_static_fused"),
+    ({"layout": "rows64"}, "slot_scan_fused_rows64"),
+    ({"schedule": "dense", "layout": "rows64"}, "level_gather_fused_rows64"),
+    ({"schedule": "slots-static", "layout": "rows64"},
+     "slots_static_fused_rows64")])
+def test_options_launch_their_kernels(cuda, kw, key):
+    rng = np.random.default_rng(11)
+    a = rng.standard_normal(5000).astype(np.float32)
+    b = rng.standard_normal(5000).astype(np.float32)
+    pim_exec.reset_counts()
+    assert np.array_equal(pim.fp_add(a, b, chunk_rows=2048, **kw), a + b)
+    assert {k: v for k, v in pim_exec.LAUNCHES.items() if v} == {key: 3}
+    assert not any(slots.CALLS.values()) and not any(ref.CALLS.values())
+
+
+@pytest.mark.cuda
+def test_gate_serial_path_launches_its_kernel(cuda):
+    prog = program_for("int-serial", "add", 16)
+    rng = np.random.default_rng(12)
+    x, y = rng.integers(0, 1 << 16, (2, 777), dtype=np.uint64)
+    pim_exec.reset_counts()
+    out = ops.run_program(prog, {"x": x, "y": y}, 777, levelized=False)
+    assert np.array_equal(out["z"], x + y)
+    assert pim_exec.LAUNCHES["gate_serial"] == 1
+    assert not any(ref.CALLS.values())

@@ -5,7 +5,8 @@ PyTorch executor) is held bit for bit against ``repro.pim_ufunc`` on its
 default ``ref`` backend, with inputs made from a seed with numpy: the int
 ufuncs at 8/16/32 bits and the fp ufuncs at fp16/fp32 and bf16, bit-serial
 and bit-parallel, the streaming executor, and the reference's validation
-errors.
+errors; then the same grid under ``schedule="dense"``,
+``schedule="slots-static"`` and ``layout="rows64"``.
 """
 
 import numpy as np
@@ -124,7 +125,7 @@ def test_streaming_equals_one_shot(op, dtype):
     else:
         x, y = _int_operands(dtype)
     one_shot = getattr(tpim, op)(x, y, **CPU)
-    tslots.CALLS.update(slots_fused=0, slots_io=0)
+    tslots.CALLS.update(dict.fromkeys(tslots.CALLS, 0))
     chunked = getattr(tpim, op)(x, y, chunk_rows=64, **CPU)
     assert sum(tslots.CALLS.values()) == 5
     assert _same(chunked, one_shot)
@@ -226,3 +227,87 @@ def test_bad_options_raise(kw, exc):
     x, y = _int_operands(np.uint8, n=4)
     with pytest.raises(exc):
         tpim.add(x, y, **dict(CPU, **kw))
+
+
+# --------------------------------------------------------------------------
+# the slice as a whole: the dense, static and rows64 options
+# --------------------------------------------------------------------------
+#
+# Every case runs the port under all three options, which must agree with
+# each other and with numpy.  Each case also holds one option against the
+# reference under the same option, in rotation by width or format, which
+# keeps the file's run short: the dense and rows64 options directly, and
+# slots-static against the reference's default slot run (the reference's
+# static chain compiles for tens of seconds a program on XLA:CPU; its own
+# tests hold it equal to the slot run).  The operands are those of the
+# tests above, so that run's compiles serve these too.
+
+OPTIONS = {"dense": {"schedule": "dense"},
+           "slots-static": {"schedule": "slots-static"},
+           "rows64": {"layout": "rows64"}}
+HELD = {np.uint8: "dense", np.uint16: "rows64", np.uint32: "slots-static",
+        "fp16": "dense", "bf16": "rows64", "fp32": "slots-static"}
+
+
+def _held_reference(fn, option):
+    kw = {} if option == "slots-static" else OPTIONS[option]
+    return fn(**kw)
+
+
+@pytest.mark.parametrize("parallel", [False, True], ids=["serial", "parallel"])
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.uint32])
+@pytest.mark.parametrize("op", ["add", "sub", "mul", "div"])
+def test_int_ufunc_options_match_reference(op, dtype, parallel):
+    x, y = _int_operands(dtype)
+    got = {o: getattr(tpim, op)(x, y, parallel=parallel, **kw, **CPU)
+           for o, kw in OPTIONS.items()}
+    want = _held_reference(
+        lambda **kw: getattr(rpim, op)(x, y, parallel=parallel, **kw),
+        HELD[dtype])
+    for o, g in got.items():
+        assert _same(g, want), o
+    wide = x.astype(np.uint64)
+    exact = {"add": lambda: wide + y, "mul": lambda: wide * y,
+             "sub": lambda: (wide - y) & np.uint64(np.iinfo(dtype).max),
+             "div": lambda: (wide // y, wide % y)}[op]()
+    assert _same_values(got["dense"], exact)
+
+
+@pytest.mark.parametrize("parallel", [False, True], ids=["serial", "parallel"])
+@pytest.mark.parametrize("fmt", ["fp16", "bf16", "fp32"])
+@pytest.mark.parametrize("op", ["fp_add", "fp_sub", "fp_mul", "fp_div"])
+def test_fp_ufunc_options_match_reference(op, fmt, parallel):
+    x, y, kw = _fp_operands(fmt)
+    got = {o: getattr(tpim, op)(x, y, parallel=parallel, **kw, **okw, **CPU)
+           for o, okw in OPTIONS.items()}
+    want = _held_reference(
+        lambda **okw: getattr(rpim, op)(x, y, parallel=parallel, **kw,
+                                        **okw), HELD[fmt])
+    for o, g in got.items():
+        assert _same(g, want), o
+
+
+@pytest.mark.parametrize("option", ["rows64", "dense"])
+def test_streaming_options_match_reference(option):
+    """Chunks of 512 rows (three whole chunks and a ragged fourth), fused
+    and io branch."""
+    x, y, _ = _fp_operands("fp32", n=1800)
+    kw = OPTIONS[option]
+    got = tpim.fp_add(x, y, chunk_rows=512, **kw, **CPU)
+    assert _same(got, rpim.fp_add(x, y, chunk_rows=512, **kw))
+    assert _same(got, x + y)
+    a, b = _int_operands(np.uint32, n=1800)
+    got = tpim.add(a, b, chunk_rows=512, **kw, **CPU)
+    assert _same(got, rpim.add(a, b, chunk_rows=512, **kw))
+
+
+def test_prepared_handle_names_its_options():
+    x, y, _ = _fp_operands("fp16", n=64)
+    tp = tpim.prepare("fp_add", x, y, schedule="dense", layout="rows64",
+                      **CPU)
+    rp = rpim.prepare("fp_add", x, y, schedule="dense", layout="rows64")
+    assert (tp.schedule, tp.layout) == (rp.schedule, rp.layout) == \
+        ("dense", "rows64")
+    tp.warm()
+    assert tp.cached
+    assert _same(tp.run(), rp.run())
