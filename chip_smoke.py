@@ -2,20 +2,26 @@
 
     python3 chip_smoke.py                  # full size: 64 Mi rows
     python3 chip_smoke.py --sweep          # also sweep the cuda Backend tunables
+                                           # and the ring kernels' CTA width,
                                            # and profile the main path
     python3 chip_smoke.py --split-probe    # also build B2 whole and split
                                            # and compare them
+    python3 chip_smoke.py --probe [DIR]    # also time the ring kernels and
+                                           # print launch attributes (and
+                                           # those of the kernels in DIR)
 
 Phases, each of which raises (exit code 1) on failure:
 
 1. build every CUDA kernel of the port: the fixed sources in
-   ``src/repro_torch/csrc`` and the generated static-slice kernels (B2) of
-   the programs below, one ``nvcc`` each, all started together;
+   ``src/repro_torch/csrc``, the generated static-slice kernels (B2) of
+   the programs below and the libraries that read the fixed kernels'
+   launch attributes, one ``nvcc`` each, all started together;
 2. print the card's name and power limit;
 3. hold every kernel entry against its plain PyTorch version on the card,
    bit-exactly (``torch.equal``): the slot scan (B1), the level gather
    (B3), the static-slice kernels (B2) and the gate-serial kernel (B4),
-   under rows32 and rows64;
+   under rows32 and rows64, and the ring kernels (B3, B4) on long streams
+   and at fewer than 32 words per CTA;
 4. drive the main path through the public entry points, each run checked
    against numpy with the launch counters zeroed just before and read just
    after -- its kernel must have run and no plain version may have:
@@ -28,7 +34,7 @@ Phases, each of which raises (exit code 1) on failure:
    gate-serial path carries the whole state through the host);
 5. time each kernel entry at one chunk of 1 Mi rows beside its plain
    version, one PyTorch library call computing the same function, and its
-   bound.
+   bound, with its launch attributes (CTAs an SM, registers, local bytes).
 
 The line before the last is a JSON object with one record per kernel entry;
 the last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -44,6 +50,7 @@ import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -114,9 +121,10 @@ def resolved(program, backend: str = "cuda", **backend_kw):
 
 def operands(program, kind: str = "slots", planes: int = 1):
     """One program's schedule of ``kind`` ('slots' or 'dense') with every
-    operand its kernel entries take, on the card -- built directly, not
-    through ``resolve``, so that each entry runs the schedule it is named
-    for whatever the dispatcher would pick."""
+    operand its kernel entries take, on the card (for 'dense' also B3's
+    packed stream and the ring kernels' CTA width) --
+    built directly, not through ``resolve``, so that each entry runs the
+    schedule it is named for whatever the dispatcher would pick."""
     from repro_torch.kernels import ops, pim_exec, plan as kplan
     plan = kplan.as_plan(device="cuda", schedule=kind)
     s = ops.compiled(program, plan).get_schedule(program, plan)
@@ -137,8 +145,12 @@ def operands(program, kind: str = "slots", planes: int = 1):
         k_out=len(out_cells), in_base=ops._as_run(in_cells),
         out_base=ops._as_run(out_cells) if kind == "slots" else None,
         one_cell=s.one_cell,
-        wpc=pim_exec.fit_words_per_cta(s.n_cells, kplan.WORDS_PER_CTA,
-                                       planes))
+        packed=pim_exec.pack_levels(s.a, s.b, s.out,
+                                    n_cells=s.n_cells).to("cuda")
+        if kind == "dense" else None,
+        wpc=pim_exec.ring_words_per_cta(s.n_cells, planes)
+        if kind == "dense" else
+        pim_exec.fit_words_per_cta(s.n_cells, kplan.WORDS_PER_CTA, planes))
 
 
 def static_kernel(c):
@@ -186,6 +198,8 @@ def run_entry(c, x, fused: bool, kernel: bool, static=None):
                                     out_widths=c.out_widths,
                                     planes=c.planes, **kw)
         return impl.slots_io(*args, k_out=c.k_out, **kw)
+    if kernel:
+        kw["packed"] = c.packed
     if fused:
         fn = pim_exec.level_fused if kernel else kref.pim_exec_ref_level_fused
         return fn(*args, in_widths=c.in_widths, out_widths=c.out_widths,
@@ -222,13 +236,16 @@ def programs():
         "uint32 add": program_for("int-serial", "add", 32),
         "uint32 mul": program_for("int-serial", "mul", 32),
         "int-parallel mul16": program_for("int-parallel", "mul", 16),
+        "int-parallel div64": program_for("int-parallel", "div", 64),
         "gate-free": gate_free_program(),
         "no-input": no_input_program(),
     }
 
 
 #: Phase 3: (entry, program, fused, rows, planes): the slot scan, the
-#: level gather, the static kernels, the gate-serial kernel, then rows64.
+#: level gather, the static kernels, the gate-serial kernel, then rows64,
+#: then the ring kernels on long streams (fp32 mul: 23 tiles for B4) and at
+#: fewer than 32 words per CTA (int-parallel div64, 25354 cells: 2).
 CHECKS = [
     ("slot_scan", "fp16 add", True, 1 << 20, 1),
     ("slot_scan", "fp32 add", True, 1 << 20, 1),
@@ -268,6 +285,9 @@ CHECKS = [
     ("level_gather", "uint32 add", False, (1 << 20) + 37, 2),
     ("slots_static", "fp32 add", True, (1 << 20) + 37, 2),
     ("slots_static", "uint16 add", True, (1 << 20) + 37, 2),
+    ("gate_serial", "fp32 mul", None, (1 << 20) + 45, 1),
+    ("gate_serial", "int-parallel div64", None, 1000, 1),
+    ("level_gather", "fp32 mul", True, (1 << 20) + 37, 2),
 ]
 
 
@@ -286,14 +306,16 @@ def entry_key(entry: str, fused, planes: int) -> str:
 
 
 def gate_serial_case(program, n_rows: int, rng):
-    """A random whole state and the lowered stream of ``program``, on the
-    card, for the gate-serial entry."""
+    """A random whole state, the lowered stream of ``program`` and B4's
+    packed stream of it, on the card, for the gate-serial entry."""
+    from repro_torch.kernels import pim_exec
     ops_, a, b, o, n_cells = program.to_arrays()
     state = rng.integers(0, 1 << 32, (n_cells, (n_rows + 31) // 32),
                          dtype=np.uint64).astype(np.uint32)
     dev = [torch.from_numpy(np.ascontiguousarray(v, np.int32)).cuda()
            for v in (ops_, a, b, o)]
-    return torch.from_numpy(state.view(np.int32)).cuda(), dev
+    packed = pim_exec.pack_gates(ops_, a, b, o, n_cells=n_cells).to("cuda")
+    return torch.from_numpy(state.view(np.int32)).cuda(), dev, packed
 
 
 def check_kernels(progs, statics) -> dict:
@@ -306,11 +328,14 @@ def check_kernels(progs, statics) -> dict:
     for entry, name, fused, rows, planes in CHECKS:
         prog = progs[name]
         if entry == "gate_serial":
-            state, gates = gate_serial_case(prog, rows, rng)
-            got = pim_exec.gate_serial(state, *gates)
+            state, gates, packed = gate_serial_case(prog, rows, rng)
+            got = pim_exec.gate_serial(state, *gates, packed=packed)
             torch.cuda.synchronize()
             want = kref.pim_exec_ref(state.clone(), *gates)
-            info = f"gates={gates[0].numel()} cells={state.shape[0]}"
+            info = (f"gates={gates[0].numel()} windows={packed.n_windows} "
+                    f"tiles={packed.n_tiles} cells={state.shape[0]} "
+                    "words_per_cta=" + str(pim_exec.ring_words_per_cta(
+                        state.shape[0] + pim_exec.GATE_CONSTANTS)))
         else:
             kind = "dense" if entry == "level_gather" else "slots"
             c = operands(prog, kind, planes)
@@ -442,6 +467,127 @@ def bound(entry: str, s, n_rows: int, fused, lop_rate: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+#: Shared-memory sizes (KB) an H100 SM can split off its 256 KB of L1 and
+#: shared memory (the carveout); the rest is L1.
+CARVEOUTS_KB = (0, 8, 16, 32, 64, 100, 132, 164, 196, 228)
+
+#: entry -> the kernel (template instance by planes and fused) the launch
+#: attributes are read from: the window body of the main path's streams
+#: (8 gates for the dense levels, 2 for the gate-serial stream).
+INFO_KERNELS = {
+    "slot_scan": "slot_scan_kernel<{p}, {f}>",
+    "level_gather": "level_gather_kernel<8, {p}, {f}>",
+    "gate_serial": "gate_serial_kernel<2>",
+}
+#: The same in the parent's sources (``--probe DIR``), before the ring.
+PARENT_KERNELS = dict(INFO_KERNELS,
+                      level_gather="level_gather_kernel<{p}, {f}>",
+                      gate_serial="gate_serial_kernel")
+
+_INFO_SOURCE = """\
+// Launch attributes of the kernels of one source, for chip_smoke.py.
+#include "{source}"
+
+extern "C" int kernel_info(int planes, int fused, int threads, int smem,
+                           int* out) {{
+  const void* fn = nullptr;
+{select}
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaFuncAttributes a{{}};
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, fn);
+  if (err == cudaSuccess) {{
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, fn, threads,
+                                                        smem);
+  }}
+  out[1] = a.numRegs;
+  out[2] = static_cast<int>(a.localSizeBytes);
+  out[3] = a.preferredShmemCarveout;
+  return static_cast<int>(err);
+}}
+"""
+
+
+class KernelInfo:
+    """A library that reads one kernel source's launch attributes
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, and registers,
+    local bytes and preferred carveout from ``cudaFuncGetAttributes``): a
+    generated file that includes the source, built by ``pim_exec.build``
+    like B2.  ``source`` defaults to the port's own file for ``entry``,
+    ``kernel`` to its entry in :data:`INFO_KERNELS`."""
+
+    def __init__(self, entry: str, source=None, kernel=None):
+        from repro_torch.kernels import pim_exec
+        source = Path(source or pim_exec.SOURCES[entry]).resolve()
+        kernel = kernel or INFO_KERNELS[entry]
+        if "{p}" in kernel:
+            select = "".join(
+                f"  if (planes == {p} && fused == {int(f)}) fn = "
+                f"reinterpret_cast<const void*>(&"
+                f"{kernel.format(p=p, f=str(f).lower())});\n"
+                for p in (1, 2) for f in (True, False))
+        else:
+            select = (f"  fn = reinterpret_cast<const void*>(&{kernel});"
+                      "\n")
+        self.source = _INFO_SOURCE.format(source=source.as_posix(),
+                                          select=select)
+        deps = self.source.encode() + source.read_bytes() + b"".join(
+            h.read_bytes() for h in sorted(source.parent.glob("*.cuh")))
+        key = pim_exec._build_key(deps)
+        self.cu = pim_exec.BUILD_DIR / f"info_{entry}-{key}.cu"
+        self.so = pim_exec.BUILD_DIR / f"info_{entry}-{key}.so"
+
+    @property
+    def built(self) -> bool:
+        return self.so.exists()
+
+    def __call__(self, planes: int, fused: bool, threads: int, smem: int
+                 ) -> dict:
+        import ctypes
+        from repro_torch.kernels import pim_exec
+        out = (ctypes.c_int * 4)()
+        err = pim_exec._load(self.so).kernel_info(planes, int(fused),
+                                                  threads, smem, out)
+        if err:
+            raise RuntimeError(f"kernel_info failed: CUDA error {err}")
+        per_sm = out[0] * (smem + 1024)       # 1 KB a CTA for the system
+        carve = next((c for c in CARVEOUTS_KB if c * 1024 >= per_sm), 228)
+        return {"ctas_per_sm": out[0], "threads": threads, "smem": smem,
+                "registers": out[1], "local_bytes": out[2],
+                "carveout_pref": out[3], "l1_kb": 256 - carve}
+
+
+#: entry -> KernelInfo, built in phase 1 beside the kernels.
+INFO: dict = {}
+
+
+def threads_for(entry: str, wpc: int) -> int:
+    """Threads of ``entry``'s CTA of ``wpc`` columns: whole warps, the ring
+    kernels' columns spread over ``pim_exec.RING_WARPS``."""
+    from repro_torch.kernels import pim_exec
+    if entry == "slot_scan":
+        return (wpc + 31) // 32 * 32
+    return -(-wpc // pim_exec.ring_lanes(wpc)) * 32
+
+
+def launch_attrs(entry: str, planes: int, fused, wpc: int, smem: int
+                 ) -> str:
+    """``entry``'s launch attributes at this CTA shape, as printed."""
+    a = INFO[entry](planes, bool(fused), threads_for(entry, wpc), smem)
+    return (f"; launch: {a['threads']} threads, {a['smem']} B shared, "
+            f"{a['ctas_per_sm']} CTAs/SM, {a['registers']} registers, "
+            f"{a['local_bytes']} local B, carveout preference "
+            f"{a['carveout_pref']}, L1 left ~{a['l1_kb']} KB")
+
+
+def ring_smem(n_cells: int, wpc: int, planes: int) -> int:
+    """Dynamic shared memory of a ring kernel's CTA (ring.cuh)."""
+    from repro_torch.kernels import pim_exec
+    return (4 * planes * n_cells * wpc + 15) // 16 * 16 + \
+        2 * 8 * pim_exec.TILE_RECORDS + 16
+
+
 #: Phase 5: (entry, program, fused, planes) timed at one chunk.
 TIMED = [
     ("slot_scan", "fp32 add", True, 1),
@@ -473,8 +619,10 @@ def measure(progs, statics, chunk_rows: int, launches: dict, worst: dict,
         key = entry_key(entry, fused, planes)
         prog = progs[name]
         if entry == "gate_serial":
-            state, gates = gate_serial_case(prog, n, rng)
-            ms = cuda_ms(lambda: pim_exec.gate_serial(state, *gates), 50)
+            # the packed stream is made here, outside the timed launches
+            state, gates, packed = gate_serial_case(prog, n, rng)
+            ms = cuda_ms(lambda: pim_exec.gate_serial(state, *gates,
+                                                      packed=packed), 50)
             plain_ms = cuda_ms(
                 lambda: kref.pim_exec_ref(state.clone(), *gates), 1)
             n_cells = state.shape[0]
@@ -482,8 +630,13 @@ def measure(progs, statics, chunk_rows: int, launches: dict, worst: dict,
             bound_ms, bound_by = bound(entry, ops_, n, None, lop_rate,
                                        n_cells)
             smem = 12 * len(ops_) * n_words
-            shape = (f"gates={len(ops_)} cells={n_cells} words_per_cta="
-                     f"{pim_exec.fit_words_per_cta(n_cells, 16)}")
+            wpc = pim_exec.ring_words_per_cta(n_cells +
+                                              pim_exec.GATE_CONSTANTS)
+            shape = (f"gates={len(ops_)} windows={packed.n_windows} "
+                     f"cells={n_cells} words_per_cta={wpc}")
+            attrs = launch_attrs(
+                entry, 1, False, wpc,
+                ring_smem(n_cells + pim_exec.GATE_CONSTANTS, wpc, 1))
         else:
             kind = "dense" if entry == "level_gather" else "slots"
             c = operands(prog, kind, planes)
@@ -498,8 +651,16 @@ def measure(progs, statics, chunk_rows: int, launches: dict, worst: dict,
             lanes = int(s.level_width.sum()) if entry == "slots_static" \
                 else s.n_levels * s.width
             smem = 12 * lanes * n_words
-            shape = (f"levels={s.n_levels} width={s.width} cells="
-                     f"{s.n_cells} words_per_cta={c.wpc}")
+            shape = (f"levels={s.n_levels} width={s.width} lanes={lanes} "
+                     f"cells={s.n_cells} words_per_cta={c.wpc}")
+            if entry == "slots_static":
+                attrs = ""
+            elif entry == "level_gather":
+                attrs = launch_attrs(entry, planes, fused, c.wpc,
+                                     ring_smem(s.n_cells, c.wpc, planes))
+            else:
+                attrs = launch_attrs(entry, planes, fused, c.wpc,
+                                     4 * planes * s.n_cells * c.wpc)
         if fused is False:
             xa = torch.randint(0, 1 << 32, (n,), device="cuda")
             xb = torch.randint(0, 1 << 32, (n,), device="cuda")
@@ -514,7 +675,7 @@ def measure(progs, statics, chunk_rows: int, launches: dict, worst: dict,
               f"path; plain {plain_ms:.6f} ms; library {lib_ms:.6f} ms; "
               f"bound {bound_ms:.6f} ms ({bound_by}); shared-memory floor "
               f"{smem_ms:.6f} ms at {sm_clock_hz / 1e6:.0f} MHz; logic-op "
-              f"rate {lop_rate:.6e}/s", flush=True)
+              f"rate {lop_rate:.6e}/s{attrs}", flush=True)
         replaces, source = ENTRIES[entry]
         rows.append({
             "name": key, "route": "cuda", "source": source,
@@ -548,6 +709,7 @@ def sweep(gpu: str) -> None:
                   f"{gpu}; {label} cells={r.sched.n_cells} kernel "
                   f"{ms:.6f} ms for {n} rows = {n / ms * 1e3:.6e} rows/s",
                   flush=True)
+    ring_sweep(gpu)
     chunks = (1 << 18, 1 << 20, 1 << 22, 1 << 24)
     c = operands(program_for("fp-serial", "add", "fp32"))
     x = random_inputs(c, chunks[-1], True, rng)
@@ -570,6 +732,166 @@ def sweep(gpu: str) -> None:
                   f"{MAIN_ROWS} rows run {s * 1e3:.3f} ms = "
                   f"{MAIN_ROWS / s:.6e} rows/s", flush=True)
     profile_main(a, b, gpu)
+
+
+def ring_widths(n_cells: int, planes: int) -> list:
+    """CTA widths the ring kernels are swept over: 16 (the slot scan's),
+    whole warps up to what fits one CTA beside the ring, and that fill
+    (the rule, at most 128)."""
+    from repro_torch.kernels import pim_exec
+    fill = pim_exec.ring_words_per_cta(n_cells, planes)
+    return sorted({16, fill} | set(range(32, fill + 1, 32)))
+
+
+def ring_sweep(gpu: str) -> None:
+    """B3 and B4 per words per CTA at the main path's chunk (1 Mi rows) and
+    at 4 Mi rows: the sweep behind ``pim_exec.ring_words_per_cta``."""
+    from repro_torch.core.pim_numerics import program_for
+    from repro_torch.kernels import pim_exec
+    rng = np.random.default_rng(SEED)
+    for n in (1 << 20, 1 << 22):
+        for label, prog, fused, planes in (
+                ("fp32 add", program_for("fp-serial", "add", "fp32"), True,
+                 1),
+                ("fp32 add", program_for("fp-serial", "add", "fp32"), True,
+                 2),
+                ("fp32 mul", program_for("fp-serial", "mul", "fp32"), True,
+                 1),
+                ("uint32 add io", program_for("int-serial", "add", 32),
+                 False, 1)):
+            c = operands(prog, "dense", planes)
+            rule = c.wpc
+            x = random_inputs(c, n, fused, rng)
+            for wpc in ring_widths(c.sched.n_cells, planes):
+                c.wpc = wpc
+                ms = cuda_ms(lambda: run_entry(c, x, fused, True), 20)
+                print(f"sweep level_gather words_per_cta={wpc} (rule {rule})"
+                      f": {gpu}; {label} planes={planes} cells="
+                      f"{c.sched.n_cells} rows={n} kernel {ms:.6f} ms",
+                      flush=True)
+        for label in ("fp32 add", "fp32 mul"):
+            prog = program_for("fp-serial", label.split()[1], "fp32")
+            state, gates, packed = gate_serial_case(prog, n, rng)
+            n_cells = state.shape[0]
+            cells = n_cells + pim_exec.GATE_CONSTANTS
+            for wpc in ring_widths(cells, 1):
+                ms = cuda_ms(lambda: pim_exec.gate_serial(
+                    state, *gates, packed=packed, words_per_cta=wpc), 20)
+                print(f"sweep gate_serial words_per_cta={wpc} (rule "
+                      f"{pim_exec.ring_words_per_cta(cells)}): {gpu}; "
+                      f"{label} cells={n_cells} rows={n} kernel {ms:.6f} ms",
+                      flush=True)
+
+
+def probe(progs, gpu: str, parent) -> None:
+    """What holds the ring kernels back.  The launch attributes of the
+    slot scan (B1), the level gather (B3) and the gate-serial kernel (B4)
+    of this tree and, when ``parent`` names the parent's ``csrc``
+    directory, of the parent's, at the shapes each launches for fp32 add;
+    then each ring kernel at fp32 add and 1 Mi rows at the rule's CTA
+    width: B3 under rows32 and rows64, B4 at windows of 1, 2, 4 and 8
+    gates, each with its columns
+    spread over ``pim_exec.RING_WARPS`` warps and over eight, in turns,
+    bit-exact against the plain version; and each kernel with no gates
+    (the bridges or the state's trip alone)."""
+    from repro_torch.kernels import pim_exec, ref as kref
+    prog = progs["fp32 add"]
+    slot = operands(prog, "slots", 1)
+    dense = operands(prog, "dense", 1)
+    ops_, a, b, o, n_serial = prog.to_arrays()
+    infos = {("this tree", e): INFO[e] for e in INFO_KERNELS}
+    if parent:
+        parents = {e: KernelInfo(e, Path(parent) / f"{e}.cu", k)
+                   for e, k in PARENT_KERNELS.items()}
+        pim_exec.build([], static=list(parents.values()))
+        infos.update({("parent", e): k for e, k in parents.items()})
+    for (tree, e), info in infos.items():
+        if e == "slot_scan":
+            wpc, smem = slot.wpc, 4 * slot.sched.n_cells * slot.wpc
+        elif tree == "parent":
+            cells = dense.sched.n_cells if e == "level_gather" else n_serial
+            wpc, smem = 16, 4 * cells * 16
+        elif e == "level_gather":
+            wpc = dense.wpc
+            smem = ring_smem(dense.sched.n_cells, wpc, 1)
+        else:
+            cells = n_serial + pim_exec.GATE_CONSTANTS
+            wpc = pim_exec.ring_words_per_cta(cells)
+            smem = ring_smem(cells, wpc, 1)
+        threads = (wpc + 31) // 32 * 32 if tree == "parent" \
+            else threads_for(e, wpc)
+        a_ = info(1, e != "gate_serial", threads, smem)
+        print(f"probe attrs {tree} {e} fp32 add: {gpu}; words_per_cta={wpc} "
+              f"{a_}", flush=True)
+
+    rng = np.random.default_rng(SEED)
+    n = 1 << 20
+    x = random_inputs(dense, n, True, rng)
+    want = run_entry(dense, x, True, False)
+    # the rule's columns spread over eight warps, two a scheduler
+    with_warps = {"B3, 8 warps": 8, "B3 rows64, 8 warps": 8,
+                  "B4 windows of 2, 8 warps": 8}
+    dense64 = operands(prog, "dense", 2)
+    x64 = random_inputs(dense64, n, True, rng)
+    want64 = run_entry(dense64, x64, True, False)
+    variants = {
+        "B3": (dense.packed, dense.wpc),
+        "B3, 8 warps": (dense.packed, dense.wpc),
+        "B3 rows64": (dense64.packed, dense64.wpc),
+        "B3 rows64, 8 warps": (dense64.packed, dense64.wpc)}
+    state, gates, windows = gate_serial_case(prog, n, rng)
+    by_width = {w: pim_exec.pack_gates(ops_, a, b, o, n_cells=n_serial,
+                                       window=w).to("cuda")
+                for w in (1, 2, 4, 8)}
+    serial_want = kref.pim_exec_ref(state.clone(), *gates)
+    rule = pim_exec.ring_words_per_cta(n_serial + pim_exec.GATE_CONSTANTS)
+    variants.update({f"B4 windows of {w}": (by_width[w], rule)
+                     for w in by_width})
+    variants["B4 windows of 2, 8 warps"] = (by_width[2], rule)
+    # no gates at all: what the bridges (B3) or the state's trip through
+    # device memory (B4) cost alone; these give no result to check
+    none = np.zeros(0, np.int64)
+    empty = pim_exec.pack_gates(none, none, none, none,
+                                n_cells=1).to("cuda")
+    variants.update({"B3 no gates": (empty, dense.wpc),
+                     "B4 no gates": (empty, rule)})
+
+    def launch(label):
+        packed, wpc = variants[label]
+        warps = pim_exec.RING_WARPS
+        pim_exec.RING_WARPS = with_warps.get(label, warps)
+        try:
+            if label.startswith("B3"):
+                c = SimpleNamespace(**vars(dense64 if "rows64" in label
+                                         else dense))
+                c.packed, c.wpc = packed, wpc
+                return run_entry(c, x64 if "rows64" in label else x, True,
+                                 True)
+            stream = [g[:packed.n_gates] for g in gates]
+            return pim_exec.gate_serial(state, *stream, packed=packed,
+                                        words_per_cta=wpc)
+        finally:
+            pim_exec.RING_WARPS = warps
+
+    for label in variants:
+        if "no gates" in label:
+            continue
+        got = launch(label)
+        torch.cuda.synchronize()
+        want_ = serial_want if label.startswith("B4") else \
+            want64 if "rows64" in label else want
+        if not torch.equal(got, want_):
+            raise AssertionError(f"probe {label} != plain version")
+    for rep in range(2):                           # in turns
+        for label, (packed, wpc) in variants.items():
+            ms = cuda_ms(lambda: launch(label), 50)
+            print(f"probe time {label} run {rep}: {gpu}; rows={n} "
+                  f"records={packed.n_gates} windows={packed.n_windows} "
+                  f"words_per_cta={wpc} warps="
+                  f"{with_warps.get(label, pim_exec.RING_WARPS)} kernel "
+                  f"{ms:.6f} ms/launch"
+                  f"{'' if 'no gates' in label else ', bit-exact vs plain'}",
+                  flush=True)
 
 
 def profile_main(a, b, gpu: str) -> None:
@@ -665,6 +987,11 @@ def main() -> None:
     ap.add_argument("--split-probe", action="store_true",
                     help="also build B2 whole and split on three programs "
                     "and compare build seconds, ptxas reports and times")
+    ap.add_argument("--probe", nargs="?", const="", default=None,
+                    metavar="PARENT_CSRC",
+                    help="also print the launch attributes of B1, B3 and B4 "
+                    "(and of the kernels in PARENT_CSRC) and time the ring "
+                    "kernels' variants")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -672,12 +999,16 @@ def main() -> None:
     from repro_torch.kernels import pim_exec, plan as kplan
     progs = programs()
     statics = static_kernels(progs)
+    INFO.update({e: KernelInfo(e) for e in INFO_KERNELS})
     t0 = time.perf_counter()
-    logs = pim_exec.build(static=list(statics.values()))
+    logs = pim_exec.build(static=list(statics.values()) +
+                          list(INFO.values()))
     print(f"build: {len(logs)} sources in {time.perf_counter() - t0:.1f} s",
           flush=True)
     names = {k.so.name: f"{prog} planes={planes}"
              for (prog, planes), k in statics.items()}
+    names.update({k.so.name: f"launch attributes of {e}"
+                  for e, k in INFO.items()})
     for name, (log, secs) in logs.items():
         print(f"build {name} ({names.get(name, 'fixed source')}): "
               f"{secs:.1f} s", flush=True)
@@ -692,6 +1023,8 @@ def main() -> None:
     main = main_path()
     kernels = measure(progs, statics, chunk_rows, main["launches"], worst,
                       gpu)
+    if args.probe is not None:
+        probe(progs, gpu, args.probe)
     if args.sweep:
         sweep(gpu)
     if args.split_probe:

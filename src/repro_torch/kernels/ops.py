@@ -350,15 +350,16 @@ class _Resolved:
     use_static: bool                 # the straight-line emission applies
     words_per_cta: int               # CTA width of the cuda kernels
     model: Optional["telemetry.ModeledCost"] = None  # analytical cost gauge
+    packed: Optional["pim_exec.Packed"] = None   # B3's stream (dense, cuda)
 
 
 @dataclasses.dataclass
 class _Compiled:
     """Lazily built artifacts for one (program structure, plan compile key)
     cache entry: the lowered gate arrays, one levelized schedule per
-    allocation ("slots", "dense") with its operands per device, resolved
-    bindings, and the straight-line executors (static chains and
-    generated kernels)."""
+    allocation ("slots", "dense") with its operands per device, the dense
+    schedule's packed stream (B3) per device, resolved bindings, and the
+    straight-line executors (static chains and generated kernels)."""
     arrays: Optional[tuple] = None              # (ops, a, b, o, n_cells)
     scheds: Dict[str, LevelSchedule] = dataclasses.field(default_factory=dict)
     devs: Dict[tuple, tuple] = dataclasses.field(default_factory=dict)
@@ -366,6 +367,8 @@ class _Compiled:
     resolved: Dict[tuple, _Resolved] = dataclasses.field(default_factory=dict)
     static: Dict[tuple, object] = dataclasses.field(default_factory=dict)
     gates: Dict[str, tuple] = dataclasses.field(default_factory=dict)
+    packed: Dict[str, "pim_exec.Packed"] = dataclasses.field(
+        default_factory=dict)
     serial_model: Optional["telemetry.ModeledCost"] = None
 
     @property
@@ -389,16 +392,22 @@ class _Compiled:
 
     def get_gates(self, program, device: str) -> tuple:
         """The lowered stream ``(ops, a, b, o)`` on ``device``, its cell
-        indices checked once against the lowered state."""
+        indices checked once against the lowered state, and on a CUDA
+        device B4's packed stream of it (``pim_exec.pack_gates``; None
+        elsewhere)."""
         g = self.gates.get(device)
         if g is None:
             ops, a, b, o, n_cells = self.get_arrays(program)
             live = np.concatenate([a[ops >= 2], b[ops >= 2], o])
             if live.size and not 0 <= live.min() <= live.max() < n_cells:
                 raise ValueError(f"gate cell index outside [0, {n_cells})")
+            packed = None
+            if torch.device(device).type == "cuda":
+                packed = pim_exec.pack_gates(ops, a, b, o,
+                                             n_cells=n_cells).to(device)
             g = self.gates[device] = tuple(
                 torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(device)
-                for x in (ops, a, b, o))
+                for x in (ops, a, b, o)) + (packed,)
         return g
 
     def get_schedule(self, program, plan: ExecPlan,
@@ -430,6 +439,16 @@ class _Compiled:
                 (names, _as_run(cells) if alloc == "slots" else None)
             self.devs[(alloc, device)] = dev
         return dev
+
+    def get_packed_levels(self, program, plan: ExecPlan, device: str
+                          ) -> "pim_exec.Packed":
+        """B3's packed stream of the dense schedule on ``device``, one
+        window a level (``pim_exec.pack_levels``)."""
+        if device not in self.packed:
+            s = self.get_schedule(program, plan, "dense")
+            self.packed[device] = pim_exec.pack_levels(
+                s.a, s.b, s.out, n_cells=s.n_cells).to(device)
+        return self.packed[device]
 
     def get_in_idx(self, program, plan: ExecPlan, kind: str, device: str,
                    in_names):
@@ -472,6 +491,7 @@ class _Compiled:
                                               in_names)
         in_widths = tuple(len(sched.pack_cells(n)) for n in in_names)
         out_widths = tuple(len(sched.ports[n]) for n in names)
+        ring = kind == "dense" and plan.backend.name == "cuda"
         r = _Resolved(
             kind=kind, sched=sched, la=la, lb=lb, lo=lo, out_idx=out_idx,
             names=names, out_base=out_base, in_idx=in_idx, in_base=in_base,
@@ -481,9 +501,12 @@ class _Compiled:
             fused_ok=bool(in_names) and
             max(in_widths + out_widths, default=0) <= 32,
             use_static=plan.schedule == "slots-static" and slots_ok,
-            words_per_cta=pim_exec.fit_words_per_cta(
+            words_per_cta=pim_exec.ring_words_per_cta(sched.n_cells, planes)
+            if ring else pim_exec.fit_words_per_cta(
                 sched.n_cells, plan.backend.words_per_cta, planes),
-            model=telemetry.COST_MODEL.schedule_cost(sched))
+            model=telemetry.COST_MODEL.schedule_cost(sched),
+            packed=self.get_packed_levels(program, plan, device)
+            if ring else None)
         self.resolved[memo_key] = r
         return r
 
@@ -739,9 +762,11 @@ def _dispatch_levelized(program, inputs: Dict[str, np.ndarray], n_rows: int,
             outs = (pim_exec if on_cuda else kslots).slots_fused(
                 x, *sched_args, in_base=r.in_base, out_base=r.out_base,
                 planes=layout.planes, **widths, **common)
+        elif on_cuda:
+            outs = pim_exec.level_fused(x, *sched_args, planes=layout.planes,
+                                        packed=r.packed, **widths, **common)
         else:
-            outs = (pim_exec.level_fused if on_cuda
-                    else kref.pim_exec_ref_level_fused)(
+            outs = kref.pim_exec_ref_level_fused(
                 x, *sched_args, planes=layout.planes, **widths, **common)
 
         def finalize() -> Dict[str, np.ndarray]:
@@ -765,9 +790,10 @@ def _dispatch_levelized(program, inputs: Dict[str, np.ndarray], n_rows: int,
         sub = (pim_exec if on_cuda else kslots).slots_io(
             x, *sched_args, k_out=r.k_out, in_base=r.in_base,
             out_base=r.out_base, **common)
+    elif on_cuda:
+        sub = pim_exec.level_io(x, *sched_args, packed=r.packed, **common)
     else:
-        sub = (pim_exec.level_io if on_cuda else kref.pim_exec_ref_level_io)(
-            x, *sched_args, **common)
+        sub = kref.pim_exec_ref_level_io(x, *sched_args, **common)
 
     def finalize():
         return _unpack_sub(_to_host(sub),
@@ -785,12 +811,13 @@ def _run_gate_serial(program, inputs: Dict[str, np.ndarray], n_rows: int,
     comp = compiled(program, plan)
     telemetry.record_dispatch(n_rows, comp.get_serial_model(program))
     n_cells = comp.get_arrays(program)[4]
-    gates = comp.get_gates(program, device)
-    state = pack_rows(inputs, program.ports, n_rows, n_cells)
-    fn = pim_exec.gate_serial if plan.backend.name == "cuda" \
-        else kref.pim_exec_ref
-    final = fn(_to_device(state, device), *gates,
-               words_per_cta=plan.backend.words_per_cta)
+    *gates, packed = comp.get_gates(program, device)
+    state = _to_device(pack_rows(inputs, program.ports, n_rows, n_cells),
+                       device)
+    if plan.backend.name == "cuda":
+        final = pim_exec.gate_serial(state, *gates, packed=packed)
+    else:
+        final = kref.pim_exec_ref(state, *gates)
     return unpack_rows(_to_host(final), program.ports, n_rows,
                        names=output_names(program))
 

@@ -6,14 +6,20 @@ Four CUDA kernels, one per TPU kernel of ``repro.kernels.pim_exec``:
   ``_slot_scan_kernel``, with the bit-transpose bridges of
   ``repro.kernels.slots`` fused into its ``fused`` entry;
 * ``csrc/level_gather.cu`` (B3) -- the dense-schedule kernel, the
-  counterpart of ``_pim_level_gather_kernel``;
+  counterpart of ``_pim_level_gather_kernel``, run from a packed stream
+  (:func:`pack_levels`);
 * a generated static-slice kernel per slot schedule (B2), the counterpart
   of ``_pim_level_kernel``: :func:`static_source` writes the schedule out
   as straight-line CUDA with every cell offset a constant;
 * ``csrc/gate_serial.cu`` (B4) -- the gate-serial kernel, the counterpart
-  of ``_pim_kernel``.
+  of ``_pim_kernel``, run from a packed stream (:func:`pack_gates`).
 
-B1, B2 and B3 share ``csrc/pim_state.cuh`` and run both word layouts.
+B1, B2 and B3 share ``csrc/pim_state.cuh`` and run both word layouts.  B3
+and B4 share ``csrc/ring.cuh``: the packed stream (8-byte records of
+uint16 cells, in windows of independent gates, tiles of
+:data:`TILE_RECORDS` records) streamed into shared memory by TMA bulk
+copies, and the loop that runs it; their CTAs are sized by
+:func:`ring_words_per_cta`.
 Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface at first use (``build/repro_torch/`` at the
 checkout root, keyed on the source's hash) and bound with ``ctypes``.
@@ -27,6 +33,7 @@ in :data:`LAUNCHES`.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
@@ -35,6 +42,7 @@ import time
 from pathlib import Path
 from typing import Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
 from . import ref as kref
@@ -48,13 +56,37 @@ SOURCES = {"slot_scan": CSRC / "slot_scan.cu",
            "level_gather": CSRC / "level_gather.cu",
            "gate_serial": CSRC / "gate_serial.cu"}
 #: Headers the sources include; part of every build's key.
-HEADERS = (CSRC / "pim_state.cuh",)
+HEADERS = (CSRC / "pim_state.cuh", CSRC / "ring.cuh")
 BUILD_DIR = _PKG.parent.parent / "build" / "repro_torch"
 #: The CUDA toolkit consulted when ``nvcc`` is not on ``PATH``.
 CUDA_HOME = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+#: Records (8 B each) of one tile of a packed stream (ring.cuh kRecords).
+TILE_RECORDS = 512
+#: Most gates one window of a packed stream holds (ring.cuh kWin): a dense
+#: level's lanes, or a run of independent gate-serial gates.
+WINDOW = LEVEL_MAX_WIDTH
+#: Most gates a window of B4's stream holds.  The kernel's window body is
+#: as wide as the stream's widest window (2, 4 or 8 gates) and runs every
+#: lane of it, and gate-serial windows are short (1.6 gates on average on
+#: fp32 add), so B4 packs narrower windows than the dense levels' 8.
+GATE_WINDOW = 2
+#: Shared memory the ring takes in one CTA (ring.cuh kRingBytes, two tile
+#: slots and their barriers) plus the state's padding to 16 B before it.
+RING_BYTES = 2 * 8 * TILE_RECORDS + 2 * 8 + 15
+#: Constant cells (all zeros, all ones) B4 keeps after the state: INIT1
+#: and INIT0 gates are NORs of them (:func:`pack_gates`).
+GATE_CONSTANTS = 2
+#: Warps a ring kernel's CTA spreads its columns over (``ring_lanes``):
+#: one for each of the SM's four schedulers.  Eight, two each, ran slower
+#: on the H100 (PERF.md, PR 13): each warp then issues the same
+#: instructions for half the columns.
+RING_WARPS = 4
+#: Most threads a CTA of a ring kernel has (ring.cuh kMaxThreads).
+RING_MAX_THREADS = 256
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-              f"-DPIM_LEVEL_MAX_WIDTH={LEVEL_MAX_WIDTH}")
+              f"-DPIM_LEVEL_MAX_WIDTH={LEVEL_MAX_WIDTH}",
+              f"-DPIM_TILE_RECORDS={TILE_RECORDS}")
 
 #: Kernel launches per entry (a launch is counted where it is issued);
 #: entries under the rows64 layout carry a ``_rows64`` suffix.
@@ -79,8 +111,12 @@ _IO_ARGS = [_P, _P, _I, _P, _P, _P, _I, _I, _P, _I, _P, _LL, _I, _I, _I, _I,
             _P]
 _ARGTYPES = {
     "slot_scan_fused": _FUSED_ARGS, "slot_scan_io": _IO_ARGS,
-    "level_gather_fused": _FUSED_ARGS, "level_gather_io": _IO_ARGS,
-    "gate_serial": [_P, _P, _P, _I, _LL, _I, _I, _P],
+    "level_gather_fused": [_P, _P, _I, _P, _I, _P, _I, _I, _I, _P, _P, _I,
+                           _I, _P, _LL, _I, _I, _I, _I, _I, _P],
+    "level_gather_io": [_P, _P, _I, _P, _I, _I, _I, _P, _I, _P, _LL, _I, _I,
+                        _I, _I, _I, _P],
+    "gate_serial": [_P, _P, _P, _I, _I, _I, _LL, _I, _I, _I, _P],
+    "kernel_info": [_I, _I, _I, _I, _P],
     "slots_static_fused": [_P, _P, _I, _P, _I, _P, _P, _I, _I, _P, _LL, _I,
                            _I, _I, _P],
 }
@@ -222,6 +258,166 @@ def fit_words_per_cta(n_cells: int, cap: int, planes: int = 1) -> int:
     return wpc // 32 * 32 if wpc >= 32 else wpc
 
 
+def ring_words_per_cta(n_cells: int, planes: int = 1) -> int:
+    """Words per CTA of the ring kernels (B3, B4) for a state of
+    ``n_cells`` cells of ``planes`` 32-bit planes: as many columns as one
+    CTA's shared memory holds beside the ring, at most ``32 // planes`` a
+    warp of :data:`RING_WARPS`, so that a warp's shared access is one
+    128-byte wavefront.  Each column waits on its own chain of windows, so
+    the columns an SM holds set the kernel's time (PERF.md, the sweep of
+    PR 13).  Raises when a single column does not fit."""
+    col_bytes = 4 * planes * max(int(n_cells), 1)
+    fit = (SMEM_PER_CTA - RING_BYTES) // col_bytes
+    if fit < 1:
+        raise ValueError(
+            f"a program state of {n_cells} cells needs {col_bytes} B of "
+            f"shared memory per word column, more than the "
+            f"{SMEM_PER_CTA - RING_BYTES} B a CTA holds beside the ring")
+    return min(fit, 32 // planes * RING_WARPS)
+
+
+def ring_lanes(wpc: int) -> int:
+    """Live lanes a warp of a ring kernel's CTA of ``wpc`` columns: the
+    columns spread evenly over :data:`RING_WARPS` warps, whole warps once
+    they fill them, so that every scheduler of the SM has columns."""
+    return min(32, -(-int(wpc) // RING_WARPS))
+
+
+def _ring_wpc(n_cells: int, planes: int, words_per_cta: Optional[int]) -> int:
+    """``words_per_cta``, checked to fit beside the ring, or the rule."""
+    if words_per_cta is None:
+        return ring_words_per_cta(n_cells, planes)
+    wpc = int(words_per_cta)
+    need = 4 * planes * max(int(n_cells), 1) * wpc + RING_BYTES
+    threads = -(-wpc // ring_lanes(wpc)) * 32 if wpc > 0 else 0
+    if wpc < 1 or threads > RING_MAX_THREADS or need > SMEM_PER_CTA:
+        raise ValueError(f"{wpc} words per CTA of {n_cells} cells need "
+                         f"{need} B of shared memory with the ring and "
+                         f"{threads} threads; a CTA holds {SMEM_PER_CTA} B "
+                         f"and {RING_MAX_THREADS} threads")
+    return wpc
+
+
+# --------------------------------------------------------------------------
+# packed streams of B3 and B4
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Packed:
+    """A packed stream (``csrc/ring.cuh``): ``tiles`` int32[n_tiles,
+    2 * TILE_RECORDS], each record the uint16 (a, b, o, n) of one NOR gate
+    ``o <- ~(a | b)``.  The ``n_windows`` windows take ``width`` records
+    each (2, 4 or 8: the kernel's window body), ``(TILE_RECORDS - WINDOW)
+    // width`` to a tile; a window of fewer gates repeats its last gate,
+    and ``n`` is the window's own gates on its first record, 0 elsewhere.
+    ``n_gates`` counts the stream's own gates."""
+    tiles: torch.Tensor
+    n_windows: int
+    n_gates: int
+    width: int
+
+    @property
+    def n_tiles(self) -> int:
+        return int(self.tiles.shape[0])
+
+    def to(self, device) -> "Packed":
+        return dataclasses.replace(self, tiles=self.tiles.to(device))
+
+
+def window_width(n: int) -> int:
+    """Records a window of up to ``n`` gates takes: 2, 4 or 8, the kernels'
+    window bodies (ring.cuh ``with_width``)."""
+    if not 0 <= n <= WINDOW:
+        raise ValueError(f"a window holds 1 to {WINDOW} gates (a level 1 "
+                         f"to {WINDOW} lanes), got {n}")
+    return 2 if n <= 2 else 4 if n <= 4 else 8
+
+
+def _pack(a, b, o, lens) -> Packed:
+    """Lay the NOR gates ``(a, b, o)`` out in windows of ``lens`` gates, in
+    order, at a fixed stride of :func:`window_width` records on tiles."""
+    a, b, o = (np.asarray(x, np.int64).ravel() for x in (a, b, o))
+    lens = np.asarray(lens, np.int64)
+    cells = np.concatenate([a, b, o])
+    if cells.size and not 0 <= cells.min() <= cells.max() < 1 << 16:
+        raise ValueError("the packed stream holds cells as uint16; a cell "
+                         "lies outside [0, 65536)")
+    n_windows = len(lens)
+    width = window_width(int(lens.max()) if n_windows else 0)
+    per_tile = (TILE_RECORDS - WINDOW) // width
+    n_tiles = -(-n_windows // per_tile)
+    lane = np.arange(width)
+    starts = np.cumsum(lens) - lens
+    gate = starts[:, None] + np.minimum(lane, lens[:, None] - 1)
+    w = np.arange(n_windows)[:, None]
+    at = (w // per_tile) * TILE_RECORDS + (w % per_tile) * width + lane
+    n = np.zeros((n_windows, width), np.int64)
+    n[:, 0] = lens
+    rec = np.zeros((n_tiles * TILE_RECORDS, 4), np.uint16)
+    rec[at.ravel()] = np.stack([a[gate], b[gate], o[gate], n],
+                               axis=-1).reshape(-1, 4).astype(np.uint16)
+    tiles = torch.from_numpy(rec.view(np.int32).reshape(n_tiles,
+                                                        2 * TILE_RECORDS))
+    return Packed(tiles, n_windows, len(a), width)
+
+
+def _cells_fit(n_cells: int, constants: int = 0) -> None:
+    """Raise unless ``n_cells`` cells and ``constants`` more have uint16
+    indices."""
+    if n_cells >= 1 << 16 or n_cells + constants > 1 << 16:
+        raise ValueError(
+            f"a program of {n_cells} cells (and {constants} constant cells) "
+            "does not fit the packed stream's uint16 cells: 65536 at most")
+
+
+def pack_levels(a, b, o, *, n_cells: int) -> Packed:
+    """B3's stream of a dense schedule ``a/b/o`` [n_levels, width]: one
+    window a level, of all its lanes.  The pad lanes write sink cells that
+    no port and no real lane reads, and the kernel runs a window's every
+    lane at one cost, so they stay."""
+    _cells_fit(n_cells)
+    a, b, o = (np.asarray(x, np.int64) for x in (a, b, o))
+    n_levels, width = a.shape
+    return _pack(a, b, o, np.full(n_levels, width, np.int64))
+
+
+def gate_windows(ops, a, b, o, window: int = WINDOW) -> np.ndarray:
+    """Gates per window of the lowered stream ``ops/a/b/o``, greedy in
+    order: a window ends before a gate that reads a cell the window
+    writes, writes a cell it reads or writes, or would make it longer than
+    ``window``.  INIT0 and INIT1 read nothing."""
+    lens = []
+    reads, writes, n = set(), set(), 0
+    for op, ia, ib, io in zip(np.asarray(ops).tolist(), np.asarray(a).tolist(),
+                              np.asarray(b).tolist(), np.asarray(o).tolist()):
+        r = (ia, ib) if op >= 2 else ()
+        if n == window or io in reads or io in writes or \
+                any(c in writes for c in r):
+            lens.append(n)
+            reads, writes, n = set(), set(), 0
+        reads.update(r)
+        writes.add(io)
+        n += 1
+    if n:
+        lens.append(n)
+    return np.asarray(lens, np.int64)
+
+
+def pack_gates(ops, a, b, o, *, n_cells: int, window: int = GATE_WINDOW
+               ) -> Packed:
+    """B4's stream of the lowered stream ``ops/a/b/o`` over ``n_cells``
+    cells: in order, in the windows of :func:`gate_windows` of at most
+    ``window`` gates.  Every gate becomes a NOR: INIT1 reads the constant
+    cell ``n_cells`` (all zeros) twice, INIT0 the constant cell
+    ``n_cells + 1`` (all ones), which the kernel keeps after the state."""
+    _cells_fit(n_cells, constants=GATE_CONSTANTS)
+    ops = np.asarray(ops)
+    const = np.where(ops == 1, n_cells, n_cells + 1)
+    a2 = np.where(ops >= 2, a, const)
+    b2 = np.where(ops >= 2, b, const)
+    return _pack(a2, b2, o, gate_windows(ops, a, b, o, window))
+
+
 def _widths_tensor(widths: Sequence[int], device) -> torch.Tensor:
     key = (tuple(int(w) for w in widths), str(device))
     t = _width_tensors.get(key)
@@ -281,12 +477,13 @@ def _stream(dev) -> int:
 # B1 and B3: the slot-scan and level-gather wrappers
 # --------------------------------------------------------------------------
 
-def _fused(lib_name, entry, in_vals, in_idx, la, lb, lo, out_idx, *, dense,
-           n_cells, one_cell, in_widths, out_widths, planes, words_per_cta):
+def _fused(lib_name, entry, in_vals, in_idx, out_idx, sched, *, n_cells,
+           one_cell, in_widths, out_widths, planes, shape):
+    """Launch a fused entry; ``sched`` is the schedule's C arguments and
+    ``shape`` a function of (n_cells, planes) giving the launch shape's
+    (the CTA width, and the ring kernels' lanes a warp)."""
     dev = _on_cuda(in_vals, entry)
-    _check(dev, in_vals=in_vals, in_idx=in_idx, la=la, lb=lb, lo=lo,
-           out_idx=out_idx)
-    n_levels, width = _schedule_args(la, lb, lo, dense)
+    _check(dev, in_vals=in_vals, in_idx=in_idx, out_idx=out_idx)
     if in_vals.dim() != 2 or in_vals.shape[0] != len(in_widths):
         raise ValueError(f"in_vals must be [{len(in_widths)}, n_rows], got "
                          f"{tuple(in_vals.shape)}")
@@ -302,27 +499,26 @@ def _fused(lib_name, entry, in_vals, in_idx, la, lb, lo, out_idx, *, dense,
                       device=dev)
     if n_rows == 0 or not out_widths:
         return out
-    wpc = fit_words_per_cta(n_cells, words_per_cta, planes)
+    launch = shape(n_cells, planes)
     fn = getattr(_lib(lib_name), entry)
     with torch.cuda.device(dev):
         err = fn(_ptr(in_vals), _widths_tensor(in_widths, dev).data_ptr(),
-                 len(in_widths), _ptr(in_idx), in_idx.numel(), _ptr(la),
-                 _ptr(lb), _ptr(lo), n_levels, width, _ptr(out_idx),
-                 _widths_tensor(out_widths, dev).data_ptr(), len(out_widths),
-                 out_idx.numel(), out.data_ptr(), n_rows, planes, n_cells,
-                 -1 if one_cell is None else int(one_cell), wpc,
-                 _stream(dev))
+                 len(in_widths), _ptr(in_idx), in_idx.numel(), *sched,
+                 _ptr(out_idx), _widths_tensor(out_widths, dev).data_ptr(),
+                 len(out_widths), out_idx.numel(), out.data_ptr(), n_rows,
+                 planes, n_cells, -1 if one_cell is None else int(one_cell),
+                 *launch, _stream(dev))
     _raise_on(err, entry)
     LAUNCHES[_entry(entry, planes)] += 1
     return out
 
 
-def _io(lib_name, entry, in_rows, in_idx, la, lb, lo, out_idx, *, dense,
-        n_cells, one_cell, k_out, words_per_cta):
+def _io(lib_name, entry, in_rows, in_idx, out_idx, sched, *, n_cells,
+        one_cell, k_out, shape):
+    """Launch an io entry; ``sched`` and ``shape`` as for
+    :func:`_fused`."""
     dev = _on_cuda(in_rows, entry)
-    _check(dev, in_rows=in_rows, in_idx=in_idx, la=la, lb=lb, lo=lo,
-           out_idx=out_idx)
-    n_levels, width = _schedule_args(la, lb, lo, dense)
+    _check(dev, in_rows=in_rows, in_idx=in_idx, out_idx=out_idx)
     planes = 1 if in_rows.dim() == 2 else in_rows.shape[0]
     if in_rows.dim() not in (2, 3) or planes not in (1, 2) or \
             in_rows.shape[-2] != in_idx.numel():
@@ -337,17 +533,25 @@ def _io(lib_name, entry, in_rows, in_idx, la, lb, lo, out_idx, *, dense,
                       dtype=torch.int32, device=dev)
     if n_words == 0 or k_out == 0:
         return out
-    wpc = fit_words_per_cta(n_cells, words_per_cta, planes)
+    launch = shape(n_cells, planes)
     fn = getattr(_lib(lib_name), entry)
     with torch.cuda.device(dev):
-        err = fn(_ptr(in_rows), _ptr(in_idx), in_idx.numel(), _ptr(la),
-                 _ptr(lb), _ptr(lo), n_levels, width, _ptr(out_idx), k_out,
-                 out.data_ptr(), n_words, planes, n_cells,
-                 -1 if one_cell is None else int(one_cell), wpc,
-                 _stream(dev))
+        err = fn(_ptr(in_rows), _ptr(in_idx), in_idx.numel(), *sched,
+                 _ptr(out_idx), k_out, out.data_ptr(), n_words, planes,
+                 n_cells, -1 if one_cell is None else int(one_cell),
+                 *launch, _stream(dev))
     _raise_on(err, entry)
     LAUNCHES[_entry(entry, planes)] += 1
     return out
+
+
+def _slot_sched(la, lb, lo, words_per_cta, dev):
+    """The slot scan's schedule arguments and launch shape rule."""
+    _check(dev, la=la, lb=lb, lo=lo)
+    n_levels, width = _schedule_args(la, lb, lo)
+    return ((_ptr(la), _ptr(lb), _ptr(lo), n_levels, width),
+            lambda n_cells, planes: (fit_words_per_cta(
+                n_cells, words_per_cta, planes),))
 
 
 def slots_fused(in_vals, in_idx, la, lb, lo, out_idx, *, n_cells, one_cell,
@@ -365,11 +569,12 @@ def slots_fused(in_vals, in_idx, la, lb, lo, out_idx, *, n_cells, one_cell,
             in_vals, in_idx, la, lb, lo, out_idx, n_cells=n_cells,
             one_cell=one_cell, in_widths=in_widths, out_widths=out_widths,
             in_base=in_base, out_base=out_base, planes=planes)
-    return _fused("slot_scan", "slot_scan_fused", in_vals, in_idx, la, lb,
-                  lo, out_idx, dense=False, n_cells=n_cells,
-                  one_cell=one_cell, in_widths=in_widths,
-                  out_widths=out_widths, planes=planes,
-                  words_per_cta=words_per_cta)
+    sched, shape = _slot_sched(la, lb, lo, words_per_cta,
+                             _on_cuda(in_vals, "slot_scan_fused"))
+    return _fused("slot_scan", "slot_scan_fused", in_vals, in_idx, out_idx,
+                  sched, n_cells=n_cells, one_cell=one_cell,
+                  in_widths=in_widths, out_widths=out_widths, planes=planes,
+                  shape=shape)
 
 
 def slots_io(in_rows, in_idx, la, lb, lo, out_idx, *, n_cells, one_cell,
@@ -384,54 +589,97 @@ def slots_io(in_rows, in_idx, la, lb, lo, out_idx, *, n_cells, one_cell,
             in_rows, in_idx, la, lb, lo, out_idx, n_cells=n_cells,
             one_cell=one_cell, k_out=k_out, in_base=in_base,
             out_base=out_base)
-    return _io("slot_scan", "slot_scan_io", in_rows, in_idx, la, lb, lo,
-               out_idx, dense=False, n_cells=n_cells, one_cell=one_cell,
-               k_out=k_out, words_per_cta=words_per_cta)
+    sched, shape = _slot_sched(la, lb, lo, words_per_cta,
+                             _on_cuda(in_rows, "slot_scan_io"))
+    return _io("slot_scan", "slot_scan_io", in_rows, in_idx, out_idx, sched,
+               n_cells=n_cells, one_cell=one_cell, k_out=k_out,
+               shape=shape)
+
+
+def _dense_packed(la, lb, lo, packed, n_cells, dev) -> Packed:
+    """``packed`` (:func:`pack_levels` of this schedule, on ``dev``), or
+    ``la/lb/lo`` packed here.  The caller holds the result until the
+    launch is queued, so its memory is not reused before."""
+    if packed is None:
+        _check(dev, la=la, lb=lb, lo=lo)
+        _schedule_args(la, lb, lo, dense=True)
+        return pack_levels(la.cpu(), lb.cpu(), lo.cpu(),
+                           n_cells=n_cells).to(dev)
+    if packed.tiles.device != dev:
+        raise ValueError(f"packed stream is on {packed.tiles.device}, "
+                         f"expected {dev}")
+    return packed
+
+
+def _dense_sched(packed: Packed, words_per_cta):
+    """The level gather's stream arguments and launch shape rule."""
+    def shape(n_cells, planes):
+        wpc = _ring_wpc(n_cells, planes, words_per_cta)
+        return wpc, ring_lanes(wpc)
+    return ((_ptr(packed.tiles), packed.n_tiles, packed.n_windows,
+             packed.width), shape)
 
 
 def level_fused(in_vals, in_idx, la, lb, lo, out_idx, *, n_cells, one_cell,
                 in_widths, out_widths, planes: int = 1,
-                words_per_cta: int = WORDS_PER_CTA):
+                words_per_cta: Optional[int] = None,
+                packed: Optional[Packed] = None):
     """Fused dense executor (B3), the signature of
     ``ref.pim_exec_ref_level_fused``: per-row values in and out, a dense
-    schedule of up to 8 lanes in between."""
+    schedule of up to 8 lanes in between.  The kernel runs ``packed``, the
+    schedule's :func:`pack_levels` stream on the card (callers that run a
+    schedule often pack it once, as ``kernels.ops`` does); without it the
+    wrapper packs ``la/lb/lo`` through the host.  ``words_per_cta`` sets
+    the CTA width (default :func:`ring_words_per_cta`)."""
     if in_vals.device.type == "cpu":
         return kref.pim_exec_ref_level_fused(
             in_vals, in_idx, la, lb, lo, out_idx, n_cells=n_cells,
             one_cell=one_cell, in_widths=in_widths, out_widths=out_widths,
             planes=planes)
-    return _fused("level_gather", "level_gather_fused", in_vals, in_idx, la,
-                  lb, lo, out_idx, dense=True, n_cells=n_cells,
-                  one_cell=one_cell, in_widths=in_widths,
-                  out_widths=out_widths, planes=planes,
-                  words_per_cta=words_per_cta)
+    dev = _on_cuda(in_vals, "level_gather_fused")
+    packed = _dense_packed(la, lb, lo, packed, n_cells, dev)
+    sched, shape = _dense_sched(packed, words_per_cta)
+    return _fused("level_gather", "level_gather_fused", in_vals, in_idx,
+                  out_idx, sched, n_cells=n_cells, one_cell=one_cell,
+                  in_widths=in_widths, out_widths=out_widths, planes=planes,
+                  shape=shape)
 
 
 def level_io(in_rows, in_idx, la, lb, lo, out_idx, *, n_cells,
-             one_cell=None, words_per_cta: int = WORDS_PER_CTA):
+             one_cell=None, words_per_cta: Optional[int] = None,
+             packed: Optional[Packed] = None):
     """Dense executor over pre-packed port rows (B3), the signature of
     ``ref.pim_exec_ref_level_io``: int32[k_in, n_words] in (planes-leading
-    under rows64), the ``out_idx`` rows out."""
+    under rows64), the ``out_idx`` rows out; ``packed`` and
+    ``words_per_cta`` as for :func:`level_fused`."""
     if in_rows.device.type == "cpu":
         return kref.pim_exec_ref_level_io(
             in_rows, in_idx, la, lb, lo, out_idx, n_cells=n_cells,
             one_cell=one_cell)
-    return _io("level_gather", "level_gather_io", in_rows, in_idx, la, lb,
-               lo, out_idx, dense=True, n_cells=n_cells, one_cell=one_cell,
-               k_out=out_idx.numel(), words_per_cta=words_per_cta)
+    dev = _on_cuda(in_rows, "level_gather_io")
+    packed = _dense_packed(la, lb, lo, packed, n_cells, dev)
+    sched, shape = _dense_sched(packed, words_per_cta)
+    return _io("level_gather", "level_gather_io", in_rows, in_idx, out_idx,
+               sched, n_cells=n_cells, one_cell=one_cell,
+               k_out=out_idx.numel(), shape=shape)
 
 
 # --------------------------------------------------------------------------
 # B4: the gate-serial wrapper
 # --------------------------------------------------------------------------
 
-def gate_serial(state, ops, a, b, o, *, words_per_cta: int = WORDS_PER_CTA):
+def gate_serial(state, ops, a, b, o, *, words_per_cta: Optional[int] = None,
+                packed: Optional[Packed] = None):
     """Gate-serial executor (B4), the signature of ``ref.pim_exec_ref``:
     the lowered stream ``ops/a/b/o`` (int32[n_gates] each) over the whole
     state int32[n_cells, n_words]; returns the final state (a new tensor
-    on the card, ``state`` itself on the CPU).  The kernel indexes shared
-    memory with ``a``/``b``/``o`` unchecked: callers pass a lowered
-    program's own arrays (``kernels.ops`` checks them once)."""
+    on the card, ``state`` itself on the CPU).  The kernel runs
+    ``packed``, the stream's :func:`pack_gates` on the card (``kernels.ops``
+    packs each program once); without it the wrapper packs ``ops/a/b/o``.
+    The kernel indexes shared memory with the cells unchecked: callers
+    pass a lowered program's own arrays (``kernels.ops`` checks them
+    once).  ``words_per_cta`` sets the CTA width (default
+    :func:`ring_words_per_cta`)."""
     if state.device.type == "cpu":
         return kref.pim_exec_ref(state, ops, a, b, o)
     dev = _on_cuda(state, "gate_serial")
@@ -446,12 +694,18 @@ def gate_serial(state, ops, a, b, o, *, words_per_cta: int = WORDS_PER_CTA):
     out = torch.empty_like(state)
     if n_words == 0 or n_cells == 0:
         return out
-    gates = torch.stack((ops, a, b, o), dim=1).contiguous()
-    wpc = fit_words_per_cta(n_cells, words_per_cta)
+    if packed is None:
+        packed = pack_gates(*(x.cpu() for x in (ops, a, b, o)),
+                            n_cells=n_cells).to(dev)
+    elif packed.tiles.device != dev or packed.n_gates != n_gates:
+        raise ValueError("packed must be the stream of these gates on "
+                         f"{dev}")
+    wpc = _ring_wpc(n_cells + GATE_CONSTANTS, 1, words_per_cta)
     with torch.cuda.device(dev):
         err = _lib("gate_serial").gate_serial(
-            state.data_ptr(), out.data_ptr(), _ptr(gates), n_gates, n_words,
-            n_cells, wpc, _stream(dev))
+            state.data_ptr(), out.data_ptr(), _ptr(packed.tiles),
+            packed.n_tiles, packed.n_windows, packed.width, n_words,
+            n_cells, wpc, ring_lanes(wpc), _stream(dev))
     _raise_on(err, "gate_serial")
     LAUNCHES["gate_serial"] += 1
     return out
