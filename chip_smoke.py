@@ -1,14 +1,15 @@
 """End-to-end check of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py                  # full size: 64 Mi rows
-    python3 chip_smoke.py --sweep          # also sweep the cuda Backend tunables
-                                           # and the ring kernels' CTA width,
-                                           # and profile the main path
+    python3 chip_smoke.py --sweep          # also sweep B1's and B2's CTA
+                                           # width and the chunk size, and
+                                           # profile the main path
     python3 chip_smoke.py --split-probe    # also build B2 whole and split
                                            # and compare them
-    python3 chip_smoke.py --probe [DIR]    # also time the ring kernels and
-                                           # print launch attributes (and
-                                           # those of the kernels in DIR)
+    python3 chip_smoke.py --probe [DIR]    # also print launch attributes and
+                                           # time B1, B2 and B3 with no gates
+                                           # (and the same of the parent's
+                                           # package whose csrc is DIR)
 
 Phases, each of which raises (exit code 1) on failure:
 
@@ -20,8 +21,9 @@ Phases, each of which raises (exit code 1) on failure:
 3. hold every kernel entry against its plain PyTorch version on the card,
    bit-exactly (``torch.equal``): the slot scan (B1), the level gather
    (B3), the static-slice kernels (B2) and the gate-serial kernel (B4),
-   under rows32 and rows64, and the ring kernels (B3, B4) on long streams
-   and at fewer than 32 words per CTA;
+   under rows32 and rows64, the ring kernels (B3, B4) on long streams
+   and at fewer than 32 words per CTA, and the slot scan at slot widths
+   4 and 8;
 4. drive the main path through the public entry points, each run checked
    against numpy with the launch counters zeroed just before and read just
    after -- its kernel must have run and no plain version may have:
@@ -92,10 +94,18 @@ def smi(query: str) -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
+#: SM cycles the device sleeps before a timed run (0.1 s at 1980 MHz), so
+#: that the host queues the run's launches while it waits and the events
+#: time the launches back to back, not the host's time between them.
+SLEEP_CYCLES = 200_000_000
+
+
 def cuda_ms(fn, iters: int) -> float:
     """Mean device time of ``fn`` over ``iters`` calls, from CUDA events,
     after warm-up calls for at least 50 ms, so that the card's clocks are
-    up however long it idled before."""
+    up however long it idled before.  The calls are queued behind a device
+    sleep (:data:`SLEEP_CYCLES`), so a call whose kernel is shorter than
+    its wrapper's host work is timed on the device all the same."""
     t0 = time.perf_counter()
     while True:
         fn()
@@ -103,6 +113,7 @@ def cuda_ms(fn, iters: int) -> float:
         if time.perf_counter() - t0 >= 0.05:
             break
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -111,22 +122,32 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def resolved(program, backend: str = "cuda", **backend_kw):
-    from repro_torch.kernels import ops, plan as kplan
+def resolved(program, backend: str = "cuda", pkg=None, schedule=None,
+             **backend_kw):
+    """``program`` resolved on the card under ``pkg`` (this tree's
+    ``kernels`` modules by default, or the parent's)."""
+    if pkg is None:
+        from repro_torch.kernels import ops, plan as kplan
+    else:
+        ops, kplan = pkg.ops, pkg.plan
     plan = kplan.as_plan(backend=dataclasses.replace(
-        kplan.BACKENDS[backend], **backend_kw), device="cuda")
+        kplan.BACKENDS[backend], **backend_kw), device="cuda",
+        schedule=schedule)
     in_names = tuple(sorted(program.in_ports))
     return ops.compiled(program, plan).resolve(program, plan, in_names)
 
 
-def operands(program, kind: str = "slots", planes: int = 1):
-    """One program's schedule of ``kind`` ('slots' or 'dense') with every
-    operand its kernel entries take, on the card (for 'dense' also B3's
-    packed stream and the ring kernels' CTA width) --
+def operands(program, kind: str = "slots", planes: int = 1,
+             slot_width=None):
+    """One program's schedule of ``kind`` ('slots' or 'dense', the slots at
+    ``slot_width`` if given) with every operand its kernel entries take,
+    on the card, with its packed stream and the ring kernels' CTA width --
     built directly, not through ``resolve``, so that each entry runs the
     schedule it is named for whatever the dispatcher would pick."""
     from repro_torch.kernels import ops, pim_exec, plan as kplan
-    plan = kplan.as_plan(device="cuda", schedule=kind)
+    backend = kplan.BACKENDS["cuda"] if slot_width is None else \
+        kplan.Backend("cuda", slot_width=slot_width)
+    plan = kplan.as_plan(backend=backend, device="cuda", schedule=kind)
     s = ops.compiled(program, plan).get_schedule(program, plan)
     in_names = sorted(program.in_ports)
     out_names = ops.output_names(s)
@@ -145,19 +166,17 @@ def operands(program, kind: str = "slots", planes: int = 1):
         k_out=len(out_cells), in_base=ops._as_run(in_cells),
         out_base=ops._as_run(out_cells) if kind == "slots" else None,
         one_cell=s.one_cell,
-        packed=pim_exec.pack_levels(s.a, s.b, s.out,
-                                    n_cells=s.n_cells).to("cuda")
-        if kind == "dense" else None,
-        wpc=pim_exec.ring_words_per_cta(s.n_cells, planes)
-        if kind == "dense" else
-        pim_exec.fit_words_per_cta(s.n_cells, kplan.WORDS_PER_CTA, planes))
+        packed=(pim_exec.pack_levels if kind == "dense" else
+                pim_exec.pack_slots)(s.a, s.b, s.out,
+                                     n_cells=s.n_cells).to("cuda"),
+        wpc=pim_exec.ring_words_per_cta(s.n_cells, planes))
 
 
-def static_kernel(c):
-    from repro_torch.kernels import pim_exec, plan as kplan
+def static_kernel(c, words_per_cta=None):
+    from repro_torch.kernels import pim_exec
     return pim_exec.StaticKernel(c.sched, c.in_widths, c.out_widths,
                                  c.out_names, c.in_cells, planes=c.planes,
-                                 words_per_cta=kplan.WORDS_PER_CTA)
+                                 words_per_cta=words_per_cta)
 
 
 def random_inputs(c, n_rows: int, fused: bool, rng) -> torch.Tensor:
@@ -190,6 +209,8 @@ def run_entry(c, x, fused: bool, kernel: bool, static=None):
     args = (x, c.in_idx, c.la, c.lb, c.lo, c.out_idx)
     kw = dict(n_cells=c.sched.n_cells, one_cell=c.one_cell,
               words_per_cta=c.wpc)
+    if kernel:
+        kw["packed"] = c.packed
     if c.kind == "slots":
         impl = pim_exec if kernel else kslots
         kw.update(in_base=c.in_base, out_base=c.out_base)
@@ -198,8 +219,6 @@ def run_entry(c, x, fused: bool, kernel: bool, static=None):
                                     out_widths=c.out_widths,
                                     planes=c.planes, **kw)
         return impl.slots_io(*args, k_out=c.k_out, **kw)
-    if kernel:
-        kw["packed"] = c.packed
     if fused:
         fn = pim_exec.level_fused if kernel else kref.pim_exec_ref_level_fused
         return fn(*args, in_widths=c.in_widths, out_widths=c.out_widths,
@@ -242,10 +261,18 @@ def programs():
     }
 
 
+def program_of(progs, name: str) -> tuple:
+    """(program, slot width or None) of a check's program name: "fp32
+    add@4" is fp32 add levelized at slot width 4."""
+    base, _, width = name.partition("@")
+    return progs[base], int(width) if width else None
+
+
 #: Phase 3: (entry, program, fused, rows, planes): the slot scan, the
 #: level gather, the static kernels, the gate-serial kernel, then rows64,
 #: then the ring kernels on long streams (fp32 mul: 23 tiles for B4) and at
-#: fewer than 32 words per CTA (int-parallel div64, 25354 cells: 2).
+#: fewer than 32 words per CTA (int-parallel div64, 25354 cells: 2), then
+#: the slot scan at slot widths 4 and 8 (windows of 4 and 8 records).
 CHECKS = [
     ("slot_scan", "fp16 add", True, 1 << 20, 1),
     ("slot_scan", "fp32 add", True, 1 << 20, 1),
@@ -288,6 +315,13 @@ CHECKS = [
     ("gate_serial", "fp32 mul", None, (1 << 20) + 45, 1),
     ("gate_serial", "int-parallel div64", None, 1000, 1),
     ("level_gather", "fp32 mul", True, (1 << 20) + 37, 2),
+    ("slot_scan", "fp32 add@4", True, (1 << 20) + 3, 1),
+    ("slot_scan", "fp32 add@8", True, (1 << 20) + 3, 1),
+    ("slot_scan", "fp32 add@4", True, (1 << 20) + 37, 2),
+    ("slot_scan", "fp32 add@8", True, (1 << 20) + 37, 2),
+    ("slot_scan", "fp32 mul@8", True, 1 << 20, 1),
+    ("slot_scan", "uint32 add@4", False, 1 << 20, 1),
+    ("slot_scan", "uint32 add@8", False, (1 << 20) + 77, 2),
 ]
 
 
@@ -326,7 +360,7 @@ def check_kernels(progs, statics) -> dict:
     rng = np.random.default_rng(SEED)
     worst = {}
     for entry, name, fused, rows, planes in CHECKS:
-        prog = progs[name]
+        prog, slot_width = program_of(progs, name)
         if entry == "gate_serial":
             state, gates, packed = gate_serial_case(prog, rows, rng)
             got = pim_exec.gate_serial(state, *gates, packed=packed)
@@ -338,16 +372,17 @@ def check_kernels(progs, statics) -> dict:
                         state.shape[0] + pim_exec.GATE_CONSTANTS)))
         else:
             kind = "dense" if entry == "level_gather" else "slots"
-            c = operands(prog, kind, planes)
+            c = operands(prog, kind, planes, slot_width)
             static = statics[(name, planes)] if entry == "slots_static" \
                 else None
             x = random_inputs(c, rows, fused, rng)
             got = run_entry(c, x, fused, True, static)
             torch.cuda.synchronize()
             want = run_entry(c, x, fused, False, static)
+            wpc = static.wpc if static else c.wpc
             info = (f"levels={c.sched.n_levels} width={c.sched.width} "
-                    f"cells={c.sched.n_cells} words_per_cta={c.wpc} "
-                    f"one_cell={c.one_cell}")
+                    f"windows of {c.packed.width} cells={c.sched.n_cells} "
+                    f"words_per_cta={wpc} one_cell={c.one_cell}")
         key = entry_key(entry, fused, planes)
         err = int((got.long() - want.long()).abs().max()) if got.numel() \
             else 0
@@ -473,16 +508,21 @@ CARVEOUTS_KB = (0, 8, 16, 32, 64, 100, 132, 164, 196, 228)
 
 #: entry -> the kernel (template instance by planes and fused) the launch
 #: attributes are read from: the window body of the main path's streams
-#: (8 gates for the dense levels, 2 for the gate-serial stream).
+#: (6 records for a slot level, 8 for a dense level, 2 for the gate-serial
+#: stream).  B1 and B3 are one template of ring.cuh.
 INFO_KERNELS = {
+    "slot_scan": "ring::level_kernel<6, {p}, {f}>",
+    "level_gather": "ring::level_kernel<8, {p}, {f}>",
+    "gate_serial": "gate_serial_kernel<2>",
+}
+#: The same in a parent's sources (``--probe DIR``) whose slot scan reads
+#: its schedule through index arrays (its ``pim_exec`` has no
+#: ``ring_shape``); a later parent has this tree's names.
+PRE_RING_KERNELS = {
     "slot_scan": "slot_scan_kernel<{p}, {f}>",
     "level_gather": "level_gather_kernel<8, {p}, {f}>",
     "gate_serial": "gate_serial_kernel<2>",
 }
-#: The same in the parent's sources (``--probe DIR``), before the ring.
-PARENT_KERNELS = dict(INFO_KERNELS,
-                      level_gather="level_gather_kernel<{p}, {f}>",
-                      gate_serial="gate_serial_kernel")
 
 _INFO_SOURCE = """\
 // Launch attributes of the kernels of one source, for chip_smoke.py.
@@ -513,13 +553,16 @@ class KernelInfo:
     """A library that reads one kernel source's launch attributes
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, and registers,
     local bytes and preferred carveout from ``cudaFuncGetAttributes``): a
-    generated file that includes the source, built by ``pim_exec.build``
-    like B2.  ``source`` defaults to the port's own file for ``entry``,
-    ``kernel`` to its entry in :data:`INFO_KERNELS`."""
+    generated file that includes the source, built by ``px.build`` like B2
+    (``px`` is this tree's ``pim_exec`` or the parent's, whose headers the
+    source includes).  ``source`` defaults to the port's own file for
+    ``entry``, ``kernel`` to its entry in :data:`INFO_KERNELS`."""
 
-    def __init__(self, entry: str, source=None, kernel=None):
-        from repro_torch.kernels import pim_exec
-        source = Path(source or pim_exec.SOURCES[entry]).resolve()
+    def __init__(self, entry: str, source=None, kernel=None, px=None):
+        if px is None:
+            from repro_torch.kernels import pim_exec as px
+        self.px = px
+        source = Path(source or px.SOURCES[entry]).resolve()
         kernel = kernel or INFO_KERNELS[entry]
         if "{p}" in kernel:
             select = "".join(
@@ -534,9 +577,9 @@ class KernelInfo:
                                           select=select)
         deps = self.source.encode() + source.read_bytes() + b"".join(
             h.read_bytes() for h in sorted(source.parent.glob("*.cuh")))
-        key = pim_exec._build_key(deps)
-        self.cu = pim_exec.BUILD_DIR / f"info_{entry}-{key}.cu"
-        self.so = pim_exec.BUILD_DIR / f"info_{entry}-{key}.so"
+        key = px._build_key(deps)
+        self.cu = px.BUILD_DIR / f"info_{entry}-{key}.cu"
+        self.so = px.BUILD_DIR / f"info_{entry}-{key}.so"
 
     @property
     def built(self) -> bool:
@@ -545,10 +588,9 @@ class KernelInfo:
     def __call__(self, planes: int, fused: bool, threads: int, smem: int
                  ) -> dict:
         import ctypes
-        from repro_torch.kernels import pim_exec
         out = (ctypes.c_int * 4)()
-        err = pim_exec._load(self.so).kernel_info(planes, int(fused),
-                                                  threads, smem, out)
+        err = self.px._load(self.so).kernel_info(planes, int(fused),
+                                                 threads, smem, out)
         if err:
             raise RuntimeError(f"kernel_info failed: CUDA error {err}")
         per_sm = out[0] * (smem + 1024)       # 1 KB a CTA for the system
@@ -558,34 +600,68 @@ class KernelInfo:
                 "carveout_pref": out[3], "l1_kb": 256 - carve}
 
 
-#: entry -> KernelInfo, built in phase 1 beside the kernels.
+#: entry -> KernelInfo, built in phase 1 beside the kernels; B2's by
+#: (program, planes) of its timed kernels.
 INFO: dict = {}
+STATIC_INFO: dict = {}
 
 
-def threads_for(entry: str, wpc: int) -> int:
-    """Threads of ``entry``'s CTA of ``wpc`` columns: whole warps, the ring
-    kernels' columns spread over ``pim_exec.RING_WARPS``."""
-    from repro_torch.kernels import pim_exec
-    if entry == "slot_scan":
-        return (wpc + 31) // 32 * 32
-    return -(-wpc // pim_exec.ring_lanes(wpc)) * 32
+def cta_shape(entry: str, n_cells: int, planes: int = 1, static=None,
+              pim_exec=None) -> dict:
+    """The CTA of ``entry`` at the rule's width for a state of ``n_cells``
+    cells (the gate-serial state without its two constant cells;
+    ``static`` the B2 kernel) in the tree of ``pim_exec`` (this one by
+    default): columns, stride, threads and dynamic shared memory."""
+    if pim_exec is None:
+        from repro_torch.kernels import pim_exec
+    word = 4 * planes
+    if entry == "slots_static":
+        return {"wpc": static.wpc, "stride": static.stride,
+                "threads": static.threads,
+                "smem": -(-n_cells * static.stride * word // 16) * 16}
+    if entry == "gate_serial":
+        n_cells += pim_exec.GATE_CONSTANTS
+        wpc = stride = pim_exec.ring_words_per_cta(n_cells)
+        lanes = pim_exec.ring_lanes(wpc)
+    else:
+        wpc, stride, lanes = pim_exec.ring_shape(n_cells, planes)
+    return {"wpc": wpc, "stride": stride, "threads": -(-wpc // lanes) * 32,
+            "smem": -(-n_cells * stride * word // 16) * 16 +
+            2 * 8 * pim_exec.TILE_RECORDS + 16}
 
 
-def launch_attrs(entry: str, planes: int, fused, wpc: int, smem: int
-                 ) -> str:
-    """``entry``'s launch attributes at this CTA shape, as printed."""
-    a = INFO[entry](planes, bool(fused), threads_for(entry, wpc), smem)
-    return (f"; launch: {a['threads']} threads, {a['smem']} B shared, "
+def launch_attrs(info, planes: int, fused, shape: dict) -> str:
+    """The launch attributes ``info`` reads at this CTA shape, as
+    printed."""
+    a = info(planes, bool(fused), shape["threads"], shape["smem"])
+    return (f"; launch: {shape['wpc']} columns, stride {shape['stride']}, "
+            f"{a['threads']} threads, {a['smem']} B shared, "
             f"{a['ctas_per_sm']} CTAs/SM, {a['registers']} registers, "
             f"{a['local_bytes']} local B, carveout preference "
             f"{a['carveout_pref']}, L1 left ~{a['l1_kb']} KB")
 
 
-def ring_smem(n_cells: int, wpc: int, planes: int) -> int:
-    """Dynamic shared memory of a ring kernel's CTA (ring.cuh)."""
-    from repro_torch.kernels import pim_exec
-    return (4 * planes * n_cells * wpc + 15) // 16 * 16 + \
-        2 * 8 * pim_exec.TILE_RECORDS + 16
+def pre_ring_shape(entry: str, pkg, slot, dense, serial_cells: int, static
+                   ) -> dict:
+    """:func:`cta_shape` for fp32 add under rows32 in a parent of
+    :data:`PRE_RING_KERNELS`: ``slot`` and ``dense`` are the program
+    resolved there under the slot and dense schedules, ``serial_cells``
+    the gate-serial state with its constant cells, ``static`` its B2
+    kernel.  Its slot scan and B2 ran one thread a column, whole warps."""
+    px = pkg.pim_exec
+
+    def ring(cells, wpc):
+        return {"wpc": wpc, "stride": wpc,
+                "threads": -(-wpc // px.ring_lanes(wpc)) * 32,
+                "smem": -(-cells * wpc * 4 // 16) * 16 +
+                2 * 8 * px.TILE_RECORDS + 16}
+    if entry in ("slot_scan", "slots_static"):
+        wpc = slot.words_per_cta if entry == "slot_scan" else static.wpc
+        return {"wpc": wpc, "stride": wpc, "threads": (wpc + 31) // 32 * 32,
+                "smem": 4 * slot.sched.n_cells * wpc}
+    if entry == "level_gather":
+        return ring(dense.sched.n_cells, dense.words_per_cta)
+    return ring(serial_cells, px.ring_words_per_cta(serial_cells))
 
 
 #: Phase 5: (entry, program, fused, planes) timed at one chunk.
@@ -630,13 +706,10 @@ def measure(progs, statics, chunk_rows: int, launches: dict, worst: dict,
             bound_ms, bound_by = bound(entry, ops_, n, None, lop_rate,
                                        n_cells)
             smem = 12 * len(ops_) * n_words
-            wpc = pim_exec.ring_words_per_cta(n_cells +
-                                              pim_exec.GATE_CONSTANTS)
+            cta = cta_shape(entry, n_cells)
             shape = (f"gates={len(ops_)} windows={packed.n_windows} "
-                     f"cells={n_cells} words_per_cta={wpc}")
-            attrs = launch_attrs(
-                entry, 1, False, wpc,
-                ring_smem(n_cells + pim_exec.GATE_CONSTANTS, wpc, 1))
+                     f"cells={n_cells}")
+            attrs = launch_attrs(INFO[entry], 1, False, cta)
         else:
             kind = "dense" if entry == "level_gather" else "slots"
             c = operands(prog, kind, planes)
@@ -652,15 +725,10 @@ def measure(progs, statics, chunk_rows: int, launches: dict, worst: dict,
                 else s.n_levels * s.width
             smem = 12 * lanes * n_words
             shape = (f"levels={s.n_levels} width={s.width} lanes={lanes} "
-                     f"cells={s.n_cells} words_per_cta={c.wpc}")
-            if entry == "slots_static":
-                attrs = ""
-            elif entry == "level_gather":
-                attrs = launch_attrs(entry, planes, fused, c.wpc,
-                                     ring_smem(s.n_cells, c.wpc, planes))
-            else:
-                attrs = launch_attrs(entry, planes, fused, c.wpc,
-                                     4 * planes * s.n_cells * c.wpc)
+                     f"cells={s.n_cells}")
+            info = STATIC_INFO[(name, planes)] if static else INFO[entry]
+            attrs = launch_attrs(info, planes, fused,
+                                 cta_shape(entry, s.n_cells, planes, static))
         if fused is False:
             xa = torch.randint(0, 1 << 32, (n,), device="cuda")
             xb = torch.randint(0, 1 << 32, (n,), device="cuda")
@@ -687,29 +755,60 @@ def measure(progs, statics, chunk_rows: int, launches: dict, worst: dict,
 
 
 def sweep(gpu: str) -> None:
-    """Tunables of the cuda Backend: kernel time per words per CTA on four
-    programs of different state sizes at one chunk, then end-to-end fp_add
-    wall time per chunk size, then where the main path's time goes."""
+    """The CTA width of B1 (``pim_exec.ring_words_per_cta``) and of B2
+    (``pim_exec.static_words_per_cta``, each width its own build, all built
+    together) at one chunk, then the fp32 add kernel per chunk size, the
+    end-to-end fp_add run phase per chunk size, and where the main path's
+    time goes."""
     from repro_torch import pim_ufunc as pim
     from repro_torch.core.pim_numerics import program_for
+    from repro_torch.kernels import pim_exec
     rng = np.random.default_rng(SEED)
-    n = 1 << 22
-    for label, prog, fused in (
-            ("fp16 add", program_for("fp-serial", "add", "fp16"), True),
-            ("fp32 add", program_for("fp-serial", "add", "fp32"), True),
-            ("fp32 mul", program_for("fp-serial", "mul", "fp32"), True),
-            ("uint32 add io", program_for("int-serial", "add", 32), False)):
-        c = operands(prog)
+    n = 1 << 20
+    cases = [(label, program_for(*spec), fused, planes)
+             for label, spec, fused, planes in (
+                 ("fp16 add", ("fp-serial", "add", "fp16"), True, 1),
+                 ("fp32 add", ("fp-serial", "add", "fp32"), True, 1),
+                 ("fp32 add", ("fp-serial", "add", "fp32"), True, 2),
+                 ("fp32 mul", ("fp-serial", "mul", "fp32"), True, 1),
+                 ("uint16 add", ("int-serial", "add", 16), True, 1),
+                 ("uint16 add", ("int-serial", "add", 16), True, 2),
+                 ("uint32 add io", ("int-serial", "add", 32), False, 1))]
+    statics = {}
+    for label, prog, fused, planes in cases:
+        c = operands(prog, "slots", planes)
+        fit = pim_exec.fit_words_per_cta(c.sched.n_cells, 128, planes)
+        for wpc in (16, 32, 64, 128):
+            if fused and wpc <= fit:
+                statics[(label, planes, wpc)] = static_kernel(c, wpc)
+    t0 = time.perf_counter()
+    logs = pim_exec.build([], static=list(statics.values()))
+    print(f"sweep build: {len(logs)} static kernels in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for (label, planes, wpc), k in statics.items():
+        for line in logs.get(k.so.name, ("", 0))[0].splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"sweep ptxas slots_static {label} planes={planes} "
+                      f"words_per_cta={wpc}: {line.strip()}", flush=True)
+    for label, prog, fused, planes in cases:
+        c = operands(prog, "slots", planes)
         x = random_inputs(c, n, fused, rng)
-        for wpc in (4, 8, 16, 32, 64, 128):
-            r = resolved(prog, words_per_cta=wpc)
-            c.wpc = r.words_per_cta
-            ms = cuda_ms(lambda: run_entry(c, x, fused, True), 5)
-            print(f"sweep words_per_cta={wpc} (fit {r.words_per_cta}): "
-                  f"{gpu}; {label} cells={r.sched.n_cells} kernel "
-                  f"{ms:.6f} ms for {n} rows = {n / ms * 1e3:.6e} rows/s",
-                  flush=True)
-    ring_sweep(gpu)
+        rule = c.wpc
+        for wpc in ring_widths(c.sched.n_cells, planes):
+            c.wpc = wpc
+            ms = cuda_ms(lambda: run_entry(c, x, fused, True), 20)
+            print(f"sweep slot_scan words_per_cta={wpc} (rule {rule}): "
+                  f"{gpu}; {label} planes={planes} cells={c.sched.n_cells} "
+                  f"rows={n} kernel {ms:.6f} ms", flush=True)
+        rule = pim_exec.static_words_per_cta(c.sched.n_cells, planes)
+        for wpc in (16, 32, 64, 128):
+            k = statics.get((label, planes, wpc))
+            if k is not None:
+                ms = cuda_ms(lambda: k(x), 20)
+                print(f"sweep slots_static words_per_cta={wpc} (rule "
+                      f"{rule}): {gpu}; {label} planes={planes} cells="
+                      f"{c.sched.n_cells} rows={n} kernel {ms:.6f} ms",
+                      flush=True)
     chunks = (1 << 18, 1 << 20, 1 << 22, 1 << 24)
     c = operands(program_for("fp-serial", "add", "fp32"))
     x = random_inputs(c, chunks[-1], True, rng)
@@ -735,163 +834,221 @@ def sweep(gpu: str) -> None:
 
 
 def ring_widths(n_cells: int, planes: int) -> list:
-    """CTA widths the ring kernels are swept over: 16 (the slot scan's),
-    whole warps up to what fits one CTA beside the ring, and that fill
-    (the rule, at most 128)."""
+    """CTA widths the slot scan is swept over: 16 (the parent's), whole
+    warps up to what fits one CTA beside the ring, and that fill (the
+    rule, at most 128)."""
     from repro_torch.kernels import pim_exec
     fill = pim_exec.ring_words_per_cta(n_cells, planes)
     return sorted({16, fill} | set(range(32, fill + 1, 32)))
 
 
-def ring_sweep(gpu: str) -> None:
-    """B3 and B4 per words per CTA at the main path's chunk (1 Mi rows) and
-    at 4 Mi rows: the sweep behind ``pim_exec.ring_words_per_cta``."""
-    from repro_torch.core.pim_numerics import program_for
-    from repro_torch.kernels import pim_exec
-    rng = np.random.default_rng(SEED)
-    for n in (1 << 20, 1 << 22):
-        for label, prog, fused, planes in (
-                ("fp32 add", program_for("fp-serial", "add", "fp32"), True,
-                 1),
-                ("fp32 add", program_for("fp-serial", "add", "fp32"), True,
-                 2),
-                ("fp32 mul", program_for("fp-serial", "mul", "fp32"), True,
-                 1),
-                ("uint32 add io", program_for("int-serial", "add", 32),
-                 False, 1)):
-            c = operands(prog, "dense", planes)
-            rule = c.wpc
-            x = random_inputs(c, n, fused, rng)
-            for wpc in ring_widths(c.sched.n_cells, planes):
-                c.wpc = wpc
-                ms = cuda_ms(lambda: run_entry(c, x, fused, True), 20)
-                print(f"sweep level_gather words_per_cta={wpc} (rule {rule})"
-                      f": {gpu}; {label} planes={planes} cells="
-                      f"{c.sched.n_cells} rows={n} kernel {ms:.6f} ms",
-                      flush=True)
-        for label in ("fp32 add", "fp32 mul"):
-            prog = program_for("fp-serial", label.split()[1], "fp32")
-            state, gates, packed = gate_serial_case(prog, n, rng)
-            n_cells = state.shape[0]
-            cells = n_cells + pim_exec.GATE_CONSTANTS
-            for wpc in ring_widths(cells, 1):
-                ms = cuda_ms(lambda: pim_exec.gate_serial(
-                    state, *gates, packed=packed, words_per_cta=wpc), 20)
-                print(f"sweep gate_serial words_per_cta={wpc} (rule "
-                      f"{pim_exec.ring_words_per_cta(cells)}): {gpu}; "
-                      f"{label} cells={n_cells} rows={n} kernel {ms:.6f} ms",
-                      flush=True)
+def parent_package(csrc):
+    """The ``repro_torch`` package whose kernel sources are in ``csrc`` (the
+    parent commit's, unpacked beside this tree), imported under its own
+    name so that its wrappers and builds sit beside this tree's."""
+    import importlib
+    import importlib.util
+    pkg = Path(csrc).resolve().parent
+    alias = "parent_repro_torch"
+    if alias not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            alias, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[alias] = mod
+        spec.loader.exec_module(mod)
+    return SimpleNamespace(
+        pim_exec=importlib.import_module(f"{alias}.kernels.pim_exec"),
+        ops=importlib.import_module(f"{alias}.kernels.ops"),
+        plan=importlib.import_module(f"{alias}.kernels.plan"))
 
 
-def probe(progs, gpu: str, parent) -> None:
-    """What holds the ring kernels back.  The launch attributes of the
-    slot scan (B1), the level gather (B3) and the gate-serial kernel (B4)
-    of this tree and, when ``parent`` names the parent's ``csrc``
-    directory, of the parent's, at the shapes each launches for fp32 add;
-    then each ring kernel at fp32 add and 1 Mi rows at the rule's CTA
-    width: B3 under rows32 and rows64, B4 at windows of 1, 2, 4 and 8
-    gates, each with its columns
-    spread over ``pim_exec.RING_WARPS`` warps and over eight, in turns,
-    bit-exact against the plain version; and each kernel with no gates
-    (the bridges or the state's trip alone)."""
-    from repro_torch.kernels import pim_exec, ref as kref
-    prog = progs["fp32 add"]
-    slot = operands(prog, "slots", 1)
-    dense = operands(prog, "dense", 1)
-    ops_, a, b, o, n_serial = prog.to_arrays()
-    infos = {("this tree", e): INFO[e] for e in INFO_KERNELS}
-    if parent:
-        parents = {e: KernelInfo(e, Path(parent) / f"{e}.cu", k)
-                   for e, k in PARENT_KERNELS.items()}
-        pim_exec.build([], static=list(parents.values()))
-        infos.update({("parent", e): k for e, k in parents.items()})
-    for (tree, e), info in infos.items():
-        if e == "slot_scan":
-            wpc, smem = slot.wpc, 4 * slot.sched.n_cells * slot.wpc
-        elif tree == "parent":
-            cells = dense.sched.n_cells if e == "level_gather" else n_serial
-            wpc, smem = 16, 4 * cells * 16
-        elif e == "level_gather":
-            wpc = dense.wpc
-            smem = ring_smem(dense.sched.n_cells, wpc, 1)
-        else:
-            cells = n_serial + pim_exec.GATE_CONSTANTS
-            wpc = pim_exec.ring_words_per_cta(cells)
-            smem = ring_smem(cells, wpc, 1)
-        threads = (wpc + 31) // 32 * 32 if tree == "parent" \
-            else threads_for(e, wpc)
-        a_ = info(1, e != "gate_serial", threads, smem)
-        print(f"probe attrs {tree} {e} fp32 add: {gpu}; words_per_cta={wpc} "
-              f"{a_}", flush=True)
-
+def probe_runs(progs, pkg) -> dict:
+    """Launches of ``pkg``'s kernels at the main path's chunk (1 Mi rows):
+    B1 (fused and rows64 on fp32 add, io on uint32 add), B2 (fp32 add,
+    both layouts), B3 (fp32 add) and B4 (fp32 add), each at its tree's own
+    CTA rule, and B1, B2 and B3 with every level taken out ("no gates":
+    the fused bridges, the state's zeroing and the launch alone).  ``pkg``
+    is this tree's package or the parent's (:func:`parent_package`); each
+    entry gets its schedule through the API its tree has, on the same
+    seeded inputs.  Returns label -> (fn, result to hold, or None)."""
+    import inspect
+    px = pkg.pim_exec
     rng = np.random.default_rng(SEED)
     n = 1 << 20
-    x = random_inputs(dense, n, True, rng)
-    want = run_entry(dense, x, True, False)
-    # the rule's columns spread over eight warps, two a scheduler
-    with_warps = {"B3, 8 warps": 8, "B3 rows64, 8 warps": 8,
-                  "B4 windows of 2, 8 warps": 8}
-    dense64 = operands(prog, "dense", 2)
-    x64 = random_inputs(dense64, n, True, rng)
-    want64 = run_entry(dense64, x64, True, False)
-    variants = {
-        "B3": (dense.packed, dense.wpc),
-        "B3, 8 warps": (dense.packed, dense.wpc),
-        "B3 rows64": (dense64.packed, dense64.wpc),
-        "B3 rows64, 8 warps": (dense64.packed, dense64.wpc)}
-    state, gates, windows = gate_serial_case(prog, n, rng)
-    by_width = {w: pim_exec.pack_gates(ops_, a, b, o, n_cells=n_serial,
-                                       window=w).to("cuda")
-                for w in (1, 2, 4, 8)}
-    serial_want = kref.pim_exec_ref(state.clone(), *gates)
-    rule = pim_exec.ring_words_per_cta(n_serial + pim_exec.GATE_CONSTANTS)
-    variants.update({f"B4 windows of {w}": (by_width[w], rule)
-                     for w in by_width})
-    variants["B4 windows of 2, 8 warps"] = (by_width[2], rule)
-    # no gates at all: what the bridges (B3) or the state's trip through
-    # device memory (B4) cost alone; these give no result to check
-    none = np.zeros(0, np.int64)
-    empty = pim_exec.pack_gates(none, none, none, none,
-                                n_cells=1).to("cuda")
-    variants.update({"B3 no gates": (empty, dense.wpc),
-                     "B4 no gates": (empty, rule)})
+    runs = {}
 
-    def launch(label):
-        packed, wpc = variants[label]
-        warps = pim_exec.RING_WARPS
-        pim_exec.RING_WARPS = with_warps.get(label, warps)
-        try:
-            if label.startswith("B3"):
-                c = SimpleNamespace(**vars(dense64 if "rows64" in label
-                                         else dense))
-                c.packed, c.wpc = packed, wpc
-                return run_entry(c, x64 if "rows64" in label else x, True,
-                                 True)
-            stream = [g[:packed.n_gates] for g in gates]
-            return pim_exec.gate_serial(state, *stream, packed=packed,
-                                        words_per_cta=wpc)
-        finally:
-            pim_exec.RING_WARPS = warps
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).cuda()
 
-    for label in variants:
+    def bits(shape):
+        return torch.from_numpy(rng.integers(
+            0, 1 << 32, shape, dtype=np.uint64).astype(np.uint32).view(
+                np.int32)).cuda()
+
+    def packed(fn, pack, a, b, o, n_cells):
+        """The stream ``fn`` runs, where this tree's ``fn`` takes one."""
+        if "packed" not in inspect.signature(fn).parameters:
+            return {}
+        return {"packed": pack(a, b, o, n_cells=n_cells).to("cuda")}
+
+    for name, kind, fused in (("fp32 add", "slots", True),
+                              ("fp32 add", "dense", True),
+                              ("uint32 add", "slots", False)):
+        prog = progs[name]
+        plan = pkg.plan.as_plan(device="cuda", schedule=kind)
+        s = pkg.ops.compiled(prog, plan).get_schedule(prog, plan)
+        in_names = sorted(prog.in_ports)
+        out_names = pkg.ops.output_names(s)
+        in_cells = pkg.ops._stacked_cells([s.pack_cells(n_) for n_ in
+                                           in_names])
+        out_cells = pkg.ops._stacked_cells([s.ports[n_] for n_ in
+                                            out_names])
+        in_widths = tuple(len(s.pack_cells(n_)) for n_ in in_names)
+        out_widths = tuple(len(s.ports[n_]) for n_ in out_names)
+        sched = (dev(in_cells), dev(s.a), dev(s.b), dev(s.out),
+                 dev(out_cells))
+        none = tuple(dev(np.zeros((0, s.width), np.int32)) for _ in "abo")
+        kw = dict(n_cells=s.n_cells, one_cell=s.one_cell)
+        label = "B1" if kind == "slots" else "B3"
+        if not fused:
+            fn = px.slots_io
+            rows = bits((len(in_cells), n // 32))
+            kw.update(k_out=len(out_cells),
+                      **packed(fn, getattr(px, "pack_slots", None), s.a,
+                               s.b, s.out, s.n_cells))
+            runs["B1 io uint32 add"] = (
+                lambda fn=fn, a=(rows,) + sched, kw=kw: fn(*a, **kw))
+            continue
+        fn = px.slots_fused if kind == "slots" else px.level_fused
+        pack = px.pack_levels if kind == "dense" else \
+            getattr(px, "pack_slots", None)
+        vals = rng.integers(0, 1 << 32, (len(in_widths), n),
+                            dtype=np.uint64).astype(np.uint32)
+        vals &= np.array([(1 << w) - 1 for w in in_widths],
+                         np.uint32)[:, None]
+        x = torch.from_numpy(vals.view(np.int32)).cuda()
+        kw.update(in_widths=in_widths, out_widths=out_widths)
+        for planes in ((1, 2) if kind == "slots" else (1,)):
+            kp = dict(kw, planes=planes,
+                      **packed(fn, pack, s.a, s.b, s.out, s.n_cells))
+            sfx = "" if planes == 1 else " rows64"
+            runs[f"{label}{sfx}"] = (
+                lambda fn=fn, a=(x,) + sched, kw=kp: fn(*a, **kw))
+        empty = packed(fn, px.pack_levels, np.zeros((0, 0)),
+                       np.zeros((0, 0)), np.zeros((0, 0)), 1)
+        runs[f"{label} no gates"] = (
+            lambda fn=fn, a=(x, sched[0]) + none + (sched[4],),
+            kw=dict(kw, **empty): fn(*a, **kw))
+        if kind == "slots":
+            for planes in (1, 2):
+                k = px.StaticKernel(s, in_widths, out_widths, out_names,
+                                    in_cells, planes=planes)
+                k.build()
+                sfx = "" if planes == 1 else " rows64"
+                runs[f"B2{sfx}"] = (lambda k=k, x=x: k(x))
+            empty = dataclasses.replace(s, a=s.a[:0], b=s.b[:0],
+                                        out=s.out[:0],
+                                        level_width=s.level_width[:0])
+            k = px.StaticKernel(empty, in_widths, out_widths, out_names,
+                                in_cells)
+            k.build()
+            runs["B2 no gates"] = (lambda k=k, x=x: k(x))
+    ops_, a, b, o, n_cells = progs["fp32 add"].to_arrays()
+    state = bits((n_cells, n // 32))
+    gates_ = [dev(v) for v in (ops_, a, b, o)]
+    stream = px.pack_gates(ops_, a, b, o, n_cells=n_cells).to("cuda")
+    runs["B4"] = (lambda: px.gate_serial(state, *gates_, packed=stream))
+    return runs
+
+
+def probe(progs, statics, gpu: str, parent) -> None:
+    """What holds B1 and B2 back: the launch attributes of this tree's
+    slot scan (B1), static kernel (B2, fp32 add), level gather (B3) and
+    gate-serial kernel (B4) and, when ``parent`` names the parent's
+    ``csrc`` directory, of the parent's, at the shapes each launches for
+    fp32 add (with the parent's B2 ``ptxas`` report); then the kernels of
+    :func:`probe_runs` at 1 Mi rows, this tree's and the parent's in
+    turns (parent, tree, tree, parent) with one timer, each result held
+    equal between the two, and this tree's B1 on windows of 6 and of 8
+    records."""
+    from repro_torch.kernels import ops, pim_exec, plan as kplan
+    prog = progs["fp32 add"]
+    static = statics[("fp32 add", 1)]
+    trees = {"this tree": SimpleNamespace(pim_exec=pim_exec, ops=ops,
+                                          plan=kplan)}
+    if parent:
+        trees["parent"] = parent_package(parent)
+    for tree, pkg in trees.items():
+        px = pkg.pim_exec
+        r = resolved(prog, pkg=pkg)
+        k = static if tree == "this tree" else px.StaticKernel(
+            r.sched, r.in_widths, r.out_widths, r.names,
+            ops._stacked_cells([r.sched.pack_cells(n)
+                                for n in sorted(prog.in_ports)]))
+        if tree != "this tree":
+            for line in k.build().get(k.so.name, ("", 0))[0].splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"probe ptxas {tree} slots_static fp32 add: "
+                          f"{line.strip()}", flush=True)
+        ring = hasattr(px, "ring_shape")
+        kernels = INFO_KERNELS if ring else PRE_RING_KERNELS
+        infos = {e: KernelInfo(e, Path(px.CSRC) / f"{e}.cu", kernels[e], px)
+                 for e in kernels}
+        infos["slots_static"] = KernelInfo("slots_static", k.cu,
+                                           "slots_static_kernel", px)
+        px.build([], static=list(infos.values()))
+        dense = resolved(prog, pkg=pkg, schedule="dense")
+        n_serial = prog.to_arrays()[4]
+        for e, info in infos.items():
+            if ring:
+                cells = {"level_gather": dense.sched.n_cells,
+                         "gate_serial": n_serial}.get(e, r.sched.n_cells)
+                shape = cta_shape(e, cells, 1, k, px)
+            else:
+                shape = pre_ring_shape(e, pkg, r, dense,
+                                       n_serial + px.GATE_CONSTANTS, k)
+            print(f"probe attrs {tree} {e} fp32 add: {gpu}"
+                  f"{launch_attrs(info, 1, e != 'gate_serial', shape)}",
+                  flush=True)
+
+    runs = {tree: probe_runs(progs, pkg) for tree, pkg in trees.items()}
+    # B1's window body: 6 records a slot level (the rule) against 8, the
+    # two records past the level repeating its last lane
+    rng = np.random.default_rng(SEED)
+    c6 = operands(prog, "slots", 1)
+    s6 = c6.sched
+    band = s6.out[:, :1] + np.arange(s6.width)
+
+    def pad(m):
+        return np.concatenate([m, np.repeat(m[:, -1:], 2, axis=1)], axis=1)
+    c8 = SimpleNamespace(**vars(c6))
+    c8.packed = pim_exec.pack_levels(pad(s6.a), pad(s6.b), pad(band),
+                                     n_cells=s6.n_cells).to("cuda")
+    x = random_inputs(c6, 1 << 20, True, rng)
+    want = run_entry(c6, x, True, False)
+    for label, c in (("windows of 6", c6), ("windows of 8", c8)):
+        got = run_entry(c, x, True, True)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"probe B1 {label} != plain version")
+        runs["this tree"][f"B1 {label}"] = (
+            lambda c=c: run_entry(c, x, True, True))
+    # each kernel that gives a result: the parent's and this tree's agree
+    for label, fn in runs.get("parent", {}).items():
         if "no gates" in label:
             continue
-        got = launch(label)
+        got, want = runs["this tree"][label](), fn()
         torch.cuda.synchronize()
-        want_ = serial_want if label.startswith("B4") else \
-            want64 if "rows64" in label else want
-        if not torch.equal(got, want_):
-            raise AssertionError(f"probe {label} != plain version")
-    for rep in range(2):                           # in turns
-        for label, (packed, wpc) in variants.items():
-            ms = cuda_ms(lambda: launch(label), 50)
-            print(f"probe time {label} run {rep}: {gpu}; rows={n} "
-                  f"records={packed.n_gates} windows={packed.n_windows} "
-                  f"words_per_cta={wpc} warps="
-                  f"{with_warps.get(label, pim_exec.RING_WARPS)} kernel "
-                  f"{ms:.6f} ms/launch"
-                  f"{'' if 'no gates' in label else ', bit-exact vs plain'}",
-                  flush=True)
+        if not torch.equal(got, want):
+            raise AssertionError(f"probe {label}: this tree != parent")
+    order = ["parent", "this tree", "this tree", "parent"] if parent \
+        else ["this tree", "this tree"]
+    for rep, tree in enumerate(order):             # in turns
+        for label, fn in runs[tree].items():
+            ms = cuda_ms(fn, 50)
+            print(f"probe time {label} {tree} run {rep}: {gpu}; fp32 add "
+                  f"(B1 io: uint32 add) rows={1 << 20} kernel {ms:.6f} "
+                  "ms/launch", flush=True)
 
 
 def profile_main(a, b, gpu: str) -> None:
@@ -951,7 +1108,7 @@ def split_probe(progs, gpu: str) -> None:
                              ("whole", None)):
             kernels[(name, label)] = (c, pim_exec.StaticKernel(
                 c.sched, c.in_widths, c.out_widths, c.out_names, c.in_cells,
-                words_per_cta=kplan.WORDS_PER_CTA, split=split))
+                split=split))
     logs = pim_exec.build([], static=[k for _, k in kernels.values()])
     for (name, label), (c, k) in kernels.items():
         log, secs = logs[k.so.name]
@@ -982,16 +1139,16 @@ def split_probe(progs, gpu: str) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sweep", action="store_true",
-                    help="also sweep words_per_cta and chunk_rows and "
-                    "profile the main path")
+                    help="also sweep B1's and B2's words_per_cta and "
+                    "chunk_rows and profile the main path")
     ap.add_argument("--split-probe", action="store_true",
                     help="also build B2 whole and split on three programs "
                     "and compare build seconds, ptxas reports and times")
     ap.add_argument("--probe", nargs="?", const="", default=None,
                     metavar="PARENT_CSRC",
-                    help="also print the launch attributes of B1, B3 and B4 "
-                    "(and of the kernels in PARENT_CSRC) and time the ring "
-                    "kernels' variants")
+                    help="also print the launch attributes of B1 to B4 and "
+                    "time B1, B2 and B3 with no gates, this tree's and "
+                    "(given PARENT_CSRC) the parent's in turns")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -1000,15 +1157,24 @@ def main() -> None:
     progs = programs()
     statics = static_kernels(progs)
     INFO.update({e: KernelInfo(e) for e in INFO_KERNELS})
+    pim_exec.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    for entry, name, _, planes in TIMED:
+        if entry == "slots_static":      # its source, for the info to read
+            k = statics[(name, planes)]
+            k.cu.write_text(k.source)
+            STATIC_INFO[(name, planes)] = KernelInfo(
+                "slots_static", k.cu, "slots_static_kernel")
     t0 = time.perf_counter()
     logs = pim_exec.build(static=list(statics.values()) +
-                          list(INFO.values()))
+                          list(INFO.values()) + list(STATIC_INFO.values()))
     print(f"build: {len(logs)} sources in {time.perf_counter() - t0:.1f} s",
           flush=True)
     names = {k.so.name: f"{prog} planes={planes}"
              for (prog, planes), k in statics.items()}
     names.update({k.so.name: f"launch attributes of {e}"
                   for e, k in INFO.items()})
+    names.update({k.so.name: f"launch attributes of B2 {prog} planes={p}"
+                  for (prog, p), k in STATIC_INFO.items()})
     for name, (log, secs) in logs.items():
         print(f"build {name} ({names.get(name, 'fixed source')}): "
               f"{secs:.1f} s", flush=True)
@@ -1024,7 +1190,7 @@ def main() -> None:
     kernels = measure(progs, statics, chunk_rows, main["launches"], worst,
                       gpu)
     if args.probe is not None:
-        probe(progs, gpu, args.probe)
+        probe(progs, statics, gpu, args.probe)
     if args.sweep:
         sweep(gpu)
     if args.split_probe:

@@ -36,21 +36,18 @@
 
 #include "ring.cuh"
 
-extern __shared__ __align__(16) unsigned char gate_serial_smem[];
-
 namespace {
 
 template <int K>
 __global__ void __launch_bounds__(ring::kMaxThreads) gate_serial_kernel(
     int lanes, const uint32_t* state_in, uint32_t* state_out,
     const ring::Stream s, long long n_words, int n_cells, int wpc) {
-  uint32_t* st = reinterpret_cast<uint32_t*>(gate_serial_smem);
+  uint32_t* st = pim::state<1>();
   uint2* slots = reinterpret_cast<uint2*>(
-      gate_serial_smem +
-      ring::state_bytes(sizeof(uint32_t) * (n_cells + 2) * wpc));
+      pim_smem + pim::state_bytes(n_cells + 2, wpc, sizeof(uint32_t)));
   uint64_t* bars = reinterpret_cast<uint64_t*>(slots + ring::kSlots *
                                                ring::kRecords);
-  const ring::Column me = ring::column(wpc, lanes);
+  const pim::Column me = pim::column(wpc, lanes);
   const int col = me.col;
   const bool live = me.live;
   const long long word = static_cast<long long>(blockIdx.x) * wpc + col;
@@ -90,12 +87,17 @@ extern "C" int gate_serial(const void* state_in, void* state_out,
   if (n_cells < 1) return static_cast<int>(cudaErrorInvalidValue);
   const ring::Stream s{static_cast<const uint2*>(tiles), n_tiles,
                        n_windows};
+  pim::Params shape{};  // the CTA shape alone
+  shape.n_words = n_words;
+  shape.wpc = shape.stride = wpc;
+  shape.lanes = lanes;
   return ring::with_width(width, [&](auto k) {
-    return ring::launch(gate_serial_kernel<decltype(k)::value>,
-                        sizeof(uint32_t) * (n_cells + 2) * wpc, wpc, lanes,
-                        n_words, stream,
-                        static_cast<const uint32_t*>(state_in),
-                        static_cast<uint32_t*>(state_out), s, n_words,
-                        n_cells, wpc);
+    return pim::launch(
+        gate_serial_kernel<decltype(k)::value>, shape,
+        pim::state_bytes(n_cells + 2, wpc, sizeof(uint32_t)) +
+            ring::kRingBytes,
+        ring::kMaxThreads, stream, lanes,
+        static_cast<const uint32_t*>(state_in),
+        static_cast<uint32_t*>(state_out), s, n_words, n_cells, wpc);
   });
 }

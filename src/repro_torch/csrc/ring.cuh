@@ -1,20 +1,23 @@
-// The schedule ring of the level-gather (B3) and gate-serial (B4) kernels
-// for Hopper (sm_90a): a packed NOR stream streamed tile by tile into shared
-// memory, and the loop that runs it on one word column of the state.
+// The schedule ring of the ring kernels for Hopper (sm_90a): a packed NOR
+// stream streamed tile by tile into shared memory, the loop that runs it
+// on one word column of the state, and the level kernel that the slot scan
+// (B1, slot_scan.cu) and the level gather (B3, level_gather.cu) both are.
 //
-// Stream format (written by kernels/pim_exec.py `pack_levels` and
-// `pack_gates`).  A record is 8 bytes, four uint16: (a, b, o, n), read as
-// a uint2 {a | b << 16, o | n << 16}: the NOR gate o <- ~(a | b).  NOT is
-// a NOR with b == a; the gate-serial stream's INIT1 and INIT0 are NORs of
-// two constant cells its kernel keeps after the state (all zeros, all
-// ones).  Records come in windows of K (2, 4 or 8) consecutive gates that
-// are independent of each other (no gate of a window reads or writes a
-// cell another gate of it writes): a dense level's lanes, or a run of the
-// gate-serial stream.  A window of fewer gates repeats its last gate,
-// which stores the same value to the same cell again; n, the window's own
-// gates, is on its first record for the reader's sake.  A tile holds
-// kPerTile windows from its first record on, and its last kWin records are
-// zero.
+// Stream format (written by kernels/pim_exec.py `pack_slots`,
+// `pack_levels` and `pack_gates`).  A record is 8 bytes, four uint16:
+// (a, b, o, n), read as a uint2 {a | b << 16, o | n << 16}: the NOR gate
+// o <- ~(a | b).  NOT is a NOR with b == a; the gate-serial stream's INIT1
+// and INIT0 are NORs of two constant cells its kernel keeps after the state
+// (all zeros, all ones).  Records come in windows of K (2, 4, 6 or 8)
+// consecutive gates, and the loop reads every operand of a window before
+// it stores any result, so a window is one step of the schedule: a slot
+// level, whose band may overwrite cells its own lanes read; a dense level;
+// or a run of the gate-serial stream with no gate reading or writing a
+// cell another gate of it writes.  The gates of a window write distinct
+// cells, but a window of fewer gates repeats its last gate, which stores
+// the same value to the same cell again; n, the window's own gates, is on
+// its first record for the reader's sake.  A tile holds kPerTile windows
+// from its first record on, and its last kWin records are zero.
 //
 // Ring.  Two tile slots and one mbarrier each, after the state in dynamic
 // shared memory.  Thread 0 fetches each tile with one TMA bulk copy
@@ -40,34 +43,21 @@
 
 #include <cuda_runtime.h>
 
+#include "pim_state.cuh"
+
 namespace ring {
 
 constexpr int kWin = PIM_LEVEL_MAX_WIDTH;   // records a window holds at most
 constexpr int kRecords = PIM_TILE_RECORDS;  // records a tile holds
 constexpr int kTileBytes = 8 * kRecords;
 constexpr int kSlots = 2;
-// A CTA's `wpc` columns are spread over its warps, `lanes` live lanes a
-// warp (the wrapper's rule, kernels/pim_exec.py `ring_lanes`): each column
-// waits on its own chain of windows, so a state too large for full warps
-// is still spread over every scheduler of the SM.  At most kMaxThreads
-// threads, which leaves each thread the registers of two windows' records
-// and a window's operands.
+// Most threads a CTA has, which leaves each thread the registers of two
+// windows' records and a window's operands.
 constexpr int kMaxThreads = 256;
 
-// This thread's column of the CTA (lane `lanes` and up of a warp own none).
-struct Column {
-  int col;
-  bool live;
-};
-
-__device__ __forceinline__ Column column(int wpc, int lanes) {
-  const int lane = threadIdx.x & 31;
-  const int col = (threadIdx.x >> 5) * lanes + lane;
-  return {col, lane < lanes && col < wpc};
-}
-
 // Shared memory the ring takes after the state (the state is padded to
-// 16 B first, see `state_bytes`): the tile slots, then one mbarrier each.
+// 16 B first, see pim::state_bytes): the tile slots, then one mbarrier
+// each.
 constexpr int kRingBytes = kSlots * kTileBytes + kSlots * 8;
 
 static_assert(kTileBytes % 16 == 0, "a bulk copy moves multiples of 16 B");
@@ -77,11 +67,6 @@ struct Stream {
   int n_tiles;
   int n_windows;
 };
-
-// State bytes rounded up so the ring that follows is 16-B aligned.
-__host__ __device__ constexpr size_t state_bytes(size_t bytes) {
-  return (bytes + 15) / 16 * 16;
-}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -176,20 +161,20 @@ __device__ __forceinline__ void window(bool live, const char* c,
 }
 
 // Run the whole stream, windows of K records, on column `col` of the state
-// `st` ([n_cells][wpc] words of type T).  Windows sit at a fixed stride,
-// kPerTile to a tile, so the next window's records load while this one
-// runs and no record load waits on another.  A thread past the CTA's
+// `st` ([n_cells][stride] words of type T).  Windows sit at a fixed
+// stride, kPerTile to a tile, so the next window's records load while this
+// one runs and no record load waits on another.  A thread past the CTA's
 // columns (`live` false) loads from inside the CTA's shared memory and
 // stores nothing.
 template <int K, class T>
-__device__ __forceinline__ void run(T* st, int wpc, int col, bool live,
+__device__ __forceinline__ void run(T* st, int words, int col, bool live,
                                     uint2* slots, uint64_t* bars,
                                     const Stream& s) {
   static_assert(K <= kWin, "the slack after a tile's windows holds one");
   constexpr int kPerTile = (kRecords - kWin) / K;
   const char* c = reinterpret_cast<const char*>(st + col);
   const uint32_t c_addr = smem_addr(c);
-  const int stride = static_cast<int>(sizeof(T)) * wpc;
+  const int stride = static_cast<int>(sizeof(T)) * words;
   for (int t = 0; t < s.n_tiles; ++t) {
     wait_tile(bars, t);
     const uint2* rec = slots + (t & 1) * kRecords;
@@ -209,38 +194,56 @@ __device__ __forceinline__ void run(T* st, int wpc, int col, bool live,
   }
 }
 
-// Calls f(std::integral_constant<int, K>) for the smallest K in {2, 4, 8}
-// that holds `width` gates; returns cudaErrorInvalidValue for a width the
-// kernels are not built for.
+// Calls f(std::integral_constant<int, K>) for the smallest K in
+// {2, 4, 6, 8} that holds `width` gates; returns cudaErrorInvalidValue for
+// a width the kernels are not built for.  (6 is the slot scan's default
+// slot width: a window of 8 would run two repeated lanes a level.)
 template <class F>
 int with_width(int width, F f) {
-  static_assert(kWin == 8, "window bodies of 2, 4 and 8 gates");
+  static_assert(kWin == 8, "window bodies of 2, 4, 6 and 8 gates");
   if (width <= 2) return f(std::integral_constant<int, 2>{});
   if (width <= 4) return f(std::integral_constant<int, 4>{});
+  if (width <= 6) return f(std::integral_constant<int, 6>{});
   if (width <= 8) return f(std::integral_constant<int, 8>{});
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Launch `kernel(lanes, args...)` with the CTA's `wpc` columns spread over
-// warps of `lanes` live lanes and the state plus the ring in dynamic shared
-// memory.  Returns cudaGetLastError() of the launch.
-template <class Kernel, class... Args>
-int launch(Kernel kernel, size_t state, int wpc, int lanes,
-           long long n_words, void* stream, Args... args) {
-  if (wpc < 1 || lanes < 1 || lanes > 32 || n_words < 1 ||
-      (wpc + lanes - 1) / lanes * 32 > kMaxThreads) {
+// The level kernel of B1 and B3: zero the state, start the ring, bring
+// the inputs in (pim_state.cuh's bridges), set the folded INIT1 cell, run
+// the stream on this thread's column, send the outputs out.
+template <int K, int P, bool kFused>
+__global__ void __launch_bounds__(kMaxThreads) level_kernel(
+    const pim::Params p, const Stream s) {
+  using T = typename pim::WordOf<P>::T;
+  uint2* slots = reinterpret_cast<uint2*>(
+      pim_smem + pim::state_bytes(p.n_cells, p.stride, sizeof(T)));
+  uint64_t* bars = reinterpret_cast<uint64_t*>(slots + kSlots * kRecords);
+  start(slots, bars, s);
+  pim::run<P, kFused>(p, [&](pim::Column me) {
+    run<K, T>(pim::state<P>(), p.stride, me.col, me.live, slots, bars, s);
+  });
+}
+
+template <int K, int P, bool kFused>
+int launch_planes(const pim::Params& p, const Stream& s, void* stream) {
+  using T = typename pim::WordOf<P>::T;
+  return pim::launch(level_kernel<K, P, kFused>, p,
+                     pim::state_bytes(p.n_cells, p.stride, sizeof(T)) +
+                         kRingBytes,
+                     kMaxThreads, stream, p, s);
+}
+
+// Launch the level kernel on the stream `s` of `width`-record windows
+// under `planes`.  Returns cudaGetLastError() of the launch.
+template <bool kFused>
+int launch_levels(const pim::Params& p, int planes, const Stream& s,
+                  int width, void* stream) {
+  return with_width(width, [&](auto k) {
+    constexpr int K = decltype(k)::value;
+    if (planes == 1) return launch_planes<K, 1, kFused>(p, s, stream);
+    if (planes == 2) return launch_planes<K, 2, kFused>(p, s, stream);
     return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const size_t smem = state_bytes(state) + kRingBytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long blocks = (n_words + wpc - 1) / wpc;
-  const int threads = (wpc + lanes - 1) / lanes * 32;
-  kernel<<<static_cast<unsigned>(blocks), threads, smem,
-           static_cast<cudaStream_t>(stream)>>>(lanes, args...);
-  return static_cast<int>(cudaGetLastError());
+  });
 }
 
 }  // namespace ring

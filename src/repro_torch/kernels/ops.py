@@ -348,18 +348,18 @@ class _Resolved:
     k_out: int
     fused_ok: bool                   # every port fits a 32-bit transpose
     use_static: bool                 # the straight-line emission applies
-    words_per_cta: int               # CTA width of the cuda kernels
+    words_per_cta: Optional[int]     # CTA width override (None: the rule)
     model: Optional["telemetry.ModeledCost"] = None  # analytical cost gauge
-    packed: Optional["pim_exec.Packed"] = None   # B3's stream (dense, cuda)
+    packed: Optional["pim_exec.Packed"] = None   # B1's or B3's stream (cuda)
 
 
 @dataclasses.dataclass
 class _Compiled:
     """Lazily built artifacts for one (program structure, plan compile key)
     cache entry: the lowered gate arrays, one levelized schedule per
-    allocation ("slots", "dense") with its operands per device, the dense
-    schedule's packed stream (B3) per device, resolved bindings, and the
-    straight-line executors (static chains and generated kernels)."""
+    allocation ("slots", "dense") with its operands and its packed stream
+    (B1, B3) per device, resolved bindings, and the straight-line
+    executors (static chains and generated kernels)."""
     arrays: Optional[tuple] = None              # (ops, a, b, o, n_cells)
     scheds: Dict[str, LevelSchedule] = dataclasses.field(default_factory=dict)
     devs: Dict[tuple, tuple] = dataclasses.field(default_factory=dict)
@@ -367,7 +367,7 @@ class _Compiled:
     resolved: Dict[tuple, _Resolved] = dataclasses.field(default_factory=dict)
     static: Dict[tuple, object] = dataclasses.field(default_factory=dict)
     gates: Dict[str, tuple] = dataclasses.field(default_factory=dict)
-    packed: Dict[str, "pim_exec.Packed"] = dataclasses.field(
+    packed: Dict[tuple, "pim_exec.Packed"] = dataclasses.field(
         default_factory=dict)
     serial_model: Optional["telemetry.ModeledCost"] = None
 
@@ -440,15 +440,19 @@ class _Compiled:
             self.devs[(alloc, device)] = dev
         return dev
 
-    def get_packed_levels(self, program, plan: ExecPlan, device: str
-                          ) -> "pim_exec.Packed":
-        """B3's packed stream of the dense schedule on ``device``, one
-        window a level (``pim_exec.pack_levels``)."""
-        if device not in self.packed:
-            s = self.get_schedule(program, plan, "dense")
-            self.packed[device] = pim_exec.pack_levels(
-                s.a, s.b, s.out, n_cells=s.n_cells).to(device)
-        return self.packed[device]
+    def get_packed(self, program, plan: ExecPlan, kind: str, device: str
+                   ) -> "pim_exec.Packed":
+        """The packed stream of the ``kind`` schedule on ``device``, one
+        window a level: B1's (``pim_exec.pack_slots``) or B3's
+        (``pim_exec.pack_levels``)."""
+        key = (_alloc_of(kind), device)
+        if key not in self.packed:
+            s = self.get_schedule(program, plan, kind)
+            pack = pim_exec.pack_levels if key[0] == "dense" else \
+                pim_exec.pack_slots
+            self.packed[key] = pack(s.a, s.b, s.out,
+                                    n_cells=s.n_cells).to(device)
+        return self.packed[key]
 
     def get_in_idx(self, program, plan: ExecPlan, kind: str, device: str,
                    in_names):
@@ -464,7 +468,8 @@ class _Compiled:
         """Bind ``plan`` to this program for one input-name set: pick the
         effective schedule (the dense fallback for slot layouts the slot
         executors cannot take), copy the operands to the plan's device,
-        freeze the static widths and size the kernels' CTAs.  Memoized."""
+        freeze the static widths and, on cuda, pack the schedule's stream.
+        Memoized."""
         device = _device_of(plan)
         planes = plan.layout.planes
         memo_key = (plan.schedule, plan.backend.name,
@@ -491,7 +496,7 @@ class _Compiled:
                                               in_names)
         in_widths = tuple(len(sched.pack_cells(n)) for n in in_names)
         out_widths = tuple(len(sched.ports[n]) for n in names)
-        ring = kind == "dense" and plan.backend.name == "cuda"
+        on_cuda = plan.backend.name == "cuda"
         r = _Resolved(
             kind=kind, sched=sched, la=la, lb=lb, lo=lo, out_idx=out_idx,
             names=names, out_base=out_base, in_idx=in_idx, in_base=in_base,
@@ -501,12 +506,10 @@ class _Compiled:
             fused_ok=bool(in_names) and
             max(in_widths + out_widths, default=0) <= 32,
             use_static=plan.schedule == "slots-static" and slots_ok,
-            words_per_cta=pim_exec.ring_words_per_cta(sched.n_cells, planes)
-            if ring else pim_exec.fit_words_per_cta(
-                sched.n_cells, plan.backend.words_per_cta, planes),
+            words_per_cta=plan.backend.words_per_cta,
             model=telemetry.COST_MODEL.schedule_cost(sched),
-            packed=self.get_packed_levels(program, plan, device)
-            if ring else None)
+            packed=self.get_packed(program, plan, kind, device)
+            if on_cuda else None)
         self.resolved[memo_key] = r
         return r
 
@@ -758,8 +761,12 @@ def _dispatch_levelized(program, inputs: Dict[str, np.ndarray], n_rows: int,
         elif r.use_static and r.in_base == 0:
             outs = comp.get_static(program, plan, in_names, r.in_widths,
                                    r.out_widths)(x)
+        elif not dense and on_cuda:
+            outs = pim_exec.slots_fused(
+                x, *sched_args, in_base=r.in_base, out_base=r.out_base,
+                planes=layout.planes, packed=r.packed, **widths, **common)
         elif not dense:
-            outs = (pim_exec if on_cuda else kslots).slots_fused(
+            outs = kslots.slots_fused(
                 x, *sched_args, in_base=r.in_base, out_base=r.out_base,
                 planes=layout.planes, **widths, **common)
         elif on_cuda:
@@ -784,12 +791,16 @@ def _dispatch_levelized(program, inputs: Dict[str, np.ndarray], n_rows: int,
     if r.use_static and not on_cuda:
         sub = comp.get_static_chain(program, plan, in_names, False,
                                     r.in_widths, r.out_widths)(x)
-    elif not dense:
+    elif not dense and on_cuda:
         # (slots-static on cuda has no wide-port static kernel; the slot
         # scan is the closest shape, as in the reference)
-        sub = (pim_exec if on_cuda else kslots).slots_io(
-            x, *sched_args, k_out=r.k_out, in_base=r.in_base,
-            out_base=r.out_base, **common)
+        sub = pim_exec.slots_io(x, *sched_args, k_out=r.k_out,
+                                in_base=r.in_base, out_base=r.out_base,
+                                packed=r.packed, **common)
+    elif not dense:
+        sub = kslots.slots_io(x, *sched_args, k_out=r.k_out,
+                              in_base=r.in_base, out_base=r.out_base,
+                              **common)
     elif on_cuda:
         sub = pim_exec.level_io(x, *sched_args, packed=r.packed, **common)
     else:

@@ -4,7 +4,8 @@ Four CUDA kernels, one per TPU kernel of ``repro.kernels.pim_exec``:
 
 * ``csrc/slot_scan.cu`` (B1) -- the slot-scan kernel, the counterpart of
   ``_slot_scan_kernel``, with the bit-transpose bridges of
-  ``repro.kernels.slots`` fused into its ``fused`` entry;
+  ``repro.kernels.slots`` fused into its ``fused`` entry, run from a
+  packed stream (:func:`pack_slots`);
 * ``csrc/level_gather.cu`` (B3) -- the dense-schedule kernel, the
   counterpart of ``_pim_level_gather_kernel``, run from a packed stream
   (:func:`pack_levels`);
@@ -14,12 +15,14 @@ Four CUDA kernels, one per TPU kernel of ``repro.kernels.pim_exec``:
 * ``csrc/gate_serial.cu`` (B4) -- the gate-serial kernel, the counterpart
   of ``_pim_kernel``, run from a packed stream (:func:`pack_gates`).
 
-B1, B2 and B3 share ``csrc/pim_state.cuh`` and run both word layouts.  B3
+B1, B2 and B3 share ``csrc/pim_state.cuh`` (the state in shared memory,
+the fused bridges as warp transposes) and run both word layouts.  B1, B3
 and B4 share ``csrc/ring.cuh``: the packed stream (8-byte records of
-uint16 cells, in windows of independent gates, tiles of
+uint16 cells, in windows of gates that one step runs, tiles of
 :data:`TILE_RECORDS` records) streamed into shared memory by TMA bulk
-copies, and the loop that runs it; their CTAs are sized by
-:func:`ring_words_per_cta`.
+copies, and the loop that runs it; B1 and B3 are its one level kernel,
+handed different streams.  Their CTAs are sized by
+:func:`ring_words_per_cta`, B2's by :func:`static_words_per_cta`.
 Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface at first use (``build/repro_torch/`` at the
 checkout root, keyed on the source's hash) and bound with ``ctypes``.
@@ -47,7 +50,7 @@ import torch
 
 from . import ref as kref
 from . import slots as kslots
-from .plan import LEVEL_MAX_WIDTH, SLOT_SEG_LEVELS, SLOT_WIDTH, WORDS_PER_CTA
+from .plan import LEVEL_MAX_WIDTH, SLOT_SEG_LEVELS
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -62,11 +65,11 @@ BUILD_DIR = _PKG.parent.parent / "build" / "repro_torch"
 CUDA_HOME = os.environ.get("CUDA_HOME", "/usr/local/cuda")
 #: Records (8 B each) of one tile of a packed stream (ring.cuh kRecords).
 TILE_RECORDS = 512
-#: Most gates one window of a packed stream holds (ring.cuh kWin): a dense
-#: level's lanes, or a run of independent gate-serial gates.
+#: Most gates one window of a packed stream holds (ring.cuh kWin): a slot
+#: or dense level's lanes, or a run of independent gate-serial gates.
 WINDOW = LEVEL_MAX_WIDTH
 #: Most gates a window of B4's stream holds.  The kernel's window body is
-#: as wide as the stream's widest window (2, 4 or 8 gates) and runs every
+#: as wide as the stream's widest window (2, 4, 6 or 8 gates) and runs every
 #: lane of it, and gate-serial windows are short (1.6 gates on average on
 #: fp32 add), so B4 packs narrower windows than the dense levels' 8.
 GATE_WINDOW = 2
@@ -81,8 +84,12 @@ GATE_CONSTANTS = 2
 #: on the H100 (PERF.md, PR 13): each warp then issues the same
 #: instructions for half the columns.
 RING_WARPS = 4
+#: Live lanes a warp of B2's CTA holds at most (:func:`static_words_per_cta`).
+STATIC_LANES = 16
 #: Most threads a CTA of a ring kernel has (ring.cuh kMaxThreads).
 RING_MAX_THREADS = 256
+#: Most threads (and so word columns) of any CTA.
+MAX_THREADS = 1024
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               f"-DPIM_LEVEL_MAX_WIDTH={LEVEL_MAX_WIDTH}",
@@ -105,20 +112,17 @@ _named_libs: Dict[str, ctypes.CDLL] = {}
 _width_tensors: Dict[tuple, torch.Tensor] = {}
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_FUSED_ARGS = [_P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P,
-               _LL, _I, _I, _I, _I, _P]
-_IO_ARGS = [_P, _P, _I, _P, _P, _P, _I, _I, _P, _I, _P, _LL, _I, _I, _I, _I,
-            _P]
+_FUSED_ARGS = [_P, _P, _I, _P, _I, _P, _I, _I, _I, _P, _P, _I, _I, _P, _LL,
+               _I, _I, _I, _I, _I, _I, _P]
+_IO_ARGS = [_P, _P, _I, _P, _I, _I, _I, _P, _I, _P, _LL, _I, _I, _I, _I, _I,
+            _I, _P]
 _ARGTYPES = {
     "slot_scan_fused": _FUSED_ARGS, "slot_scan_io": _IO_ARGS,
-    "level_gather_fused": [_P, _P, _I, _P, _I, _P, _I, _I, _I, _P, _P, _I,
-                           _I, _P, _LL, _I, _I, _I, _I, _I, _P],
-    "level_gather_io": [_P, _P, _I, _P, _I, _I, _I, _P, _I, _P, _LL, _I, _I,
-                        _I, _I, _I, _P],
+    "level_gather_fused": _FUSED_ARGS, "level_gather_io": _IO_ARGS,
     "gate_serial": [_P, _P, _P, _I, _I, _I, _LL, _I, _I, _I, _P],
     "kernel_info": [_I, _I, _I, _I, _P],
     "slots_static_fused": [_P, _P, _I, _P, _I, _P, _P, _I, _I, _P, _LL, _I,
-                           _I, _I, _P],
+                           _I, _I, _I, _I, _P],
 }
 
 
@@ -242,64 +246,102 @@ def _lib(name: str) -> ctypes.CDLL:
 # launch shape
 # --------------------------------------------------------------------------
 
-def fit_words_per_cta(n_cells: int, cap: int, planes: int = 1) -> int:
+def fit_words_per_cta(n_cells: int, cap: int, planes: int = 1,
+                      reserve: int = 0) -> int:
     """Words per CTA for a state of ``n_cells`` cells of ``planes`` 32-bit
-    planes: at most ``cap``, at most what fits in one CTA's shared memory,
-    and a multiple of 32 (one warp) from 32 up.  Raises when a single word
-    column of the state does not fit."""
+    planes: at most ``cap``, at most :data:`MAX_THREADS`, and at most what
+    one CTA's shared memory holds beside ``reserve`` bytes (the ring).
+    Raises when a single word column of the state does not fit."""
     col_bytes = 4 * planes * max(int(n_cells), 1)
-    fit = SMEM_PER_CTA // col_bytes
+    room = SMEM_PER_CTA - reserve
+    fit = room // col_bytes
     if fit < 1:
+        beside = " beside the ring" if reserve else ""
         raise ValueError(
             f"a program state of {n_cells} cells needs {col_bytes} B of "
-            f"shared memory per word column, more than the {SMEM_PER_CTA} B "
-            "a CTA can hold")
-    wpc = max(1, min(int(cap), fit, 1024))
-    return wpc // 32 * 32 if wpc >= 32 else wpc
+            f"shared memory per word column, more than the {room} B a CTA "
+            f"holds{beside}")
+    return max(1, min(int(cap), fit, MAX_THREADS))
 
 
 def ring_words_per_cta(n_cells: int, planes: int = 1) -> int:
-    """Words per CTA of the ring kernels (B3, B4) for a state of
+    """Words per CTA of the ring kernels (B1, B3, B4) for a state of
     ``n_cells`` cells of ``planes`` 32-bit planes: as many columns as one
     CTA's shared memory holds beside the ring, at most ``32 // planes`` a
     warp of :data:`RING_WARPS`, so that a warp's shared access is one
     128-byte wavefront.  Each column waits on its own chain of windows, so
     the columns an SM holds set the kernel's time (PERF.md, the sweep of
     PR 13).  Raises when a single column does not fit."""
-    col_bytes = 4 * planes * max(int(n_cells), 1)
-    fit = (SMEM_PER_CTA - RING_BYTES) // col_bytes
-    if fit < 1:
-        raise ValueError(
-            f"a program state of {n_cells} cells needs {col_bytes} B of "
-            f"shared memory per word column, more than the "
-            f"{SMEM_PER_CTA - RING_BYTES} B a CTA holds beside the ring")
-    return min(fit, 32 // planes * RING_WARPS)
+    return fit_words_per_cta(n_cells, 32 // planes * RING_WARPS, planes,
+                             RING_BYTES)
+
+
+def static_words_per_cta(n_cells: int, planes: int = 1) -> int:
+    """Words per CTA of the static-slice kernel (B2): as many columns as
+    the state alone lets one CTA hold, at most 16 a warp of
+    :data:`RING_WARPS` under either layout.  B2's levels take little time
+    beside its bridges, and at 1 Mi rows of fp32 add, fp16 add and uint16
+    add 64 columns ran faster than 128 (PERF.md, the sweep of PR 14)."""
+    return fit_words_per_cta(n_cells, STATIC_LANES * RING_WARPS, planes)
 
 
 def ring_lanes(wpc: int) -> int:
-    """Live lanes a warp of a ring kernel's CTA of ``wpc`` columns: the
+    """Live lanes a warp of a CTA of ``wpc`` columns (B1 to B4): the
     columns spread evenly over :data:`RING_WARPS` warps, whole warps once
     they fill them, so that every scheduler of the SM has columns."""
     return min(32, -(-int(wpc) // RING_WARPS))
 
 
-def _ring_wpc(n_cells: int, planes: int, words_per_cta: Optional[int]) -> int:
-    """``words_per_cta``, checked to fit beside the ring, or the rule."""
-    if words_per_cta is None:
-        return ring_words_per_cta(n_cells, planes)
-    wpc = int(words_per_cta)
-    need = 4 * planes * max(int(n_cells), 1) * wpc + RING_BYTES
-    threads = -(-wpc // ring_lanes(wpc)) * 32 if wpc > 0 else 0
-    if wpc < 1 or threads > RING_MAX_THREADS or need > SMEM_PER_CTA:
-        raise ValueError(f"{wpc} words per CTA of {n_cells} cells need "
-                         f"{need} B of shared memory with the ring and "
-                         f"{threads} threads; a CTA holds {SMEM_PER_CTA} B "
-                         f"and {RING_MAX_THREADS} threads")
+def state_stride(n_cells: int, wpc: int, planes: int = 1,
+                 reserve: int = 0) -> int:
+    """Words from one cell's row of a CTA's state to the next: ``wpc``, or
+    ``wpc + 1`` where ``wpc`` is even and the extra column fits beside
+    ``reserve`` bytes.  A fused bridge has the 32 lanes of a warp touch one
+    word of 32 cells at once; an odd stride puts them in 32 banks (16 under
+    rows64, whose 8-byte words a warp accesses in halves)."""
+    if wpc % 2 == 0 and 4 * planes * max(int(n_cells), 1) * (wpc + 1) + \
+            reserve <= SMEM_PER_CTA:
+        return wpc + 1
     return wpc
 
 
+def _checked_wpc(n_cells: int, planes: int, words_per_cta: Optional[int],
+                 ring: bool) -> int:
+    """``words_per_cta``, checked to fit one CTA (beside the ring for a
+    ring kernel), or the rule when it is None."""
+    if words_per_cta is None:
+        return (ring_words_per_cta if ring else static_words_per_cta)(
+            n_cells, planes)
+    wpc = int(words_per_cta)
+    reserve = RING_BYTES if ring else 0
+    max_threads = RING_MAX_THREADS if ring else MAX_THREADS
+    need = 4 * planes * max(int(n_cells), 1) * wpc + reserve
+    threads = -(-wpc // ring_lanes(wpc)) * 32 if wpc > 0 else 0
+    if wpc < 1 or threads > max_threads or need > SMEM_PER_CTA:
+        beside = " with the ring" if ring else ""
+        raise ValueError(f"{wpc} words per CTA of {n_cells} cells need "
+                         f"{need} B of shared memory{beside} and "
+                         f"{threads} threads; a CTA holds {SMEM_PER_CTA} B "
+                         f"and {max_threads} threads")
+    return wpc
+
+
+def _ring_wpc(n_cells: int, planes: int, words_per_cta: Optional[int]) -> int:
+    """``words_per_cta``, checked to fit beside the ring, or the rule."""
+    return _checked_wpc(n_cells, planes, words_per_cta, ring=True)
+
+
+def ring_shape(n_cells: int, planes: int = 1,
+               words_per_cta: Optional[int] = None) -> tuple:
+    """(words per CTA, stride, lanes a warp) of a ring kernel's launch:
+    ``words_per_cta`` checked, or the rule."""
+    wpc = _ring_wpc(n_cells, planes, words_per_cta)
+    return wpc, state_stride(n_cells, wpc, planes, RING_BYTES), \
+        ring_lanes(wpc)
+
+
 # --------------------------------------------------------------------------
-# packed streams of B3 and B4
+# packed streams of B1, B3 and B4
 # --------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
@@ -307,7 +349,7 @@ class Packed:
     """A packed stream (``csrc/ring.cuh``): ``tiles`` int32[n_tiles,
     2 * TILE_RECORDS], each record the uint16 (a, b, o, n) of one NOR gate
     ``o <- ~(a | b)``.  The ``n_windows`` windows take ``width`` records
-    each (2, 4 or 8: the kernel's window body), ``(TILE_RECORDS - WINDOW)
+    each (2, 4, 6 or 8: the kernel's window body), ``(TILE_RECORDS - WINDOW)
     // width`` to a tile; a window of fewer gates repeats its last gate,
     and ``n`` is the window's own gates on its first record, 0 elsewhere.
     ``n_gates`` counts the stream's own gates."""
@@ -325,12 +367,13 @@ class Packed:
 
 
 def window_width(n: int) -> int:
-    """Records a window of up to ``n`` gates takes: 2, 4 or 8, the kernels'
-    window bodies (ring.cuh ``with_width``)."""
+    """Records a window of up to ``n`` gates takes: 2, 4, 6 or 8, the
+    kernels' window bodies (ring.cuh ``with_width``; 6 is the default slot
+    width)."""
     if not 0 <= n <= WINDOW:
         raise ValueError(f"a window holds 1 to {WINDOW} gates (a level 1 "
                          f"to {WINDOW} lanes), got {n}")
-    return 2 if n <= 2 else 4 if n <= 4 else 8
+    return 2 if n <= 2 else 4 if n <= 4 else 6 if n <= 6 else 8
 
 
 def _pack(a, b, o, lens) -> Packed:
@@ -379,6 +422,18 @@ def pack_levels(a, b, o, *, n_cells: int) -> Packed:
     a, b, o = (np.asarray(x, np.int64) for x in (a, b, o))
     n_levels, width = a.shape
     return _pack(a, b, o, np.full(n_levels, width, np.int64))
+
+
+def pack_slots(la, lb, lo, *, n_cells: int) -> Packed:
+    """B1's stream of a slot schedule ``la/lb/lo`` [n_levels, W]: one
+    window a level of all its W lanes, lane k writing cell ``lo[l, 0] +
+    k`` of the level's band, as the plain version writes the whole band.
+    A band may overwrite cells its own level reads: the kernel reads every
+    operand of a window before it stores any, which is the level's
+    meaning."""
+    lo = np.asarray(lo, np.int64)
+    band = lo[:, :1] + np.arange(lo.shape[1])
+    return pack_levels(la, lb, band, n_cells=n_cells)
 
 
 def gate_windows(ops, a, b, o, window: int = WINDOW) -> np.ndarray:
@@ -444,19 +499,18 @@ def _check(device, **tensors) -> None:
 
 
 def _schedule_args(la, lb, lo, dense: bool = False):
-    """(n_levels, width) of the schedule operands; refuses a width the
-    kernel is not built for (a gate-free schedule passes at any width)."""
+    """(n_levels, width) of the schedule operands; refuses a width wider
+    than a window of the packed stream (a gate-free schedule passes at any
+    width)."""
     if la.dim() != 2 or la.shape != lb.shape or la.shape != lo.shape:
         raise ValueError(f"schedule operands must share one 2-D shape, got "
                          f"{tuple(la.shape)}, {tuple(lb.shape)}, "
                          f"{tuple(lo.shape)}")
     n_levels, width = la.shape
-    if n_levels and dense and not 1 <= width <= LEVEL_MAX_WIDTH:
-        raise ValueError(f"the level-gather kernel runs dense schedules of "
-                         f"1 to {LEVEL_MAX_WIDTH} lanes, got {width}")
-    if n_levels and not dense and width != SLOT_WIDTH:
-        raise ValueError(f"the slot-scan kernel runs slot width {SLOT_WIDTH} "
-                         f"only, got {width}")
+    if n_levels and not 1 <= width <= WINDOW:
+        what = ("level-gather kernel runs dense schedules of" if dense else
+                "slot-scan kernel runs slot widths")
+        raise ValueError(f"the {what} 1 to {WINDOW} lanes, got {width}")
     return n_levels, width
 
 
@@ -477,12 +531,10 @@ def _stream(dev) -> int:
 # B1 and B3: the slot-scan and level-gather wrappers
 # --------------------------------------------------------------------------
 
-def _fused(lib_name, entry, in_vals, in_idx, out_idx, sched, *, n_cells,
-           one_cell, in_widths, out_widths, planes, shape):
-    """Launch a fused entry; ``sched`` is the schedule's C arguments and
-    ``shape`` a function of (n_cells, planes) giving the launch shape's
-    (the CTA width, and the ring kernels' lanes a warp)."""
-    dev = _on_cuda(in_vals, entry)
+def _fused(lib_name, entry, in_vals, in_idx, out_idx, packed, *, n_cells,
+           one_cell, in_widths, out_widths, planes, words_per_cta):
+    """Launch a ring kernel's fused entry on the stream ``packed``."""
+    dev = in_vals.device
     _check(dev, in_vals=in_vals, in_idx=in_idx, out_idx=out_idx)
     if in_vals.dim() != 2 or in_vals.shape[0] != len(in_widths):
         raise ValueError(f"in_vals must be [{len(in_widths)}, n_rows], got "
@@ -499,25 +551,26 @@ def _fused(lib_name, entry, in_vals, in_idx, out_idx, sched, *, n_cells,
                       device=dev)
     if n_rows == 0 or not out_widths:
         return out
-    launch = shape(n_cells, planes)
+    shape = ring_shape(n_cells, planes, words_per_cta)
     fn = getattr(_lib(lib_name), entry)
     with torch.cuda.device(dev):
         err = fn(_ptr(in_vals), _widths_tensor(in_widths, dev).data_ptr(),
-                 len(in_widths), _ptr(in_idx), in_idx.numel(), *sched,
-                 _ptr(out_idx), _widths_tensor(out_widths, dev).data_ptr(),
+                 len(in_widths), _ptr(in_idx), in_idx.numel(),
+                 _ptr(packed.tiles), packed.n_tiles, packed.n_windows,
+                 packed.width, _ptr(out_idx),
+                 _widths_tensor(out_widths, dev).data_ptr(),
                  len(out_widths), out_idx.numel(), out.data_ptr(), n_rows,
                  planes, n_cells, -1 if one_cell is None else int(one_cell),
-                 *launch, _stream(dev))
+                 *shape, _stream(dev))
     _raise_on(err, entry)
     LAUNCHES[_entry(entry, planes)] += 1
     return out
 
 
-def _io(lib_name, entry, in_rows, in_idx, out_idx, sched, *, n_cells,
-        one_cell, k_out, shape):
-    """Launch an io entry; ``sched`` and ``shape`` as for
-    :func:`_fused`."""
-    dev = _on_cuda(in_rows, entry)
+def _io(lib_name, entry, in_rows, in_idx, out_idx, packed, *, n_cells,
+        one_cell, k_out, words_per_cta):
+    """Launch a ring kernel's io entry on the stream ``packed``."""
+    dev = in_rows.device
     _check(dev, in_rows=in_rows, in_idx=in_idx, out_idx=out_idx)
     planes = 1 if in_rows.dim() == 2 else in_rows.shape[0]
     if in_rows.dim() not in (2, 3) or planes not in (1, 2) or \
@@ -533,91 +586,82 @@ def _io(lib_name, entry, in_rows, in_idx, out_idx, sched, *, n_cells,
                       dtype=torch.int32, device=dev)
     if n_words == 0 or k_out == 0:
         return out
-    launch = shape(n_cells, planes)
+    shape = ring_shape(n_cells, planes, words_per_cta)
     fn = getattr(_lib(lib_name), entry)
     with torch.cuda.device(dev):
-        err = fn(_ptr(in_rows), _ptr(in_idx), in_idx.numel(), *sched,
-                 _ptr(out_idx), k_out, out.data_ptr(), n_words, planes,
-                 n_cells, -1 if one_cell is None else int(one_cell),
-                 *launch, _stream(dev))
+        err = fn(_ptr(in_rows), _ptr(in_idx), in_idx.numel(),
+                 _ptr(packed.tiles), packed.n_tiles, packed.n_windows,
+                 packed.width, _ptr(out_idx), k_out, out.data_ptr(), n_words,
+                 planes, n_cells, -1 if one_cell is None else int(one_cell),
+                 *shape, _stream(dev))
     _raise_on(err, entry)
     LAUNCHES[_entry(entry, planes)] += 1
     return out
 
 
-def _slot_sched(la, lb, lo, words_per_cta, dev):
-    """The slot scan's schedule arguments and launch shape rule."""
-    _check(dev, la=la, lb=lb, lo=lo)
-    n_levels, width = _schedule_args(la, lb, lo)
-    return ((_ptr(la), _ptr(lb), _ptr(lo), n_levels, width),
-            lambda n_cells, planes: (fit_words_per_cta(
-                n_cells, words_per_cta, planes),))
-
-
-def slots_fused(in_vals, in_idx, la, lb, lo, out_idx, *, n_cells, one_cell,
-                in_widths, out_widths, in_base: Optional[int] = None,
-                out_base: Optional[int] = None, planes: int = 1,
-                words_per_cta: int = WORDS_PER_CTA):
-    """Fused slot executor (B1): per-row values int32[n_in_ports, n_rows]
-    in, int32[n_out_ports, n_rows] out (ports of <= 32 cells, any
-    ``n_rows``, ``planes`` the word layout).  The kernel reads the input
-    and output cells through ``in_idx``/``out_idx``; ``in_base``/
-    ``out_base`` only steer the plain version.  ``words_per_cta`` caps the
-    CTA width (see :func:`fit_words_per_cta`)."""
-    if in_vals.device.type == "cpu":
-        return kslots.slots_fused(
-            in_vals, in_idx, la, lb, lo, out_idx, n_cells=n_cells,
-            one_cell=one_cell, in_widths=in_widths, out_widths=out_widths,
-            in_base=in_base, out_base=out_base, planes=planes)
-    sched, shape = _slot_sched(la, lb, lo, words_per_cta,
-                             _on_cuda(in_vals, "slot_scan_fused"))
-    return _fused("slot_scan", "slot_scan_fused", in_vals, in_idx, out_idx,
-                  sched, n_cells=n_cells, one_cell=one_cell,
-                  in_widths=in_widths, out_widths=out_widths, planes=planes,
-                  shape=shape)
-
-
-def slots_io(in_rows, in_idx, la, lb, lo, out_idx, *, n_cells, one_cell,
-             k_out, in_base: Optional[int] = None,
-             out_base: Optional[int] = None,
-             words_per_cta: int = WORDS_PER_CTA):
-    """Slot executor over pre-packed port rows (B1): int32[k_in, n_words]
-    in, int32[k_out, n_words] out (planes-leading under rows64; any port
-    width)."""
-    if in_rows.device.type == "cpu":
-        return kslots.slots_io(
-            in_rows, in_idx, la, lb, lo, out_idx, n_cells=n_cells,
-            one_cell=one_cell, k_out=k_out, in_base=in_base,
-            out_base=out_base)
-    sched, shape = _slot_sched(la, lb, lo, words_per_cta,
-                             _on_cuda(in_rows, "slot_scan_io"))
-    return _io("slot_scan", "slot_scan_io", in_rows, in_idx, out_idx, sched,
-               n_cells=n_cells, one_cell=one_cell, k_out=k_out,
-               shape=shape)
-
-
-def _dense_packed(la, lb, lo, packed, n_cells, dev) -> Packed:
-    """``packed`` (:func:`pack_levels` of this schedule, on ``dev``), or
-    ``la/lb/lo`` packed here.  The caller holds the result until the
-    launch is queued, so its memory is not reused before."""
+def _packed_on(dev, packed: Optional[Packed], la, lb, lo, n_cells: int,
+               dense: bool) -> Packed:
+    """``packed`` (the schedule's :func:`pack_slots` or :func:`pack_levels`
+    stream on ``dev``), or ``la/lb/lo`` packed here.  The caller holds the
+    result until the launch is queued, so its memory is not reused
+    before."""
     if packed is None:
         _check(dev, la=la, lb=lb, lo=lo)
-        _schedule_args(la, lb, lo, dense=True)
-        return pack_levels(la.cpu(), lb.cpu(), lo.cpu(),
-                           n_cells=n_cells).to(dev)
+        _schedule_args(la, lb, lo, dense=dense)
+        pack = pack_levels if dense else pack_slots
+        return pack(la.cpu(), lb.cpu(), lo.cpu(), n_cells=n_cells).to(dev)
     if packed.tiles.device != dev:
         raise ValueError(f"packed stream is on {packed.tiles.device}, "
                          f"expected {dev}")
     return packed
 
 
-def _dense_sched(packed: Packed, words_per_cta):
-    """The level gather's stream arguments and launch shape rule."""
-    def shape(n_cells, planes):
-        wpc = _ring_wpc(n_cells, planes, words_per_cta)
-        return wpc, ring_lanes(wpc)
-    return ((_ptr(packed.tiles), packed.n_tiles, packed.n_windows,
-             packed.width), shape)
+def slots_fused(in_vals, in_idx, la, lb, lo, out_idx, *, n_cells, one_cell,
+                in_widths, out_widths, in_base: Optional[int] = None,
+                out_base: Optional[int] = None, planes: int = 1,
+                words_per_cta: Optional[int] = None,
+                packed: Optional[Packed] = None):
+    """Fused slot executor (B1): per-row values int32[n_in_ports, n_rows]
+    in, int32[n_out_ports, n_rows] out (ports of <= 32 cells, any
+    ``n_rows``, ``planes`` the word layout), a slot schedule of 1 to 8
+    lanes in between.  The kernel runs ``packed``, the schedule's
+    :func:`pack_slots` stream on the card (callers that run a schedule
+    often pack it once, as ``kernels.ops`` does); without it the wrapper
+    packs ``la/lb/lo`` through the host.  It reads the input and output
+    cells through ``in_idx``/``out_idx``; ``in_base``/``out_base`` only
+    steer the plain version.  ``words_per_cta`` sets the CTA width
+    (default :func:`ring_words_per_cta`)."""
+    if in_vals.device.type == "cpu":
+        return kslots.slots_fused(
+            in_vals, in_idx, la, lb, lo, out_idx, n_cells=n_cells,
+            one_cell=one_cell, in_widths=in_widths, out_widths=out_widths,
+            in_base=in_base, out_base=out_base, planes=planes)
+    dev = _on_cuda(in_vals, "slot_scan_fused")
+    packed = _packed_on(dev, packed, la, lb, lo, n_cells, dense=False)
+    return _fused("slot_scan", "slot_scan_fused", in_vals, in_idx, out_idx,
+                  packed, n_cells=n_cells, one_cell=one_cell,
+                  in_widths=in_widths, out_widths=out_widths, planes=planes,
+                  words_per_cta=words_per_cta)
+
+
+def slots_io(in_rows, in_idx, la, lb, lo, out_idx, *, n_cells, one_cell,
+             k_out, in_base: Optional[int] = None,
+             out_base: Optional[int] = None,
+             words_per_cta: Optional[int] = None,
+             packed: Optional[Packed] = None):
+    """Slot executor over pre-packed port rows (B1): int32[k_in, n_words]
+    in, int32[k_out, n_words] out (planes-leading under rows64; any port
+    width); ``packed`` and ``words_per_cta`` as for :func:`slots_fused`."""
+    if in_rows.device.type == "cpu":
+        return kslots.slots_io(
+            in_rows, in_idx, la, lb, lo, out_idx, n_cells=n_cells,
+            one_cell=one_cell, k_out=k_out, in_base=in_base,
+            out_base=out_base)
+    dev = _on_cuda(in_rows, "slot_scan_io")
+    packed = _packed_on(dev, packed, la, lb, lo, n_cells, dense=False)
+    return _io("slot_scan", "slot_scan_io", in_rows, in_idx, out_idx, packed,
+               n_cells=n_cells, one_cell=one_cell, k_out=k_out,
+               words_per_cta=words_per_cta)
 
 
 def level_fused(in_vals, in_idx, la, lb, lo, out_idx, *, n_cells, one_cell,
@@ -627,22 +671,19 @@ def level_fused(in_vals, in_idx, la, lb, lo, out_idx, *, n_cells, one_cell,
     """Fused dense executor (B3), the signature of
     ``ref.pim_exec_ref_level_fused``: per-row values in and out, a dense
     schedule of up to 8 lanes in between.  The kernel runs ``packed``, the
-    schedule's :func:`pack_levels` stream on the card (callers that run a
-    schedule often pack it once, as ``kernels.ops`` does); without it the
-    wrapper packs ``la/lb/lo`` through the host.  ``words_per_cta`` sets
-    the CTA width (default :func:`ring_words_per_cta`)."""
+    schedule's :func:`pack_levels` stream on the card; ``packed`` and
+    ``words_per_cta`` as for :func:`slots_fused`."""
     if in_vals.device.type == "cpu":
         return kref.pim_exec_ref_level_fused(
             in_vals, in_idx, la, lb, lo, out_idx, n_cells=n_cells,
             one_cell=one_cell, in_widths=in_widths, out_widths=out_widths,
             planes=planes)
     dev = _on_cuda(in_vals, "level_gather_fused")
-    packed = _dense_packed(la, lb, lo, packed, n_cells, dev)
-    sched, shape = _dense_sched(packed, words_per_cta)
+    packed = _packed_on(dev, packed, la, lb, lo, n_cells, dense=True)
     return _fused("level_gather", "level_gather_fused", in_vals, in_idx,
-                  out_idx, sched, n_cells=n_cells, one_cell=one_cell,
+                  out_idx, packed, n_cells=n_cells, one_cell=one_cell,
                   in_widths=in_widths, out_widths=out_widths, planes=planes,
-                  shape=shape)
+                  words_per_cta=words_per_cta)
 
 
 def level_io(in_rows, in_idx, la, lb, lo, out_idx, *, n_cells,
@@ -657,11 +698,10 @@ def level_io(in_rows, in_idx, la, lb, lo, out_idx, *, n_cells,
             in_rows, in_idx, la, lb, lo, out_idx, n_cells=n_cells,
             one_cell=one_cell)
     dev = _on_cuda(in_rows, "level_gather_io")
-    packed = _dense_packed(la, lb, lo, packed, n_cells, dev)
-    sched, shape = _dense_sched(packed, words_per_cta)
+    packed = _packed_on(dev, packed, la, lb, lo, n_cells, dense=True)
     return _io("level_gather", "level_gather_io", in_rows, in_idx, out_idx,
-               sched, n_cells=n_cells, one_cell=one_cell,
-               k_out=out_idx.numel(), shape=shape)
+               packed, n_cells=n_cells, one_cell=one_cell,
+               k_out=out_idx.numel(), words_per_cta=words_per_cta)
 
 
 # --------------------------------------------------------------------------
@@ -718,18 +758,23 @@ def gate_serial(state, ops, a, b, o, *, words_per_cta: Optional[int] = None,
 _STATIC_HEAD = """\
 // Static-slice executor for one slot schedule, written by
 // repro_torch.kernels.pim_exec.static_source: {n_levels} levels, {n_gates}
-// NOR lanes, {n_cells} cells, planes = {planes}, {wpc} words per CTA.
+// NOR lanes, {n_cells} cells, planes = {planes}, {wpc} words per CTA over
+// {threads} threads ({lanes} live lanes a warp), {stride} words a cell.
 //
 // Replaces the TPU kernel `_pim_level_kernel` (src/repro/kernels/pim_exec.py,
 // built by `make_slots_static`), with the fused bit-transpose bridges of
 // pim_state.cuh.  The slot-scan kernel (slot_scan.cu) runs the same schedule
-// from index arrays; here every level is unrolled and every cell offset is a
-// compile-time constant (`s[cell * {wpc}]`), so the level body is shared
+// from a packed stream; here every level is unrolled and every cell offset is
+// a compile-time constant (`s[cell * {stride}]`), so the level body is shared
 // loads, NORs and shared stores with immediate offsets and no index loads.
 // Only each level's real lanes are emitted, {n_fns} device function(s) of
-// at most {fn_levels} levels.  What bounds it: the slot scan's shared-memory
-// traffic without its index loads, and the instruction stream itself (one
-// instruction per shared access, far more than the instruction cache holds).
+// at most {fn_levels} levels.  The kernel's launch bounds are the threads
+// it launches, so a thread may take up to 255 registers and the compiler
+// may hoist a level's loads above the stores of the levels before it; the
+// bridges keep the loads of a warp's LANES words in flight.  What bounds
+// it: the instructions a warp issues, one a shared access and one a NOR,
+// with one warp a scheduler, and the fused bridges around them, which wait
+// on device memory.
 
 #include "pim_state.cuh"
 
@@ -737,14 +782,18 @@ namespace {{
 
 constexpr int P = {planes};
 constexpr int WPC = {wpc};
+constexpr int STRIDE = {stride};
+constexpr int LANES = {lanes};
+constexpr int THREADS = {threads};
 constexpr int N_CELLS = {n_cells};
 using T = pim::WordOf<P>::T;
 """
 
 _STATIC_TAIL = """
-__global__ void __launch_bounds__(1024) slots_static_kernel(
+__global__ void __launch_bounds__(THREADS) slots_static_kernel(
     const pim::Params p) {{
-  pim::run<P, true>(p, [](int col) {{
+  pim::run<P, true, LANES>(p, [](pim::Column me) {{
+    if (!me.live) return;
 {calls}  }});
 }}
 
@@ -755,48 +804,62 @@ extern "C" int slots_static_fused(
     const void* in_vals, const void* in_widths, int n_in_ports,
     const void* in_idx, int k_in, const void* out_idx,
     const void* out_widths, int n_out_ports, int k_out, void* out_vals,
-    long long n_rows, int n_cells, int one_cell, int wpc, void* stream) {{
-  if (wpc != WPC || n_cells != N_CELLS) {{
+    long long n_rows, int n_cells, int one_cell, int wpc, int stride,
+    int lanes, void* stream) {{
+  if (wpc != WPC || stride != STRIDE || lanes != LANES ||
+      n_cells != N_CELLS) {{
     return static_cast<int>(cudaErrorInvalidValue);
   }}
   const pim::Params p = pim::fused_params(
       in_vals, in_widths, n_in_ports, in_idx, k_in, out_idx, out_widths,
-      n_out_ports, k_out, out_vals, n_rows, P, n_cells, one_cell, wpc);
-  return pim::launch<P>(slots_static_kernel, p, stream);
+      n_out_ports, k_out, out_vals, n_rows, P, n_cells, one_cell, wpc,
+      stride, lanes);
+  return pim::launch(slots_static_kernel, p,
+                     pim::state_bytes(N_CELLS, STRIDE, sizeof(T)), THREADS,
+                     stream, p);
 }}
 """
+
+
+def static_shape(n_cells: int, wpc: int, planes: int = 1) -> tuple:
+    """(stride, lanes a warp, threads) of B2's CTA of ``wpc`` columns."""
+    lanes = ring_lanes(wpc)
+    return (state_stride(n_cells, wpc, planes), lanes,
+            -(-wpc // lanes) * 32)
 
 
 def static_source(sched, planes: int, wpc: int,
                   split: Optional[int] = None) -> str:
     """CUDA source of the static-slice kernel for slot schedule ``sched``
-    under ``planes`` and ``wpc`` words per CTA: per level, its real lanes'
-    operands are read into registers, NORed, and written to the band at
-    constant offsets.  The body is one device function; ``split`` cuts it
-    into ``__noinline__`` functions of that many levels instead, which
-    only ``chip_smoke.py --split-probe`` builds (PERF.md: whole compiles in
-    seconds and runs no slower)."""
+    under ``planes`` and ``wpc`` words per CTA (:func:`static_shape`):
+    per level, its real lanes' operands are read into registers, NORed,
+    and written to the band at constant offsets.  The body is one device
+    function; ``split`` cuts it into ``__noinline__`` functions of that
+    many levels instead, which only ``chip_smoke.py --split-probe`` builds
+    (PERF.md: whole compiles in seconds and runs no slower)."""
     if sched.alloc != "slots":
         raise ValueError("static emission requires a slot schedule "
                          f"(got alloc={sched.alloc!r})")
+    stride, lanes, threads = static_shape(sched.n_cells, wpc, planes)
     seg = max(int(split or sched.n_levels), 1)
     parts = [_STATIC_HEAD.format(
         n_levels=sched.n_levels, n_gates=int(sched.level_width.sum()),
-        n_cells=sched.n_cells, planes=planes, wpc=wpc,
-        n_fns=-(-sched.n_levels // seg), fn_levels=seg)]
+        n_cells=sched.n_cells, planes=planes, wpc=wpc, stride=stride,
+        lanes=lanes, threads=threads, n_fns=-(-sched.n_levels // seg),
+        fn_levels=seg)]
     calls = []
     for lo_row in range(0, sched.n_levels, seg):
         name = f"seg{lo_row // seg}"
-        calls.append(f"    {name}(col);\n")
+        calls.append(f"    {name}(me.col);\n")
         body = [f"\n__device__ __noinline__ void {name}(int col) {{\n",
                 "  T* s = pim::state<P>() + col;\n"]
         for l in range(lo_row, min(lo_row + seg, sched.n_levels)):
             w = int(sched.level_width[l])
             off = int(sched.out[l, 0])
             reads = " ".join(
-                f"const T v{k} = ~(s[{int(sched.a[l, k]) * wpc}] | "
-                f"s[{int(sched.b[l, k]) * wpc}]);" for k in range(w))
-            writes = " ".join(f"s[{(off + k) * wpc}] = v{k};"
+                f"const T v{k} = ~(s[{int(sched.a[l, k]) * stride}] | "
+                f"s[{int(sched.b[l, k]) * stride}]);" for k in range(w))
+            writes = " ".join(f"s[{(off + k) * stride}] = v{k};"
                               for k in range(w))
             body.append(f"  {{ {reads} {writes} }}\n")
         body.append("}\n")
@@ -813,12 +876,13 @@ class StaticKernel:
     per-row values int32[n_in_ports, n_rows] in (any ``n_rows``),
     int32[n_out_ports, n_rows] out.  On a CPU tensor it runs the plain
     chain; on a CUDA tensor it launches the kernel, built by
-    :meth:`build` (:func:`build` builds several at once).  ``seg_levels``
-    is the plain chain's segment size; ``split`` goes to
-    :func:`static_source`."""
+    :meth:`build` (:func:`build` builds several at once).
+    ``words_per_cta`` sets the CTA width (default
+    :func:`static_words_per_cta`); ``seg_levels`` is the plain chain's
+    segment size; ``split`` goes to :func:`static_source`."""
 
     def __init__(self, sched, in_widths, out_widths, out_names, in_cells, *,
-                 planes: int = 1, words_per_cta: int = WORDS_PER_CTA,
+                 planes: int = 1, words_per_cta: Optional[int] = None,
                  seg_levels: int = SLOT_SEG_LEVELS,
                  split: Optional[int] = None):
         self.sched = sched
@@ -831,12 +895,16 @@ class StaticKernel:
                              "cells")
         self.planes = planes
         self.seg_levels = seg_levels
-        self.wpc = fit_words_per_cta(sched.n_cells, words_per_cta, planes)
+        self.wpc = _checked_wpc(sched.n_cells, planes, words_per_cta,
+                                ring=False)
+        self.stride, self.lanes, self.threads = static_shape(
+            sched.n_cells, self.wpc, planes)
         self.source = static_source(sched, planes, self.wpc, split)
         key = _build_key(self.source.encode())
         self.cu = BUILD_DIR / f"slots_static-{key}.cu"
         self.so = BUILD_DIR / f"slots_static-{key}.so"
         self._plain = None
+        self._lib: Optional[ctypes.CDLL] = None
         self._idx: Dict[str, tuple] = {}
 
     @property
@@ -879,12 +947,14 @@ class StaticKernel:
                           device=dev)
         if n_rows == 0 or not self.out_widths:
             return out
-        if not self.built:
-            self.build()
+        if self._lib is None:          # one look at the disk, not a call's
+            if not self.built:
+                self.build()
+            self._lib = _load(self.so)
         in_idx, out_idx = self._operands(dev)
         s = self.sched
         with torch.cuda.device(dev):
-            err = _load(self.so).slots_static_fused(
+            err = self._lib.slots_static_fused(
                 _ptr(in_vals), _widths_tensor(self.in_widths, dev).data_ptr(),
                 len(self.in_widths), in_idx.data_ptr(), len(self.in_cells),
                 out_idx.data_ptr(),
@@ -892,7 +962,7 @@ class StaticKernel:
                 len(self.out_widths), sum(self.out_widths), out.data_ptr(),
                 n_rows, s.n_cells,
                 -1 if s.one_cell is None else int(s.one_cell), self.wpc,
-                _stream(dev))
+                self.stride, self.lanes, _stream(dev))
         _raise_on(err, "slots_static_fused")
         LAUNCHES[_entry("slots_static_fused", self.planes)] += 1
         return out

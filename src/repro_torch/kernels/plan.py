@@ -83,28 +83,30 @@ DEFAULT_LAYOUT = ROWS32
 # SLOT_WIDTH: W of the contiguous-slot allocator, and LEVEL_MAX_WIDTH the
 # dense schedule's width cap.  Both stay at the reference's 6 and 8 so both
 # packages levelize to byte-identical schedules (the parity tests hold the
-# executors against each other on those).  They are also what the kernels
-# are built for: the slot scan runs W = 6 only, and the level gather
-# unrolls to LEVEL_MAX_WIDTH lanes (kMaxWidth in csrc/level_gather.cu), so
-# a cuda plan may narrow the dense cap but not widen it.
+# executors against each other on those).  LEVEL_MAX_WIDTH is also the
+# widest window of the ring kernels' packed streams (kWin in csrc/ring.cuh):
+# the slot scan and the level gather run a level as one window of 2, 4 or
+# 8 records, so a cuda plan takes slot widths and dense caps of 1 to 8, and
+# a wider one runs only on 'ref'.
 # SLOT_SEG_LEVELS: levels per segment of the plain static chain, which
 # drops dead bands at each segment boundary as the reference's does.  The
 # generated static kernel is one function whatever it is (PERF.md).
-# WORDS_PER_CTA: cap on the 32-row word columns one CTA of the slot-scan
-# kernel owns (one thread per column, state in shared memory); the kernel
-# wrapper lowers it further when ``n_cells`` columns do not fit.  Small
-# CTAs let an SM hold more of them, and the kernel is latency-bound, so
-# more resident warps win even half full: 16 was the best single value
-# over fp16/fp32 add and fp32 mul on the H100 sweep.
+# Backend.words_per_cta: the word columns (one thread each, the state in
+# shared memory) one CTA of a cuda kernel owns, an explicit override; None
+# takes each kernel's rule: as many columns as fit one CTA's shared memory
+# (beside the schedule ring for the slot scan and the level gather), at
+# most 128 (64 under rows64) over four warps, since the kernels wait on
+# each column's chain of levels and the columns an SM holds set their time
+# (pim_exec.ring_words_per_cta, static_words_per_cta; PERF.md, the H100
+# sweeps of PRs 13 and 14).
 # DEFAULT_CHUNK_ROWS: streaming chunk (rows) -- rows per kernel launch.
 # The kernel alone runs best from 1<<22 rows up, but the host packs and
 # unpacks every chunk, and at 1<<20 rows its arrays stay in the host's
 # caches: that chunk gave the fastest end-to-end run on the H100.
-# PERF.md records the H100 sweeps these two were chosen from.
+# PERF.md records the H100 sweep it was chosen from.
 SLOT_WIDTH = 6
 LEVEL_MAX_WIDTH = 8
 SLOT_SEG_LEVELS = 128
-WORDS_PER_CTA = 16
 DEFAULT_CHUNK_ROWS = 1 << 20
 
 
@@ -116,7 +118,7 @@ class Backend:
     slot_width: int = SLOT_WIDTH
     seg_levels: int = SLOT_SEG_LEVELS
     chunk_rows: int = DEFAULT_CHUNK_ROWS
-    words_per_cta: int = WORDS_PER_CTA
+    words_per_cta: Optional[int] = None
     level_max_width: int = LEVEL_MAX_WIDTH
 
     def __str__(self) -> str:
@@ -168,6 +170,12 @@ class ExecPlan:
                 f"backend 'cuda' runs dense schedules of at most "
                 f"{LEVEL_MAX_WIDTH} lanes (got level_max_width="
                 f"{self.backend.level_max_width})")
+        if self.backend.name == "cuda" and \
+                self.backend.slot_width > LEVEL_MAX_WIDTH:
+            raise ValueError(
+                f"backend 'cuda' runs slot schedules of at most "
+                f"{LEVEL_MAX_WIDTH} lanes (got slot_width="
+                f"{self.backend.slot_width})")
         if self.backend.name == "cuda" and \
                 torch.device(self.device).type != "cuda":
             raise ValueError(

@@ -56,6 +56,15 @@ def _no_input():
     return b.finish()
 
 
+def _bridge_ports():
+    """Ports of 1, 16, 17 and 32 cells in and out: each output the NOT of
+    the input of its width."""
+    b = gates.Builder()
+    for w in (1, 16, 17, 32):
+        b.output(f"z{w}", [b.not_(c) for c in b.input(f"x{w}", w)])
+    return b.finish()
+
+
 PROGRAMS = {
     "fp16-add": lambda: program_for("fp-serial", "add", "fp16"),
     "fp32-add": lambda: program_for("fp-serial", "add", "fp32"),
@@ -68,14 +77,15 @@ PROGRAMS = {
     "bp-mul16": lambda: program_for("int-parallel", "mul", 16),
     "gate-free": _gate_free,
     "no-input": _no_input,
+    "bridge-ports": _bridge_ports,
 }
 
 
-def _resolved(name, device="cpu", **backend_kw):
+def _resolved(name, device="cpu", layout=None, **backend_kw):
     prog = PROGRAMS[name]()
     backend = kplan.Backend("ref" if device == "cpu" else "cuda",
                             **backend_kw)
-    plan = kplan.as_plan(backend=backend, device=device)
+    plan = kplan.as_plan(backend=backend, device=device, layout=layout)
     return ops.compiled(prog, plan).resolve(prog, plan,
                                             tuple(sorted(prog.in_ports)))
 
@@ -90,7 +100,8 @@ def _values(r, rng, n_rows):
 def _call(entry, r, x, **kw):
     args = (x, r.in_idx, r.la, r.lb, r.lo, r.out_idx)
     common = dict(n_cells=r.sched.n_cells, one_cell=r.one_cell,
-                  in_base=r.in_base, out_base=r.out_base, **kw)
+                  in_base=r.in_base, out_base=r.out_base,
+                  words_per_cta=r.words_per_cta, **kw)
     if entry == "fused":
         return pim_exec.slots_fused(*args, in_widths=r.in_widths,
                                     out_widths=r.out_widths, **common)
@@ -137,25 +148,42 @@ def test_wrappers_reject_other_devices():
             _call(entry, r, meta)
 
 
-def test_kernel_takes_only_the_slot_width_it_is_built_for():
-    """The kernel runs W = 6 schedules; any other width is refused before
+@pytest.mark.parametrize("width", range(1, 10))
+def test_kernel_takes_only_the_slot_width_it_is_built_for(width):
+    """The kernel runs slot widths 1 to 8, a level a window of 2, 4, 6 or 8
+    records of the packed stream; a wider schedule is refused before
     launch, and a gate-free schedule passes whatever its width."""
-    for width in (4, 8):
-        sched = torch.zeros((3, width), dtype=torch.int32)
-        with pytest.raises(ValueError, match="slot width 6 only"):
+    sched = torch.zeros((3, width), dtype=torch.int32)
+    if width <= pim_exec.WINDOW:
+        assert pim_exec._schedule_args(sched, sched, sched) == (3, width)
+    else:
+        with pytest.raises(ValueError, match="slot widths 1 to 8 lanes"):
             pim_exec._schedule_args(sched, sched, sched)
-    assert pim_exec._schedule_args(*[torch.zeros((3, 6), dtype=torch.int32)]
-                                   * 3) == (3, 6)
-    assert pim_exec._schedule_args(*[torch.zeros((0, 8), dtype=torch.int32)]
-                                   * 3) == (0, 8)
+    none = torch.zeros((0, width), dtype=torch.int32)
+    assert pim_exec._schedule_args(none, none, none) == (0, width)
+
+
+@pytest.mark.parametrize("width,ok", [(4, True), (8, True), (9, False)])
+def test_cuda_plans_take_slot_widths_up_to_eight(width, ok):
+    """A cuda plan levelizes slot schedules of up to 8 lanes, what the
+    slot scan runs; a wider one is refused before any schedule is built
+    and runs on ``ref``."""
+    backend = kplan.Backend("cuda", slot_width=width)
+    if ok:
+        assert kplan.as_plan(backend=backend).backend.slot_width == width
+    else:
+        with pytest.raises(ValueError, match="at most 8 lanes"):
+            kplan.as_plan(backend=backend)
+    kplan.as_plan(backend=kplan.Backend("ref", slot_width=width),
+                  device="cpu")
 
 
 @pytest.mark.parametrize("n_cells,cap,want", [
-    (444, 32, 32), (444, 1024, 128), (4175, 64, 13), (58112, 32, 1),
-    (8, 5000, 1024), (444, 40, 32)])
+    (444, 32, 32), (444, 1024, 130), (4175, 64, 13), (58112, 32, 1),
+    (8, 5000, 1024), (444, 40, 40)])
 def test_fit_words_per_cta(n_cells, cap, want):
-    """At most ``cap``, at most what fits in 227 KB, at most 1024 threads,
-    whole warps from 32 up."""
+    """At most ``cap``, at most what fits in 227 KB, at most 1024 columns
+    (threads); the columns are spread over warps, so any count goes."""
     got = pim_exec.fit_words_per_cta(n_cells, cap)
     assert got == want
     assert got * n_cells * 4 <= pim_exec.SMEM_PER_CTA
@@ -205,15 +233,60 @@ FUSED = ["fp16-add", "fp32-add", "fp32-mul", "fp32-div", "uint16-add",
 @pytest.mark.parametrize("name", FUSED)
 @pytest.mark.parametrize("n_rows", [4096, 100_003])
 def test_kernel_fused_matches_plain_version(cuda, name, n_rows):
-    """Ragged row counts and several CTA widths, bit for bit."""
+    """Ragged row counts and several CTA widths (the rule's first), bit for
+    bit."""
     plain = _resolved(name)
     vals = _values(plain, np.random.default_rng(1), n_rows)
     want = _np(_call("fused", plain, _t(vals)))
-    for wpc in (1, 13, 32, 128):
+    for wpc in (None, 1, 13, 32):
         r = _resolved(name, cuda, words_per_cta=wpc)
         got = _call("fused", r, _t(vals).to(cuda))
         torch.cuda.synchronize()
         assert np.array_equal(_np(got), want), wpc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planes", [1, 2])
+@pytest.mark.parametrize("width", [4, 6, 8])
+@pytest.mark.parametrize("name", ["fp16-add", "fp32-add", "uint32-add"])
+def test_slot_scan_runs_slot_widths(cuda, name, width, planes):
+    """B1 on schedules levelized at slot widths 4, 6 and 8 (windows of 4
+    and 8 records), fused on ragged rows and io, under both layouts, bit
+    for bit against the plain version."""
+    layout = "rows64" if planes == 2 else "rows32"
+    plain = _resolved(name, slot_width=width)
+    r = _resolved(name, cuda, layout, slot_width=width)
+    assert r.sched.width == width and r.packed.width == width
+    rng = np.random.default_rng(14)
+    if max(plain.in_widths + plain.out_widths) <= 32:
+        vals = _values(plain, rng, 100_003)
+        want = _np(_call("fused", plain, _t(vals), planes=planes))
+        got = _call("fused", r, _t(vals).to(cuda), planes=planes,
+                    packed=r.packed)
+        torch.cuda.synchronize()
+        assert np.array_equal(_np(got), want)
+    k_in = int(plain.in_idx.numel())
+    rows = _bits(rng, (k_in, 3001) if planes == 1 else (planes, k_in, 3001))
+    want = _np(_call("io", plain, _t(rows)))
+    got = _call("io", r, _t(rows).to(cuda), packed=r.packed)
+    torch.cuda.synchronize()
+    assert np.array_equal(_np(got), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [4, 8])
+def test_fp_add_runs_tuned_slot_widths_on_cuda(cuda, width):
+    """A plan with another slot width runs ``pim.fp_add`` through B1 on the
+    card, bit-exact against numpy."""
+    rng = np.random.default_rng(15)
+    a = rng.standard_normal(5000).astype(np.float32)
+    b = rng.standard_normal(5000).astype(np.float32)
+    pim_exec.reset_counts()
+    plan = kplan.as_plan(backend=kplan.Backend("cuda", slot_width=width))
+    got = pim.fp_add(a, b, plan=plan)
+    assert np.array_equal(got, a + b)
+    assert {k: v for k, v in pim_exec.LAUNCHES.items() if v} == \
+        {"slot_scan_fused": 1}
 
 
 @pytest.mark.cuda
@@ -347,7 +420,7 @@ def test_level_gather_takes_dense_widths_up_to_eight():
 
 
 @pytest.mark.parametrize("n_cells,cap,planes,want", [
-    (444, 16, 2, 16), (444, 1024, 2, 64), (10304, 32, 1, 5),
+    (444, 16, 2, 16), (444, 1024, 2, 65), (10304, 32, 1, 5),
     (10304, 32, 2, 2), (25354, 32, 1, 2), (58112, 32, 2, 0)])
 def test_fit_words_per_cta_counts_planes(n_cells, cap, planes, want):
     """rows64 doubles a column's shared memory; the largest states take a
@@ -389,7 +462,9 @@ def test_static_source_is_straight_line_code():
     assert split.count("~(s[") == int(s.level_width.sum())
     assert split.count("__noinline__") == -(-s.n_levels // 17)
     assert "__ldg(p.la" not in src and "p.la" not in src
-    a0, b0 = int(s.a[0, 0]) * 16, int(s.b[0, 0]) * 16
+    stride = pim_exec.state_stride(s.n_cells, 16)
+    assert stride == 17
+    a0, b0 = int(s.a[0, 0]) * stride, int(s.b[0, 0]) * stride
     assert f"const T v0 = ~(s[{a0}] | s[{b0}]);" in src
     k1, k2 = _static(o), _static(o, planes=2)
     assert k1.so != k2.so and k1.so == _static(o).so
@@ -407,6 +482,101 @@ def test_static_build_raises_without_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         k.build()
     assert not (tmp_path / "build").exists()
+
+
+@pytest.mark.parametrize("wpc,planes,lanes,threads", [
+    (16, 1, 4, 128), (32, 1, 8, 128), (64, 1, 16, 128), (128, 1, 32, 128),
+    (64, 2, 16, 128), (13, 1, 4, 128), (3, 1, 1, 96)])
+def test_static_launch_bounds_follow_its_threads(wpc, planes, lanes,
+                                                 threads):
+    """B2 declares the launch bounds of the threads it launches (its
+    columns spread over four warps as the ring kernels' are), not 1024,
+    so the compiler may give a thread more than 64 registers."""
+    s = _operands("uint16-add")["sched"]
+    src = pim_exec.static_source(s, planes=planes, wpc=wpc)
+    assert pim_exec.static_shape(s.n_cells, wpc, planes)[1:] == (lanes,
+                                                                  threads)
+    assert f"constexpr int THREADS = {threads};" in src
+    assert f"constexpr int LANES = {lanes};" in src
+    assert "__launch_bounds__(THREADS)" in src
+    assert "__launch_bounds__(1024)" not in src
+    assert "pim::run<P, true, LANES>" in src       # a batch of LANES words
+
+
+@pytest.mark.parametrize("n_cells,planes,want", [
+    (444, 1, 64), (444, 2, 64), (1134, 1, 51), (1134, 2, 25),
+    (25354, 1, 2), (2000, 2, 14)])
+def test_static_words_per_cta(n_cells, planes, want):
+    """B2's CTA rule: as many columns as the state alone lets one CTA
+    hold, at most four warps of 16 under either layout."""
+    assert pim_exec.static_words_per_cta(n_cells, planes) == want
+    k = pim_exec.StaticKernel(_operands("fp32-add")["sched"], (32, 32),
+                              (32,), ["z"], list(range(64)), planes=planes)
+    assert k.wpc == pim_exec.static_words_per_cta(k.sched.n_cells, planes)
+    with pytest.raises(ValueError, match="shared memory"):
+        pim_exec.StaticKernel(k.sched, (32, 32), (32,), ["z"],
+                              list(range(64)), words_per_cta=1000)
+
+
+@pytest.mark.parametrize("n_cells,wpc,planes,reserve,want", [
+    (444, 128, 1, 0, 129), (444, 126, 1, pim_exec.RING_BYTES, 126),
+    (444, 125, 1, 0, 125), (605, 92, 1, pim_exec.RING_BYTES, 92),
+    (355, 128, 1, pim_exec.RING_BYTES, 129), (444, 64, 2, 0, 65)])
+def test_state_stride_is_odd_where_it_fits(n_cells, wpc, planes, reserve,
+                                           want):
+    """An even CTA width gets one column of padding when it fits, so the
+    32 lanes of a bridge, one cell each, hit 32 banks."""
+    got = pim_exec.state_stride(n_cells, wpc, planes, reserve)
+    assert got == want
+    assert 4 * planes * n_cells * got + reserve <= pim_exec.SMEM_PER_CTA
+    rows = (np.arange(32) * got) % 32 if planes == 1 else \
+        (np.arange(16) * 2 * got) % 32
+    assert got % 2 == 0 or len(set(rows.tolist())) == len(rows)
+
+
+def _warp_transpose(x: np.ndarray) -> np.ndarray:
+    """``pim::transpose32`` of csrc/pim_state.cuh, lane by lane: five
+    ``__shfl_xor_sync`` block swaps over the 32 lanes' words ``x``."""
+    lane = np.arange(32)
+    for step, mask in ((16, 0x0000FFFF), (8, 0x00FF00FF), (4, 0x0F0F0F0F),
+                       (2, 0x33333333), (1, 0x55555555)):
+        y = x[lane ^ step]
+        m, sh = np.uint32(mask), np.uint32(step)
+        x = np.where(lane & step, ((y >> sh) & m) | (x & ~m),
+                     (x & m) | ((y & m) << sh)).astype(np.uint32)
+    return x
+
+
+@pytest.mark.parametrize("planes", [1, 2])
+@pytest.mark.parametrize("widths", [(1,), (16,), (17,), (32,),
+                                    (32, 17, 1, 16)])
+def test_bridges_warp_transpose_matches_pack_values(widths, planes):
+    """The fused bridges as the kernels run them, emulated lane by lane:
+    lane i loads row 32 * (P * word + h) + i of each port, the warp
+    transpose leaves lane b the word of the port's cell b (plane h), and
+    the output bridge's transpose back gives every row's value again --
+    the plain version's ``pack_values``/``unpack_values``."""
+    rng = np.random.default_rng(13)
+    n_words = 3
+    n_rows = 32 * planes * n_words
+    vals = _bits(rng, (len(widths), n_rows))
+    for p, w in enumerate(widths):
+        vals[p] &= np.uint32((1 << w) - 1)
+    got = np.zeros((planes, sum(widths), n_words), np.uint32)
+    back = np.zeros_like(vals)
+    s = 0
+    for p, w in enumerate(widths):
+        for j in range(n_words):
+            for h in range(planes):
+                row0 = 32 * (planes * j + h)
+                t = _warp_transpose(vals[p, row0:row0 + 32])
+                got[h, s:s + w, j] = t[:w]          # lanes b < w store
+                out = np.where(np.arange(32) < w, t, 0).astype(np.uint32)
+                back[p, row0:row0 + 32] = _warp_transpose(out)
+        s += w
+    want = _np(slots.pack_values(_t(vals), widths, planes))
+    assert np.array_equal(got[0] if planes == 1 else got, want)
+    assert np.array_equal(back, vals)
 
 
 # --------------------------------------------------------------------------
@@ -484,6 +654,61 @@ def test_static_kernel_matches_plain_version(cuda, name, planes):
     got = k(_t(vals).to(cuda))
     torch.cuda.synchronize()
     assert np.array_equal(_np(got), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planes", [1, 2])
+@pytest.mark.parametrize("name", ["fp32-add", "uint16-add", "fp32-mul"])
+def test_static_kernel_cta_widths_match_plain_version(cuda, name, planes):
+    """B2 at 16, 32, 64 and 128 columns a CTA where they fit (the sweep's
+    widths), each its own build, on ragged rows."""
+    o = _operands(name)
+    vals = _vals(o, np.random.default_rng(16), 100_003)
+    want = None
+    for wpc in (16, 32, 64, 128):
+        if wpc > pim_exec.fit_words_per_cta(o["sched"].n_cells, wpc, planes):
+            continue
+        k = pim_exec.StaticKernel(o["sched"], o["in_widths"],
+                                  o["out_widths"], o["out_names"],
+                                  o["in_cells"], planes=planes,
+                                  words_per_cta=wpc)
+        if want is None:
+            want = _np(k(_t(vals)))
+        got = k(_t(vals).to(cuda))
+        torch.cuda.synchronize()
+        assert np.array_equal(_np(got), want), wpc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planes", [1, 2])
+@pytest.mark.parametrize("entry", ["slots", "static", "dense"])
+def test_bridges_take_ports_of_1_16_17_32_cells(cuda, entry, planes):
+    """The fused bridges shared by B1, B2 and B3 on ports of 1, 16, 17 and
+    32 cells, in and out, at a ragged row count."""
+    o = _operands("bridge-ports", "dense" if entry == "dense" else "slots")
+    assert sorted(o["in_widths"]) == [1, 16, 17, 32]
+    oc = _operands("bridge-ports", "dense" if entry == "dense" else "slots",
+                   cuda)
+    vals = _vals(o, np.random.default_rng(17), 4099)
+    kw = dict(in_widths=o["in_widths"], out_widths=o["out_widths"],
+              planes=planes, **o["kw"])
+    if entry == "static":
+        k = _static(o, planes)
+        want, got = k(_t(vals)), k(_t(vals).to(cuda))
+    elif entry == "slots":
+        want = slots.slots_fused(_t(vals), *o["args"], **kw)
+        got = pim_exec.slots_fused(_t(vals).to(cuda), *oc["args"], **kw)
+    else:
+        want = ref.pim_exec_ref_level_fused(_t(vals), *o["args"], **kw)
+        got = pim_exec.level_fused(_t(vals).to(cuda), *oc["args"], **kw)
+    torch.cuda.synchronize()
+    assert np.array_equal(_np(got), _np(want))
+    names = sorted(_bridge_ports().in_ports)
+    for p, n in enumerate(names):
+        q = o["out_names"].index("z" + n[1:])
+        width = o["in_widths"][p]
+        assert np.array_equal(_np(got)[q],
+                              ~vals[p] & np.uint32((1 << width) - 1))
 
 
 @pytest.mark.cuda

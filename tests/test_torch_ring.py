@@ -1,17 +1,19 @@
-"""The packed streams of the ring kernels (B3 ``csrc/level_gather.cu``, B4
-``csrc/gate_serial.cu``) and, on the card, the kernels that run them.
+"""The packed streams of the ring kernels (B1 ``csrc/slot_scan.cu``, B3
+``csrc/level_gather.cu``, B4 ``csrc/gate_serial.cu``) and, on the card,
+the kernels that run them.
 
-Everywhere: the window packer and the level packer on every
-``program_for`` family the port serves and on random programs; a plain
-PyTorch emulation of the kernels' loop (per tile, window by window: load
-every operand of the window, then store in order) run on the packed stream
-must give the state of ``ref.pim_exec_ref`` and the numpy oracle
-(``Program.exec_packed``), or the outputs of
-``ref.pim_exec_ref_level_fused``/``_io`` under both layouts; the uint16
+Everywhere: the window packer, the level packer and the slot packer on
+every ``program_for`` family the port serves and on random programs; a
+plain PyTorch emulation of the kernels' loop (per tile, window by window:
+load every operand of the window, then store in order) run on the packed
+stream must give the state of ``ref.pim_exec_ref`` and the numpy oracle
+(``Program.exec_packed``), the outputs of
+``ref.pim_exec_ref_level_fused``/``_io`` under both layouts, or those of
+the JAX package's slot executors at slot widths 4, 6 and 8; the uint16
 limit; the CTA rule.  The ``cuda``-marked tests skip without a card.
 
-This file imports neither JAX nor the JAX package, so it runs on a machine
-with an NVIDIA GPU and no JAX:
+Only the slot packer's tests import the JAX package, inside the test, so
+this file runs on a machine with an NVIDIA GPU and no JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_ring.py
 """
@@ -169,7 +171,7 @@ def test_gate_windows_are_greedy_independent_runs(case):
 def test_gate_window_counts():
     """The window counts of the serial streams the port times (fp16 and
     fp32 add, fp32 mul) at windows of 8 and 4 gates; ``width`` is the
-    records a window takes, the kernels' body of 2, 4 or 8 gates."""
+    records a window takes, the kernels' body of 2, 4, 6 or 8 gates."""
     for fmt, op, want in (("fp16", "add", (1180, 1182)),
                           ("fp32", "add", (2323, 2327)),
                           ("fp32", "mul", (4957, 4965))):
@@ -184,7 +186,7 @@ def test_gate_window_counts():
     p = pim_exec.pack_gates(ops_, a, b, o, n_cells=n_cells, window=1)
     assert (p.n_windows, p.width) == (len(ops_), 2)
     assert [pim_exec.window_width(n) for n in range(9)] == \
-        [2, 2, 2, 4, 4, 8, 8, 8, 8]
+        [2, 2, 2, 4, 4, 6, 6, 8, 8]
 
 
 @pytest.mark.parametrize("case", CASES + ["fp32-mul", "hazards"],
@@ -339,7 +341,7 @@ def test_packed_levels_run_like_the_dense_schedule(case, planes):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("width,body", [(1, 2), (3, 4), (5, 8), (8, 8)])
+@pytest.mark.parametrize("width,body", [(1, 2), (3, 4), (5, 6), (8, 8)])
 def test_narrow_levels_repeat_their_last_lane(width, body):
     """A dense schedule narrower than the kernel's window body (a cuda plan
     may cap the dense width below 8) pads each level by repeating its last
@@ -369,6 +371,142 @@ def test_level_packer_refuses_levels_wider_than_a_window():
     wide = np.zeros((2, 9), np.int32)
     with pytest.raises(ValueError, match="1 to 8 lanes"):
         pim_exec.pack_levels(wide, wide, wide, n_cells=4)
+
+
+# --------------------------------------------------------------------------
+# B1: the slot packer
+# --------------------------------------------------------------------------
+
+def _slots(case, width):
+    """The slot schedule of ``case`` at slot width ``width``, as ``_dense``
+    gives the dense one."""
+    prog = _program(case) if case not in ("gate-free", "no-input") else \
+        {"gate-free": _gate_free, "no-input": _no_input}[case]()
+    plan = kplan.as_plan(backend=kplan.Backend("ref", slot_width=width),
+                         device="cpu")
+    s = ops.program_schedule(prog, plan)
+    in_names = sorted(prog.in_ports)
+    out_names = ops.output_names(s)
+    in_cells = ops._stacked_cells([s.pack_cells(n) for n in in_names])
+    out_cells = ops._stacked_cells([s.ports[n] for n in out_names])
+    return s, dict(
+        in_idx=in_cells, out_idx=out_cells,
+        in_widths=tuple(len(s.pack_cells(n)) for n in in_names),
+        out_widths=tuple(len(s.ports[n]) for n in out_names),
+        kw=dict(n_cells=s.n_cells, one_cell=s.one_cell,
+                in_base=ops._as_run(in_cells),
+                out_base=ops._as_run(out_cells)))
+
+
+def _oracle_values(s, d, vals):
+    """Per-row outputs of the numpy oracle (``LevelSchedule.exec_packed``)
+    on per-row input values."""
+    n_rows = vals.shape[1]
+    rows = _np(slots.pack_values(slots._pad_rows(_t(vals), 32),
+                                 d["in_widths"]))
+    st = np.zeros((s.n_cells, rows.shape[1]), np.uint32)
+    st[d["in_idx"]] = rows
+    if s.one_cell is not None:
+        st[s.one_cell] = np.uint32(0xFFFFFFFF)
+    s.exec_packed(st)
+    out = slots.unpack_values(_t(st[d["out_idx"]]), d["out_widths"])
+    return _np(out)[:, :n_rows]
+
+
+SLOT_CASES = ["fp-serial-add-fp16", "random-1", "gate-free", "no-input"]
+
+
+@pytest.mark.parametrize("planes", [1, 2])
+@pytest.mark.parametrize("width", [4, 6, 8])
+@pytest.mark.parametrize("case", SLOT_CASES)
+def test_packed_slots_run_like_the_slot_schedule(case, width, planes):
+    """One window a level of all its W lanes, lane k writing ``lo[l, 0] +
+    k``, run window by window (every operand, then the band) gives the
+    outputs of the JAX package's slot executors
+    (``kernels.slots.pim_exec_ref_slots_fused`` and ``_io``) and of the
+    numpy oracle, fused on ragged rows and io, under both layouts; a
+    level's band may overwrite the cells it reads."""
+    import jax.numpy as jnp
+    from repro.kernels import slots as rslots
+    name = {"fp-serial-add-fp16": ("fp-serial", "add", "fp16")}.get(case,
+                                                                    case)
+    s, d = _slots(name, width)
+    assert s.width == width or s.n_levels == 0
+    packed = pim_exec.pack_slots(s.a, s.b, s.out, n_cells=s.n_cells)
+    assert (packed.n_windows, packed.n_gates) == (s.n_levels,
+                                                  s.n_levels * s.width)
+    assert packed.width == (pim_exec.window_width(width) if s.n_levels
+                            else 2)
+    sched = tuple(jnp.asarray(np.asarray(x, np.int32))
+                  for x in (d["in_idx"], s.a, s.b, s.out, d["out_idx"]))
+    rng = np.random.default_rng(46)
+    if d["in_widths"]:
+        n_rows = 77
+        vals = _bits(rng, (len(d["in_widths"]), n_rows))
+        for p, w in enumerate(d["in_widths"]):
+            vals[p] &= np.uint32((1 << w) - 1)
+        got = _np(_run_packed_fused(
+            _t(vals), packed, torch.from_numpy(d["in_idx"]),
+            torch.from_numpy(d["out_idx"]), in_widths=d["in_widths"],
+            out_widths=d["out_widths"], planes=planes,
+            n_cells=s.n_cells, one_cell=s.one_cell))
+        padded = _np(slots._pad_rows(_t(vals), 32 * planes))
+        want = np.asarray(rslots.pim_exec_ref_slots_fused(
+            jnp.asarray(padded), *sched, in_widths=d["in_widths"],
+            out_widths=d["out_widths"], planes=planes, **d["kw"]))
+        assert np.array_equal(got, want[:, :n_rows])
+        assert np.array_equal(got, _oracle_values(s, d, vals))
+    k_in = len(d["in_idx"])
+    rows = _bits(rng, (k_in, 3) if planes == 1 else (planes, k_in, 3))
+    st = ref.assemble_state(_t(rows), torch.from_numpy(d["in_idx"]), 3,
+                            n_cells=s.n_cells, one_cell=s.one_cell)
+    got = _np(_run_packed(st, packed).index_select(
+        -2, torch.from_numpy(d["out_idx"]).long()))
+    want = np.asarray(rslots.pim_exec_ref_slots_io(
+        jnp.asarray(rows), *sched, k_out=len(d["out_idx"]), **d["kw"]))
+    assert np.array_equal(got, want)
+    if planes == 1:
+        oracle = np.zeros((s.n_cells, 3), np.uint32)
+        oracle[d["in_idx"]] = rows
+        if s.one_cell is not None:
+            oracle[s.one_cell] = np.uint32(0xFFFFFFFF)
+        s.exec_packed(oracle)
+        assert np.array_equal(got, oracle[d["out_idx"]])
+
+
+def test_slot_bands_may_overwrite_their_own_operands():
+    """A level whose band overwrites cells it reads (the slot schedules of
+    ``program_for`` happen to have none): the load-then-store window gives
+    the plain slot executor's result, which reads the whole level first."""
+    la = np.array([[4, 5, 6, 0], [1, 6, 7, 4], [5, 5, 2, 3]], np.int32)
+    lb = np.array([[7, 4, 1, 2], [5, 4, 3, 6], [6, 7, 4, 0]], np.int32)
+    lo = np.array([[4, 5, 6, 7], [4, 5, 6, 7], [6, 7, 8, 9]], np.int32)
+    in_idx, out_idx = np.arange(8, dtype=np.int32), np.arange(4, 10,
+                                                              dtype=np.int32)
+    rows = _bits(np.random.default_rng(47), (8, 5))
+    want = slots.slots_io(_t(rows), *(torch.from_numpy(x) for x in (
+        in_idx, la, lb, lo, out_idx)), n_cells=10, one_cell=None, k_out=6,
+        in_base=0, out_base=4)
+    packed = pim_exec.pack_slots(la, lb, lo, n_cells=10)
+    st = ref.assemble_state(_t(rows), torch.from_numpy(in_idx), 5,
+                            n_cells=10, one_cell=None)
+    got = _run_packed(st, packed)[4:10]
+    assert torch.equal(got, want)
+    naive = ref.assemble_state(_t(rows), torch.from_numpy(in_idx), 5,
+                               n_cells=10, one_cell=None)
+    for l in range(3):                     # lane by lane: not the level
+        for k in range(4):
+            naive[lo[l, k]] = ~(naive[la[l, k]] | naive[lb[l, k]])
+    assert not torch.equal(naive[4:10], want)
+
+
+def test_slot_packer_refuses_levels_wider_than_a_window():
+    wide = np.zeros((2, 9), np.int32)
+    with pytest.raises(ValueError, match="1 to 8 lanes"):
+        pim_exec.pack_slots(wide, wide, wide, n_cells=16)
+    with pytest.raises(ValueError, match="65536"):
+        pim_exec.pack_slots(wide[:, :6], wide[:, :6], wide[:, :6],
+                            n_cells=1 << 16)
 
 
 # --------------------------------------------------------------------------
@@ -498,19 +636,22 @@ def test_level_gather_ring_kernel_matches_plain_version(cuda, case, planes):
 
 @pytest.mark.cuda
 def test_main_paths_cache_their_streams(cuda):
-    """``schedule="dense"`` and ``levelized=False`` launch their ring
-    kernel from the stream cached at resolve time, bit-exact."""
+    """The slot and dense schedules and ``levelized=False`` launch their
+    ring kernel from the stream cached at resolve time, bit-exact."""
     rng = np.random.default_rng(45)
     a = rng.standard_normal(5000).astype(np.float32)
     b = rng.standard_normal(5000).astype(np.float32)
     pim_exec.reset_counts()
     assert np.array_equal(pim.fp_add(a, b, schedule="dense"), a + b)
+    assert np.array_equal(pim.fp_add(a, b), a + b)
     assert pim_exec.LAUNCHES["level_gather_fused"] == 1
+    assert pim_exec.LAUNCHES["slot_scan_fused"] == 1
     prog = program_for("fp-serial", "add", "fp16")
-    plan = kplan.as_plan(schedule="dense")
-    comp = ops.compiled(prog, plan)
-    comp.resolve(prog, plan, ("x", "y"))
-    assert "cuda" in comp.packed
+    for kind in ("dense", "slots"):
+        plan = kplan.as_plan(schedule=kind)
+        comp = ops.compiled(prog, plan)
+        r = comp.resolve(prog, plan, ("x", "y"))
+        assert r.packed is comp.packed[(kind, "cuda")]
     x, y = rng.integers(0, 1 << 16, (2, 777), dtype=np.uint64)
     prog = program_for("int-serial", "add", 16)
     out = ops.run_program(prog, {"x": x, "y": y}, 777, levelized=False)
