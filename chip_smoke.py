@@ -2,10 +2,12 @@
 
     python3 chip_smoke.py                  # full size: 64 Mi rows
     python3 chip_smoke.py --sweep          # also sweep B1's and B2's CTA
-                                           # width and the chunk size, and
-                                           # profile the main path
+                                           # width and the chunk size
     python3 chip_smoke.py --split-probe    # also build B2 whole and split
                                            # and compare them
+    python3 chip_smoke.py --turns DIR      # also run the main path in turns
+                                           # with the parent's package whose
+                                           # csrc is DIR, profiled
     python3 chip_smoke.py --probe [DIR]    # also print launch attributes and
                                            # time B1, B2 and B3 with no gates
                                            # (and the same of the parent's
@@ -34,9 +36,27 @@ Phases, each of which raises (exit code 1) on failure:
    the slot and dense schedules, rows32 and rows64; and
    ``ops.run_program(..., levelized=False)`` on fp32 add at 4 Mi rows (the
    gate-serial path carries the whole state through the host);
-5. time each kernel entry at one chunk of 1 Mi rows beside its plain
+5. the streaming pipeline: the main path's run profiled with
+   ``torch.profiler`` (H2D and D2H ms and GB/s through the pinned staging
+   buffers, the share of H2D time concurrent with a kernel, the device's
+   busy share), a run with 4 Mi-row chunks held against the 1 Mi-row
+   default, and the same profile of an fp32 div stream;
+6. ``ops.run_program_groups`` over eight mixed groups of 1 Mi rows, each
+   held against numpy and against ``ops.run_program`` alone;
+7. the main path with ``shards=torch.cuda.device_count()`` and
+   ``mesh=("cuda:0", "cuda:0")`` against the unsharded result;
+8. the packed reductions: ``pim.gemv`` fp16 4096x4096 and ``pim.dot`` fp32
+   at 4 Mi elements against the same adder tree on numpy, and
+   ``pim_linear_i8`` 1x4096x4096 against numpy's int64 matmul;
+9. ``pim.fuse`` of fp32 ``a*b + c`` at 4 Mi rows under the slot and dense
+   schedules against numpy, rounded per op;
+10. time each kernel entry at one chunk of 1 Mi rows beside its plain
    version, one PyTorch library call computing the same function, and its
    bound, with its launch attributes (CTAs an SM, registers, local bytes).
+
+Phases 4 to 9 each zero the launch counters just before a run and read
+them just after: the run's kernels must have launched and no plain
+version may have run.
 
 The line before the last is a JSON object with one record per kernel entry;
 the last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -400,11 +420,10 @@ def _plain_calls() -> dict:
     return {**kslots.CALLS, **kref.CALLS}
 
 
-def _main_run(label: str, key: str, fn, want) -> tuple:
-    """Run ``fn`` with the counters zeroed just before and read just
-    after; the result must equal ``want`` bit for bit, ``key``'s kernel
-    must have launched and no plain version may have run.  Returns
-    (launches, seconds)."""
+def _counted(label: str, keys, fn) -> tuple:
+    """Run ``fn`` with the launch counters zeroed just before and read just
+    after: every kernel entry of ``keys`` must have launched and no plain
+    version may have run.  Returns (result, launches, seconds)."""
     from repro_torch.kernels import pim_exec
     pim_exec.reset_counts()
     t0 = time.perf_counter()
@@ -412,16 +431,27 @@ def _main_run(label: str, key: str, fn, want) -> tuple:
     s = time.perf_counter() - t0
     launches = dict(pim_exec.LAUNCHES)
     plain = _plain_calls()
-    if got.dtype != want.dtype or got.shape != want.shape or \
-            not np.array_equal(got.view(np.uint8), want.view(np.uint8)):
+    if any(launches[k] < 1 for k in keys) or any(plain.values()):
+        raise AssertionError(f"{label} did not run its kernels {keys}: "
+                             f"launches {launches}, plain {plain}")
+    return got, {k: v for k, v in launches.items() if v}, s
+
+
+def _same_bits(got, want) -> bool:
+    got, want = np.atleast_1d(got), np.atleast_1d(want)
+    return got.dtype == want.dtype and got.shape == want.shape and \
+        np.array_equal(got.view(np.uint8), want.view(np.uint8))
+
+
+def _main_run(label: str, key: str, fn, want) -> tuple:
+    """Run ``fn`` under :func:`_counted`; the result must equal ``want``
+    bit for bit.  Returns (launches of ``key``, seconds)."""
+    got, ran, s = _counted(label, (key,), fn)
+    if not _same_bits(got, want):
         raise AssertionError(f"{label} differs from numpy")
-    if launches[key] < 1 or any(plain.values()):
-        raise AssertionError(f"{label} did not run its kernel: launches "
-                             f"{launches}, plain {plain}")
-    ran = {k: v for k, v in launches.items() if v}
     print(f"main {label}: bit-exact vs numpy; launches {ran}, plain calls "
           f"0; wall {s * 1e3:.3f} ms", flush=True)
-    return launches[key], s
+    return ran[key], s
 
 
 def main_path() -> dict:
@@ -476,7 +506,353 @@ def main_path() -> dict:
     label = f"run_program fp32 add levelized=False rows={SERIAL_ROWS}"
     launches["gate_serial"], walls[label] = _main_run(
         label, "gate_serial", serial, a32 + b32)
-    return {"launches": launches, "walls": walls}
+    return {"launches": launches, "walls": walls, "a": a, "b": b}
+
+
+# --------------------------------------------------------------------------
+# the scale layer, fusion and the packed reductions (phases 5 to 9)
+# --------------------------------------------------------------------------
+
+#: Chunk of the streaming check against the default chunk (phase 5).
+BIG_CHUNK_ROWS = 4 << 20
+#: B1's CTA width in the device-bound stream of phase 5: two columns a CTA
+#: make fp32 div's kernel (1.1 ms a chunk at the rule's 57) about 30 ms a
+#: chunk, longer than the host's work on a chunk, so chunk k+1's copy in
+#: is queued while chunk k's kernel runs.
+SLOW_WORDS_PER_CTA = 2
+#: Rows of each program group (phase 6), of the fp32 dot (phase 8) and of
+#: the fused expression (phase 9); the gemv's and int8 linear layer's
+#: shapes (phase 8): a 4096-wide linear layer, 16 Mi products each.
+GROUP_ROWS = 1 << 20
+DOT_ROWS = 4 << 20
+FUSED_ROWS = 4 << 20
+GEMV_SHAPE = (4096, 4096)
+LINEAR_SHAPE = (1, 4096, 4096)
+
+
+def _intervals(events) -> list:
+    """Merged [start, end) intervals (us) of trace events."""
+    out = []
+    for s, e in sorted((ev["ts"], ev["ts"] + ev["dur"]) for ev in events):
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return out
+
+
+def _overlap_us(events, merged) -> float:
+    """Time of ``events`` that runs while any interval of ``merged``
+    does."""
+    total = 0.0
+    for ev in events:
+        s, e = ev["ts"], ev["ts"] + ev["dur"]
+        for ms, me in merged:
+            total += max(0.0, min(e, me) - max(s, ms))
+    return total
+
+
+def device_timeline(fn) -> tuple:
+    """Run ``fn`` under ``torch.profiler`` and read the card's timeline
+    from its trace: kernels, host-to-device and device-to-host copies.
+    Returns (result, wall seconds, stats or None where the profiler saw no
+    device activity)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    path = Path("build") / "chip_smoke_trace.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text()).get("traceEvents", [])
+              if e.get("ph") == "X" and "dur" in e]
+    path.unlink()
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"]
+    h2d = [e for e in copies if "HtoD" in e.get("name", "")]
+    d2h = [e for e in copies if "DtoH" in e.get("name", "")]
+    device = kernels + copies + [e for e in events
+                                 if e.get("cat") == "gpu_memset"]
+    if not device:
+        return out, wall, None
+    busy = sum(e - s for s, e in _intervals(device))
+
+    def rate(evs):
+        us = sum(e["dur"] for e in evs)
+        nbytes = sum(e.get("args", {}).get("bytes", 0) for e in evs)
+        return us / 1e3, nbytes, (nbytes / us / 1e3 if us else 0.0)
+
+    stats = {"busy_ms": busy / 1e3, "busy_share": busy / 1e6 / wall,
+             "kernels": len(kernels),
+             "kernel_ms": sum(e["dur"] for e in kernels) / 1e3,
+             "h2d": rate(h2d), "d2h": rate(d2h), "h2d_count": len(h2d),
+             "h2d_overlap_share": (
+                 _overlap_us(h2d, _intervals(kernels)) /
+                 sum(e["dur"] for e in h2d) if h2d else 0.0)}
+    return out, wall, stats
+
+
+def timeline_line(label: str, wall: float, st, gpu: str) -> None:
+    if st is None:
+        print(f"profile {label}: {gpu}; wall {wall * 1e3:.3f} ms; the "
+              "profiler shows no device time (not measured)", flush=True)
+        return
+    (h_ms, h_b, h_gbs), (d_ms, d_b, d_gbs) = st["h2d"], st["d2h"]
+    print(f"profile {label}: {gpu}; wall {wall * 1e3:.3f} ms under the "
+          f"profiler; device busy {st['busy_ms']:.3f} ms = "
+          f"{st['busy_share']:.6f} of the wall; {st['kernels']} kernels "
+          f"{st['kernel_ms']:.3f} ms; H2D {st['h2d_count']} copies "
+          f"{h_ms:.3f} ms {h_b} B = {h_gbs:.3f} GB/s; D2H {d_ms:.3f} ms "
+          f"{d_b} B = {d_gbs:.3f} GB/s; H2D time concurrent with a kernel "
+          f"{st['h2d_overlap_share']:.6f}", flush=True)
+
+
+def streaming_phase(a, b, gpu: str, kw=None) -> np.ndarray:
+    """Phase 5: the main path's run on the pipeline, profiled (pinned
+    copies, the share of H2D time under a kernel, the device's busy
+    share), a run with chunks of :data:`BIG_CHUNK_ROWS` held against the
+    default chunk, and the same profile of an fp32 div stream (uniform
+    magnitudes in [1, 2)) at B1's CTA rule and at
+    :data:`SLOW_WORDS_PER_CTA` columns a CTA, where each chunk's kernel
+    outlasts the host's work on the next chunk and the copies can
+    overlap the kernels.  Returns the default run's result."""
+    from repro_torch import pim_ufunc as pim
+    kw = kw or {}
+    default = pim.fp_add(a, b, **kw)
+    big, ran, s = _counted(
+        f"fp_add chunk_rows={BIG_CHUNK_ROWS}", ("slot_scan_fused",),
+        lambda: pim.fp_add(a, b, chunk_rows=BIG_CHUNK_ROWS, **kw))
+    if not (_same_bits(big, default) and _same_bits(default, a + b)):
+        raise AssertionError("fp_add with 4 Mi-row chunks != 1 Mi-row chunks")
+    print(f"stream fp_add fp32 rows={len(a)} chunk_rows={BIG_CHUNK_ROWS}: "
+          f"bit-exact vs chunk_rows={pim.config.chunk_rows} and numpy; "
+          f"launches {ran}; wall {s * 1e3:.3f} ms", flush=True)
+    if not torch.cuda.is_available():
+        return default
+    t0 = time.perf_counter()
+    prep = pim.prepare("fp_add", a, b, **kw)
+    prepare_ms = (time.perf_counter() - t0) * 1e3
+    got, wall, st = device_timeline(prep.run)
+    if not _same_bits(got, a + b):
+        raise AssertionError("profiled fp_add differs from numpy")
+    timeline_line(f"main path fp_add fp32 rows={len(a)} (prepare "
+                  f"{prepare_ms:.3f} ms, then the run phase)", wall, st, gpu)
+    from repro_torch.kernels import plan as kplan
+    rng = np.random.default_rng(SEED + 6)
+    n = 16 << 20
+    x = uniform_signed(rng, n, np.float32)
+    y = uniform_signed(rng, n, np.float32)
+    slow = kplan.as_plan(backend=dataclasses.replace(
+        kplan.BACKENDS["cuda"], words_per_cta=SLOW_WORDS_PER_CTA))
+    for label, opts in (("", kw),
+                        (f" words_per_cta={SLOW_WORDS_PER_CTA}",
+                         {"plan": slow})):
+        prep = pim.prepare("fp_div", x, y, **opts)
+        prep.warm()
+        got, wall, st = device_timeline(prep.run)
+        if not _same_bits(got, x / y):
+            raise AssertionError(f"profiled fp_div{label} differs from "
+                                 "numpy")
+        timeline_line(f"stream fp_div fp32 rows={n}{label} (run phase)",
+                      wall, st, gpu)
+    return default
+
+
+def uniform_signed(rng, n, dtype) -> np.ndarray:
+    """Magnitudes in [1, 2) with random signs: every product and partial
+    sum of such operands is 0 or a normal number in fp16, bf16 and fp32
+    (the suite excludes subnormals)."""
+    v = rng.uniform(1.0, 2.0, n) * rng.choice([-1.0, 1.0], n)
+    return v.astype(dtype)
+
+
+def _bf16(v: np.ndarray) -> np.ndarray:
+    """float32 values rounded to bf16 bit patterns (RNE; no NaN here)."""
+    u = v.astype(np.float32).view(np.uint32).astype(np.uint64)
+    return ((u + 0x7FFF + ((u >> 16) & 1)) >> 16).astype(np.uint64)
+
+
+def _from_bf16(bits: np.ndarray) -> np.ndarray:
+    return (np.asarray(bits, np.uint64).astype(np.uint32) << 16).view(
+        np.float32)
+
+
+def groups_phase(kw=None, rows: int = GROUP_ROWS) -> dict:
+    """Phase 6: ``ops.run_program_groups`` over eight mixed groups of
+    ``rows`` rows, each held against numpy and against the same group run
+    alone through ``ops.run_program``.  Returns the launches."""
+    from repro_torch import pim_ufunc as pim
+    from repro_torch.kernels import ops
+    kw = kw or {}
+    rng = np.random.default_rng(SEED + 7)
+    f16 = [uniform_signed(rng, rows, np.float16) for _ in range(2)]
+    f32 = [uniform_signed(rng, rows, np.float32) for _ in range(4)]
+    bf = [_bf16(uniform_signed(rng, rows, np.float32)) for _ in range(2)]
+
+    def ints(bits):
+        return [rng.integers(0, 1 << bits, rows, dtype=np.uint64).astype(
+            np.dtype(f"uint{bits}")) for _ in range(2)]
+    u16a, u32, u8, u16s = ints(16), ints(32), ints(8), ints(16)
+    bf_want = _bf16(_from_bf16(bf[0]) + _from_bf16(bf[1]))
+    cases = [
+        ("fp16 add", pim.prepare("fp_add", *f16, **kw), f16[0] + f16[1]),
+        ("fp32 mul", pim.prepare("fp_mul", *f32[:2], **kw),
+         f32[0] * f32[1]),
+        ("fp32 div", pim.prepare("fp_div", *f32[2:], **kw),
+         f32[2] / f32[3]),
+        ("uint16 add", pim.prepare("add", *u16a, **kw),
+         u16a[0].astype(np.uint64) + u16a[1]),
+        ("uint32 add (io)", pim.prepare("add", *u32, **kw),
+         u32[0].astype(np.uint64) + u32[1]),
+        ("uint8 mul", pim.prepare("mul", *u8, **kw),
+         u8[0].astype(np.uint64) * u8[1]),
+        ("uint16 sub", pim.prepare("sub", *u16s, **kw),
+         (u16s[0].astype(np.uint64) - u16s[1]) & np.uint64(0xFFFF)),
+        ("bf16 add", pim.prepare("fp_add", *bf, fmt="bf16", **kw), bf_want),
+    ]
+    for _, p, _ in cases:
+        p.warm()
+    groups = [dict(program=p.program, inputs=p.inputs, n_rows=p.n_rows,
+                   plan=p.plan) for _, p, _ in cases]
+    keys = ("slot_scan_fused", "slot_scan_io")
+    outs, ran, s = _counted("run_program_groups", keys,
+                            lambda: ops.run_program_groups(groups))
+    for (label, p, want), out in zip(cases, outs):
+        alone = ops.run_program(p.program, p.inputs, p.n_rows, p.plan)
+        if not (_same_bits(p.finish(out), want) and
+                all(np.array_equal(out[k], alone[k]) for k in alone)):
+            raise AssertionError(f"group {label} differs")
+    print(f"groups: {len(cases)} groups of {rows} rows "
+          f"({', '.join(c[0] for c in cases)}): each bit-exact vs numpy and "
+          f"vs run_program alone; launches {ran}; wall {s * 1e3:.3f} ms",
+          flush=True)
+    return ran
+
+
+def sharding_phase(a, b, want, kw=None, mesh=("cuda:0", "cuda:0")
+                   ) -> dict:
+    """Phase 7: fp32 ``fp_add`` over the main path's rows with
+    ``shards=torch.cuda.device_count()`` and with ``mesh`` (two shards on
+    the one card by default), against ``want``, the unsharded result."""
+    from repro_torch import pim_ufunc as pim
+    kw = kw or {}
+    n_dev = torch.cuda.device_count()
+    ran = {}
+    for label, opts in ((f"shards={n_dev}", {"shards": n_dev}),
+                        (f"mesh={mesh}", {"mesh": mesh})):
+        got, ran[label], s = _counted(f"fp_add {label}",
+                                      ("slot_scan_fused",),
+                                      lambda: pim.fp_add(a, b, **opts, **kw))
+        if not _same_bits(got, want):
+            raise AssertionError(f"fp_add {label} != unsharded")
+        print(f"shard fp_add fp32 rows={len(a)} {label} ({n_dev} CUDA "
+              f"devices): bit-exact vs unsharded; launches {ran[label]}; "
+              f"wall {s * 1e3:.3f} ms", flush=True)
+    return ran
+
+
+def _host_tree(p: np.ndarray) -> np.ndarray:
+    """The in-memory adder tree's pairing on the host, along the last axis
+    (a power of two): rows [0, R/2) plus rows [R/2, R), in ``p``'s
+    dtype, rounded per add."""
+    while p.shape[-1] > 1:
+        h = p.shape[-1] // 2
+        p = (p[..., :h] + p[..., h:]).astype(p.dtype)
+    return p[..., 0]
+
+
+def reductions_phase(gpu: str, kw=None, gemv_shape=GEMV_SHAPE,
+                     linear_shape=LINEAR_SHAPE, dot_rows=DOT_ROWS) -> dict:
+    """Phase 8: ``pim.gemv`` fp16, ``pim_linear_i8`` and ``pim.dot`` fp32,
+    each held against its host reference (the same tree on numpy, or
+    numpy's int64 matmul), with its wall, launches (1 + log2 K on one
+    card) and device-busy share."""
+    from repro_torch import pim_ufunc as pim
+    from repro_torch.core import pim_numerics as pn
+    kw = kw or {}
+    rng = np.random.default_rng(SEED + 9)
+    on_card = torch.cuda.is_available()
+    ran = {}
+
+    def run(label, fn, key):
+        def counted():
+            return _counted(label, (key,), fn)
+        if on_card:
+            (got, launches, s), wall, st = device_timeline(counted)
+        else:
+            (got, launches, s), st = counted(), None
+        ran[label] = launches
+        busy = "not measured" if st is None else \
+            f"{st['busy_share']:.6f} (busy {st['busy_ms']:.3f} ms)"
+        return got, (f"launches {launches}; wall {s * 1e3:.3f} ms; device "
+                     f"busy share {busy}")
+
+    m, k = gemv_shape
+    a = uniform_signed(rng, m * k, np.float16).reshape(m, k)
+    x = uniform_signed(rng, k, np.float16)
+    got, info = run(f"gemv fp16 {m}x{k}", lambda: pim.gemv(a, x, **kw),
+                    "slot_scan_io")
+    prods = np.zeros((m, 1 << (k - 1).bit_length()), np.float16)
+    prods[:, :k] = a * x
+    want = _host_tree(prods)
+    if not _same_bits(got, want):
+        raise AssertionError("gemv fp16 != host tree")
+    print(f"reduce gemv fp16 {m}x{k}: {gpu}; bit-exact vs the numpy host "
+          f"tree; {info}", flush=True)
+
+    bm, bk, bn = linear_shape
+    xi = rng.integers(-128, 128, (bm, bk)).astype(np.int8)
+    wi = rng.integers(-128, 128, (bk, bn)).astype(np.int8)
+    unit = pn.PIMVectorUnit(kw.get("backend", "cuda"),
+                            device=kw.get("device"))
+    got, info = run(f"pim_linear_i8 {bm}x{bk}x{bn}",
+                    lambda: pn.pim_linear_i8(unit, xi, wi), "slot_scan_io")
+    if not np.array_equal(got, xi.astype(np.int64) @ wi.astype(np.int64)):
+        raise AssertionError("pim_linear_i8 != numpy int64 matmul")
+    print(f"reduce pim_linear_i8 x[{bm},{bk}] @ w[{bk},{bn}]: {gpu}; "
+          f"bit-exact vs numpy int64 matmul; {info}", flush=True)
+
+    u = uniform_signed(rng, dot_rows, np.float32)
+    v = uniform_signed(rng, dot_rows, np.float32)
+    got, info = run(f"dot fp32 {dot_rows}", lambda: pim.dot(u, v, **kw),
+                    "slot_scan_io")
+    total = 1 << (dot_rows - 1).bit_length()
+    prods = np.zeros(total, np.float32)
+    prods[:dot_rows] = u * v
+    if not _same_bits(got, _host_tree(prods)):
+        raise AssertionError("dot fp32 != host tree")
+    print(f"reduce dot fp32 rows={dot_rows}: {gpu}; bit-exact vs the numpy "
+          f"host tree; {info}", flush=True)
+    return ran
+
+
+def fused_phase(gpu: str, kw=None, rows: int = FUSED_ROWS) -> dict:
+    """Phase 9: ``pim.fuse`` of fp32 ``a*b + c`` under the slot and dense
+    schedules, against numpy's ``(a*b)+c`` rounded per op."""
+    from repro_torch import pim_ufunc as pim
+    kw = kw or {}
+    rng = np.random.default_rng(SEED + 10)
+    a, b, c = (uniform_signed(rng, rows, np.float32) for _ in range(3))
+    want = (a * b).astype(np.float32) + c
+    ran = {}
+    for schedule, key in (("slots", "slot_scan_fused"),
+                          ("dense", "level_gather_fused")):
+        e = pim.fp_add(pim.fp_mul(pim.lazy(a), pim.lazy(b)), pim.lazy(c))
+        prep = pim.fuse(e, schedule=schedule, **kw)
+        prep.warm()
+        got, ran[schedule], s = _counted(f"fuse {schedule}", (key,),
+                                         prep.run)
+        if not _same_bits(got, want):
+            raise AssertionError(f"fused a*b+c ({schedule}) != numpy")
+        print(f"fuse fp32 a*b+c rows={rows} schedule={schedule}: {gpu}; "
+              f"bit-exact vs numpy per op; one program of "
+              f"{prep.fused_ops} ops; launches {ran[schedule]}; wall "
+              f"{s * 1e3:.3f} ms", flush=True)
+    return ran
+
 
 
 def bound(entry: str, s, n_rows: int, fused, lop_rate: float,
@@ -664,7 +1040,7 @@ def pre_ring_shape(entry: str, pkg, slot, dense, serial_cells: int, static
     return ring(serial_cells, px.ring_words_per_cta(serial_cells))
 
 
-#: Phase 5: (entry, program, fused, planes) timed at one chunk.
+#: Phase 10: (entry, program, fused, planes) timed at one chunk.
 TIMED = [
     ("slot_scan", "fp32 add", True, 1),
     ("slot_scan", "uint32 add", False, 1),
@@ -682,7 +1058,7 @@ TIMED = [
 
 def measure(progs, statics, chunk_rows: int, launches: dict, worst: dict,
             gpu: str) -> list:
-    """Phase 5: device times at the main path's shape (one chunk)."""
+    """Phase 10: device times at the main path's shape (one chunk)."""
     from repro_torch.kernels import pim_exec, ref as kref
     rng = np.random.default_rng(SEED)
     sm_clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
@@ -757,9 +1133,8 @@ def measure(progs, statics, chunk_rows: int, launches: dict, worst: dict,
 def sweep(gpu: str) -> None:
     """The CTA width of B1 (``pim_exec.ring_words_per_cta``) and of B2
     (``pim_exec.static_words_per_cta``, each width its own build, all built
-    together) at one chunk, then the fp32 add kernel per chunk size, the
-    end-to-end fp_add run phase per chunk size, and where the main path's
-    time goes."""
+    together) at one chunk, then the fp32 add kernel per chunk size and
+    the end-to-end fp_add run phase per chunk size."""
     from repro_torch import pim_ufunc as pim
     from repro_torch.core.pim_numerics import program_for
     from repro_torch.kernels import pim_exec
@@ -830,7 +1205,6 @@ def sweep(gpu: str) -> None:
             print(f"sweep chunk_rows={c} run {rep}: {gpu}; fp_add fp32 "
                   f"{MAIN_ROWS} rows run {s * 1e3:.3f} ms = "
                   f"{MAIN_ROWS / s:.6e} rows/s", flush=True)
-    profile_main(a, b, gpu)
 
 
 def ring_widths(n_cells: int, planes: int) -> list:
@@ -859,7 +1233,30 @@ def parent_package(csrc):
     return SimpleNamespace(
         pim_exec=importlib.import_module(f"{alias}.kernels.pim_exec"),
         ops=importlib.import_module(f"{alias}.kernels.ops"),
-        plan=importlib.import_module(f"{alias}.kernels.plan"))
+        plan=importlib.import_module(f"{alias}.kernels.plan"),
+        pim_ufunc=importlib.import_module(f"{alias}.pim_ufunc"))
+
+
+def turns(a, b, gpu: str, parent) -> None:
+    """The main path's run in turns with the parent's package whose
+    ``csrc`` is ``parent`` (parent, this tree, this tree, parent), each
+    held bit-exact against numpy: the host's ``prepare`` and, under
+    ``torch.profiler``, the run phase with its copies and the device's
+    busy share."""
+    from repro_torch import pim_ufunc as pim
+    trees = {"this tree": pim, "parent": parent_package(parent).pim_ufunc}
+    trees["parent"].prepare("fp_add", a[:1], b[:1]).warm()
+    for rep, tree in enumerate(("parent", "this tree", "this tree",
+                                "parent")):
+        t0 = time.perf_counter()
+        prep = trees[tree].prepare("fp_add", a, b)
+        prepare_ms = (time.perf_counter() - t0) * 1e3
+        got, wall, st = device_timeline(prep.run)
+        if not _same_bits(got, a + b):
+            raise AssertionError(f"turns: {tree} fp_add differs from numpy")
+        timeline_line(f"turns {tree} run {rep}: fp_add fp32 rows={len(a)} "
+                      f"(prepare {prepare_ms:.3f} ms, then the run phase)",
+                      wall, st, gpu)
 
 
 def probe_runs(progs, pkg) -> dict:
@@ -1051,40 +1448,6 @@ def probe(progs, statics, gpu: str, parent) -> None:
                   "ms/launch", flush=True)
 
 
-def profile_main(a, b, gpu: str) -> None:
-    """Where the main path's time goes: host validation (``prepare``)
-    against execution (``run``), and the device's busy time by kernel
-    from ``torch.profiler`` over the same call."""
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch import pim_ufunc as pim
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        prep = pim.prepare("fp_add", a, b)
-        t1 = time.perf_counter()
-        prep.run()
-        t2 = time.perf_counter()
-    # device-side activities only (kernels, copies): the CPU ops that
-    # launched them carry the same device time again
-    dev = {e.key: e.self_device_time_total / 1e3
-           for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA
-           and e.self_device_time_total > 0}
-    wall = (t2 - t0) * 1e3
-    print(f"profile fp_add fp32 {len(a)} rows: {gpu}; wall {wall:.3f} ms "
-          f"(prepare {(t1 - t0) * 1e3:.3f} ms, run {(t2 - t1) * 1e3:.3f} "
-          f"ms, under the profiler)", flush=True)
-    if not dev:
-        print("profile: the profiler shows no device time (not measured)",
-              flush=True)
-        return
-    busy = sum(dev.values())
-    print(f"profile: device busy {busy:.3f} ms = {busy / wall:.6f} of the "
-          f"wall, idle {1 - busy / wall:.6f}", flush=True)
-    for name, ms in sorted(dev.items(), key=lambda kv: -kv[1])[:6]:
-        print(f"profile device: {ms:.3f} ms {name[:90]}", flush=True)
-
-
 def split_probe(progs, gpu: str) -> None:
     """B2 as it is built (the schedule in one device function) against B2
     split into ``__noinline__`` functions of ``SLOT_SEG_LEVELS`` levels, on
@@ -1140,10 +1503,13 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sweep", action="store_true",
                     help="also sweep B1's and B2's words_per_cta and "
-                    "chunk_rows and profile the main path")
+                    "chunk_rows")
     ap.add_argument("--split-probe", action="store_true",
                     help="also build B2 whole and split on three programs "
                     "and compare build seconds, ptxas reports and times")
+    ap.add_argument("--turns", metavar="PARENT_CSRC",
+                    help="also run the main path in turns with the parent's "
+                    "package whose csrc is PARENT_CSRC, profiled")
     ap.add_argument("--probe", nargs="?", const="", default=None,
                     metavar="PARENT_CSRC",
                     help="also print the launch attributes of B1 to B4 and "
@@ -1187,8 +1553,15 @@ def main() -> None:
 
     worst = check_kernels(progs, statics)
     main = main_path()
+    unsharded = streaming_phase(main["a"], main["b"], gpu)
+    groups_phase()
+    sharding_phase(main["a"], main["b"], unsharded)
+    reductions_phase(gpu)
+    fused_phase(gpu)
     kernels = measure(progs, statics, chunk_rows, main["launches"], worst,
                       gpu)
+    if args.turns:
+        turns(main["a"], main["b"], gpu, args.turns)
     if args.probe is not None:
         probe(progs, statics, gpu, args.probe)
     if args.sweep:

@@ -23,8 +23,18 @@ The dispatch rules are the reference's (``repro.kernels.ops``), with
 * ``run_program(levelized=False)`` runs the gate-serial executor (B4) over
   the whole state, packed and unpacked on the host (rows32 only).
 
+The scale layer: :func:`run_program_streaming` tiles rows into chunks,
+:func:`run_program_groups` pipelines chunks of several programs, and a
+plan's mesh (:func:`row_mesh`) splits each dispatch's word axis over
+devices.  Operands and results cross to a CUDA device through pinned
+staging buffers on copy streams of their own (``kernels.transfer``), so
+that the host fills chunk k+1 while chunk k runs.
+:func:`dispatch_packed` keeps a dispatch in the packed word domain (the
+stages of the reduction trees in ``core.pim_numerics``, whose blocks stay
+on the device between levels).
+
 The ``cuda`` backend runs the kernels (``kernels.pim_exec``), ``ref`` their
-plain versions (``kernels.slots``, ``kernels.ref``) on the plan's device,
+plain versions (``kernels.slots``, ``kernels.ref``) on the plan's devices,
 ``numpy`` the gate-serial oracle (``Program.exec_packed``).
 """
 
@@ -33,17 +43,20 @@ from __future__ import annotations
 import collections
 import dataclasses
 import hashlib
+import time
 import weakref
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..core.gates import LevelSchedule, levelize
 from ..runtime import telemetry
+from ..runtime.faults import DeadlineExceeded
 from . import pim_exec
 from . import ref as kref
 from . import slots as kslots
+from . import transfer
 from .plan import DEFAULT_PLAN, ROWS32, ExecPlan, WordLayout, as_plan
 
 _FULL = np.uint32(0xFFFFFFFF)
@@ -312,17 +325,16 @@ def _alloc_of(kind: str) -> str:
     return "dense" if kind == "dense" else "slots"
 
 
-def _device_of(plan: ExecPlan) -> str:
-    """The plan's torch device as a string; raises when it names a CUDA
-    device and there is none (the port never drops to the CPU)."""
-    device = str(torch.device(plan.device))
+def _checked_device(device) -> str:
+    """``device`` as a string; raises when it names a CUDA device and
+    there is none (the port never drops to the CPU)."""
     if torch.device(device).type == "cuda" and \
             not torch.cuda.is_available():
         raise RuntimeError(
-            f"no CUDA device for device={plan.device!r}; pass "
+            f"no CUDA device for device={device!r}; pass "
             "device='cpu', backend='ref' to run the plain version on "
             "the CPU")
-    return device
+    return str(torch.device(device))
 
 
 @dataclasses.dataclass
@@ -464,13 +476,14 @@ class _Compiled:
                                 _as_run(cells))
         return self.in_idx[key]
 
-    def resolve(self, program, plan: ExecPlan, in_names: tuple) -> _Resolved:
-        """Bind ``plan`` to this program for one input-name set: pick the
-        effective schedule (the dense fallback for slot layouts the slot
-        executors cannot take), copy the operands to the plan's device,
-        freeze the static widths and, on cuda, pack the schedule's stream.
-        Memoized."""
-        device = _device_of(plan)
+    def resolve(self, program, plan: ExecPlan, in_names: tuple,
+                device: Optional[str] = None) -> _Resolved:
+        """Bind ``plan`` to this program for one input-name set on
+        ``device`` (default the plan's): pick the effective schedule (the
+        dense fallback for slot layouts the slot executors cannot take),
+        copy the operands to the device, freeze the static widths and, on
+        cuda, pack the schedule's stream.  Memoized."""
+        device = _checked_device(plan.device if device is None else device)
         planes = plan.layout.planes
         memo_key = (plan.schedule, plan.backend.name,
                     plan.backend.words_per_cta, planes, device, in_names)
@@ -647,16 +660,25 @@ def _sub_to_rows32(sub: np.ndarray) -> np.ndarray:
 
 def pack_rows(values: Dict[str, np.ndarray], ports, n_rows: int,
               n_cells: int, one_cell: Optional[int] = None,
-              pad_to: int = 1, layout: WordLayout = ROWS32) -> np.ndarray:
+              pad_to: int = 1, layout: WordLayout = ROWS32,
+              out: Optional[np.ndarray] = None) -> np.ndarray:
     """Pack per-row port integers into column-major word state:
     uint32[n_cells, n_words] under rows32 (bit w of state[c, i] = cell c
     of row 32*i + w), planes-leading uint32[planes, n_cells, n_words]
     under rows64.  ``ports`` is a name -> cell-list mapping (or any object
     with a ``.ports`` attribute); ``one_cell``, when given, is filled with
-    ones (the schedule's folded INIT1 constant)."""
+    ones (the schedule's folded INIT1 constant).  ``out``, when given, is
+    the state array to fill (a staging buffer of that shape)."""
     ports = _ports_of(ports)
     n_words = layout.n_words(n_rows, pad_to)
-    state = np.zeros(layout.state_shape(n_cells, n_words), np.uint32)
+    shape = layout.state_shape(n_cells, n_words)
+    if out is None:
+        state = np.zeros(shape, np.uint32)
+    elif out.shape != shape:
+        raise ValueError(f"out is {out.shape}, the state is {shape}")
+    else:
+        state = out
+        state[...] = 0
     if one_cell is not None:
         state[..., one_cell, :] = _FULL
     for name, vals in values.items():
@@ -717,99 +739,234 @@ def _unpack_sub(sub: np.ndarray, name_widths, n_rows: int
     return out
 
 
-def _to_device(a: np.ndarray, device: str) -> torch.Tensor:
-    """uint32 host array -> int32 bit patterns on ``device``."""
-    return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(device)
 
 
-def _to_host(t: torch.Tensor) -> np.ndarray:
-    """int32 bit patterns (any device) -> uint32 host array."""
-    return t.cpu().numpy().view(np.uint32)
+# --------------------------------------------------------------------------
+# row sharding and deadlines
+# --------------------------------------------------------------------------
+#
+# Every executor is elementwise along the packed word axis, so a dispatch
+# splits that axis into contiguous blocks of whole words, one a shard, and
+# runs each block on its shard's device with that device's operands and
+# packed stream; the shards' outputs are concatenated at finalize.  No
+# collective runs.  The word count is padded to a multiple of the shard
+# count; under rows64 a word holds both planes, so the planes stay
+# together.
+
+def row_mesh(n_devices: Optional[int] = None) -> Optional[tuple]:
+    """The CUDA devices ``cuda:0 .. cuda:n-1`` of this machine (all of
+    them, or the first ``n_devices``) as a row mesh, or ``None`` when that
+    is one device or none (the unsharded path).  It never names a device
+    twice; an explicit ``mesh=`` may, one shard per entry."""
+    n = torch.cuda.device_count()
+    if n_devices is not None:
+        n = min(int(n_devices), n)
+    if n <= 1:
+        return None
+    return tuple(f"cuda:{i}" for i in range(n))
+
+
+def _check_deadline(deadline: Optional[float]) -> None:
+    """Raise :class:`DeadlineExceeded` when the absolute ``time.monotonic``
+    deadline has passed (checked at dispatch and between chunks)."""
+    if deadline is not None and time.monotonic() > deadline:
+        raise DeadlineExceeded("deadline exceeded between chunks")
+
+
+def _fit_packed(block, n_words: int):
+    """Fit a pre-packed word block (numpy, or a tensor kept on the device
+    between packed stages) to the dispatch's padded word count: zero-pad
+    the trailing word axis (pad rows are all-zero by the packing contract)
+    or reject a block wider than the padded shape."""
+    have = block.shape[-1]
+    if have == n_words:
+        return block
+    if have > n_words:
+        raise ValueError(
+            f"packed input has {have} words, dispatch shape allows "
+            f"{n_words}")
+    if isinstance(block, torch.Tensor):
+        return torch.nn.functional.pad(block, (0, n_words - have))
+    pad = np.zeros(block.shape[:-1] + (n_words - have,), np.uint32)
+    return np.concatenate([block, pad], axis=-1)
 
 
 # --------------------------------------------------------------------------
 # execution
 # --------------------------------------------------------------------------
 
-def _dispatch_levelized(program, inputs: Dict[str, np.ndarray], n_rows: int,
-                        plan: ExecPlan):
-    """Pack ``inputs`` and launch one levelized execution under ``plan``;
-    returns a zero-arg ``finalize`` that waits for the device result and
-    unpacks it.  The launch is asynchronous, so a caller can pack its next
-    chunk on the host while this one runs."""
-    comp = compiled(program, plan)
-    in_names = sorted(inputs)
-    r = comp.resolve(program, plan, tuple(in_names))
-    telemetry.record_dispatch(n_rows, r.model)
-    device = str(torch.device(plan.device))
-    layout = plan.layout
+def _run_fused(comp, program, plan: ExecPlan, r: _Resolved, in_names,
+               x: torch.Tensor) -> torch.Tensor:
+    """One fused launch on ``x`` (int32[n_in_ports, n_rows] on the
+    shard's device): the executor the resolved binding names."""
     on_cuda = plan.backend.name == "cuda"
-    dense = r.kind == "dense"
+    sched_args = (r.in_idx, r.la, r.lb, r.lo, r.out_idx)
+    kw = dict(n_cells=r.sched.n_cells, one_cell=r.one_cell,
+              words_per_cta=r.words_per_cta, in_widths=r.in_widths,
+              out_widths=r.out_widths, planes=plan.layout.planes)
+    if r.use_static and not on_cuda:
+        return comp.get_static_chain(program, plan, in_names, True,
+                                     r.in_widths, r.out_widths)(x)
+    if r.use_static and r.in_base == 0:
+        return comp.get_static(program, plan, in_names, r.in_widths,
+                               r.out_widths)(x)
+    if r.kind != "dense":
+        run = pim_exec.slots_fused if on_cuda else kslots.slots_fused
+        if on_cuda:
+            kw["packed"] = r.packed
+        return run(x, *sched_args, in_base=r.in_base, out_base=r.out_base,
+                   **kw)
+    if on_cuda:
+        return pim_exec.level_fused(x, *sched_args, packed=r.packed, **kw)
+    return kref.pim_exec_ref_level_fused(x, *sched_args, **kw)
+
+
+def _run_io(comp, program, plan: ExecPlan, r: _Resolved, in_names,
+            x: torch.Tensor) -> torch.Tensor:
+    """One io launch on packed port rows ``x`` (int32[k_in, n_words],
+    planes-leading under rows64, on the shard's device)."""
+    on_cuda = plan.backend.name == "cuda"
     sched_args = (r.in_idx, r.la, r.lb, r.lo, r.out_idx)
     common = dict(n_cells=r.sched.n_cells, one_cell=r.one_cell,
                   words_per_cta=r.words_per_cta)
-    vals = [np.asarray(inputs[n]) for n in in_names]
-    if r.fused_ok and all(v.dtype != object for v in vals):
-        in_vals = np.empty((len(vals), n_rows), np.uint32)
-        for p, v in enumerate(vals):
-            in_vals[p] = v                     # same-kind cast in place
-        x = _to_device(in_vals, device)
-        widths = dict(in_widths=r.in_widths, out_widths=r.out_widths)
-        if r.use_static and not on_cuda:
-            outs = comp.get_static_chain(program, plan, in_names, True,
-                                         r.in_widths, r.out_widths)(x)
-        elif r.use_static and r.in_base == 0:
-            outs = comp.get_static(program, plan, in_names, r.in_widths,
-                                   r.out_widths)(x)
-        elif not dense and on_cuda:
-            outs = pim_exec.slots_fused(
-                x, *sched_args, in_base=r.in_base, out_base=r.out_base,
-                planes=layout.planes, packed=r.packed, **widths, **common)
-        elif not dense:
-            outs = kslots.slots_fused(
-                x, *sched_args, in_base=r.in_base, out_base=r.out_base,
-                planes=layout.planes, **widths, **common)
-        elif on_cuda:
-            outs = pim_exec.level_fused(x, *sched_args, planes=layout.planes,
-                                        packed=r.packed, **widths, **common)
-        else:
-            outs = kref.pim_exec_ref_level_fused(
-                x, *sched_args, planes=layout.planes, **widths, **common)
-
-        def finalize() -> Dict[str, np.ndarray]:
-            o = _to_host(outs)                 # waits for the device
-            return {n: o[p].astype(np.uint64) for p, n in enumerate(r.names)}
-        return finalize
-    n_words = layout.n_words(n_rows)
-    if in_names:
-        in_rows = np.concatenate(
-            [_pack_port_words(inputs[n], len(r.sched.pack_cells(n)), n_words,
-                              layout) for n in in_names], axis=-2)
-    else:
-        in_rows = np.zeros(layout.state_shape(0, n_words), np.uint32)
-    x = _to_device(in_rows, device)
     if r.use_static and not on_cuda:
-        sub = comp.get_static_chain(program, plan, in_names, False,
-                                    r.in_widths, r.out_widths)(x)
-    elif not dense and on_cuda:
+        return comp.get_static_chain(program, plan, in_names, False,
+                                     r.in_widths, r.out_widths)(x)
+    if r.kind != "dense":
         # (slots-static on cuda has no wide-port static kernel; the slot
         # scan is the closest shape, as in the reference)
-        sub = pim_exec.slots_io(x, *sched_args, k_out=r.k_out,
-                                in_base=r.in_base, out_base=r.out_base,
-                                packed=r.packed, **common)
-    elif not dense:
-        sub = kslots.slots_io(x, *sched_args, k_out=r.k_out,
-                              in_base=r.in_base, out_base=r.out_base,
-                              **common)
-    elif on_cuda:
-        sub = pim_exec.level_io(x, *sched_args, packed=r.packed, **common)
-    else:
-        sub = kref.pim_exec_ref_level_io(x, *sched_args, **common)
+        if on_cuda:
+            return pim_exec.slots_io(x, *sched_args, k_out=r.k_out,
+                                     in_base=r.in_base, out_base=r.out_base,
+                                     packed=r.packed, **common)
+        return kslots.slots_io(x, *sched_args, k_out=r.k_out,
+                               in_base=r.in_base, out_base=r.out_base,
+                               **common)
+    if on_cuda:
+        return pim_exec.level_io(x, *sched_args, packed=r.packed, **common)
+    return kref.pim_exec_ref_level_io(x, *sched_args, **common)
 
-    def finalize():
-        return _unpack_sub(_to_host(sub),
-                           [(n, len(r.sched.ports[n])) for n in r.names],
-                           n_rows)
+
+def _gathered(parts: list, consume, axis: int):
+    """``consume`` of the shards' downloads joined along ``axis``; one
+    shard's is read straight out of its staging buffer."""
+    if len(parts) == 1:
+        return parts[0].result(consume)
+    return consume(np.concatenate([p.result(np.array) for p in parts],
+                                  axis=axis))
+
+
+def _dispatch_levelized(program, inputs: Dict[str, np.ndarray], n_rows: int,
+                        plan: ExecPlan, pad_rows: Optional[int] = None, *,
+                        packed_in=None, packed_out: bool = False,
+                        device_out: bool = False):
+    """Pack ``inputs`` and launch one levelized execution under ``plan``;
+    returns a zero-arg ``finalize`` that waits for the result's copy to
+    the host and unpacks it.  The launch is asynchronous, so a caller can
+    fill its next chunk on the host while this one runs (on a CUDA device
+    through the pinned staging buffers and copy streams of
+    ``kernels.transfer``).  ``pad_rows`` (>= n_rows) sets the padded word
+    count, as a streaming chunk's.
+
+    Under a plan with a mesh, each shard takes a contiguous block of whole
+    words (the word count padded to a multiple of the shard count) and
+    runs on its own device; the blocks are joined at finalize.
+
+    ``packed_in``/``packed_out`` keep the data in the packed word domain:
+    ``packed_in`` is a word block (numpy uint32, or an int32 tensor kept
+    on the device) whose cell axis stacks the in-ports' cells in
+    sorted-name order (``inputs`` then only names the ports), and
+    ``packed_out`` makes ``finalize`` return the packed output block
+    (out-ports stacked in ``output_names`` order) as numpy uint32 -- or,
+    with ``device_out``, as an int32 tensor on the mesh's first device,
+    made on its compute stream, which a packed stage takes as its
+    ``packed_in`` without a trip through the host."""
+    comp = compiled(program, plan)
+    in_names = sorted(inputs)
+    devices = tuple(_checked_device(d) for d in plan.devices)
+    rs = {d: comp.resolve(program, plan, tuple(in_names), device=d)
+          for d in dict.fromkeys(devices)}
+    r = rs[devices[0]]
+    telemetry.record_dispatch(n_rows, r.model)
+    layout = plan.layout
+    rpw = layout.rows_per_word
+    shards = len(devices)
+    n_words = layout.n_words(n_rows if pad_rows is None else pad_rows,
+                             shards)
+    wps = n_words // shards                 # words a shard
+    use_fused = r.fused_ok and packed_in is None and not packed_out
+    if use_fused:
+        vals = [np.asarray(inputs[n]) for n in in_names]
+        use_fused = all(v.dtype != object for v in vals)
+    parts = []
+    with transfer.computing(devices):
+        if use_fused:
+            for s, dev in enumerate(devices):
+                lo = min(s * wps * rpw, n_rows)
+                hi = min(lo + wps * rpw, n_rows)
+                if s and hi == lo:
+                    continue                 # a shard of padding only
+                lane = transfer.lane(dev, s)
+                staged = lane.stage((len(vals), hi - lo))
+                for p, v in enumerate(vals):
+                    staged.array[p] = v[lo:hi]   # same-kind cast in place
+                outs = _run_fused(comp, program, plan, rs[dev], in_names,
+                                  lane.upload(staged))
+                parts.append(lane.download(outs))
+
+            def finalize() -> Dict[str, np.ndarray]:
+                o = _gathered(parts, lambda a: a.astype(np.uint64), 1)
+                return {n: o[p] for p, n in enumerate(r.names)}
+            return finalize
+
+        k_in = sum(len(r.sched.pack_cells(n)) for n in in_names)
+        if packed_in is not None:
+            if packed_in.shape[-2] != k_in:
+                raise ValueError(
+                    f"packed input stacks {packed_in.shape[-2]} cells, "
+                    f"in-ports {in_names} need {k_in}")
+            if not isinstance(packed_in, torch.Tensor):
+                packed_in = np.asarray(packed_in, np.uint32)
+            packed_in = _fit_packed(packed_in, n_words)
+        subs = []
+        for s, dev in enumerate(devices):
+            w0 = s * wps
+            lane = transfer.lane(dev, s)
+            if isinstance(packed_in, torch.Tensor):
+                x = packed_in[..., w0:w0 + wps].to(dev).contiguous()
+            else:
+                staged = lane.stage(layout.state_shape(k_in, wps))
+                if packed_in is not None:
+                    staged.array[...] = packed_in[..., w0:w0 + wps]
+                else:
+                    lo = min(w0 * rpw, n_rows)
+                    hi = min(lo + wps * rpw, n_rows)
+                    off = 0
+                    for n in in_names:
+                        nc = len(r.sched.pack_cells(n))
+                        staged.array[..., off:off + nc, :] = \
+                            _pack_port_words(np.asarray(inputs[n])[lo:hi],
+                                             nc, wps, layout)
+                        off += nc
+                x = lane.upload(staged)
+            subs.append(_run_io(comp, program, plan, rs[dev], in_names, x))
+        if device_out:
+            out = subs[0] if shards == 1 else torch.cat(
+                [t.to(devices[0]) for t in subs], dim=-1)
+            return lambda: out
+        parts = [transfer.lane(dev, s).download(t)
+                 for s, (dev, t) in enumerate(zip(devices, subs))]
+
+    if packed_out:
+        def finalize() -> np.ndarray:
+            return _gathered(parts, np.array, -1)
+        return finalize
+
+    name_widths = [(n, len(r.sched.ports[n])) for n in r.names]
+
+    def finalize() -> Dict[str, np.ndarray]:
+        return _gathered(parts, lambda sub: _unpack_sub(sub, name_widths,
+                                                        n_rows), -1)
     return finalize
 
 
@@ -818,24 +975,28 @@ def _run_gate_serial(program, inputs: Dict[str, np.ndarray], n_rows: int,
     """The gate-serial executor (B4, or its plain version on ``ref``):
     the whole lowered state is packed on the host, run one gate at a
     time, and unpacked."""
-    device = _device_of(plan)
+    device = _checked_device(plan.device)
     comp = compiled(program, plan)
     telemetry.record_dispatch(n_rows, comp.get_serial_model(program))
     n_cells = comp.get_arrays(program)[4]
     *gates, packed = comp.get_gates(program, device)
-    state = _to_device(pack_rows(inputs, program.ports, n_rows, n_cells),
-                       device)
-    if plan.backend.name == "cuda":
-        final = pim_exec.gate_serial(state, *gates, packed=packed)
-    else:
-        final = kref.pim_exec_ref(state, *gates)
-    return unpack_rows(_to_host(final), program.ports, n_rows,
-                       names=output_names(program))
+    lane = transfer.lane(device)
+    staged = lane.stage(ROWS32.state_shape(n_cells, ROWS32.n_words(n_rows)))
+    pack_rows(inputs, program.ports, n_rows, n_cells, out=staged.array)
+    with transfer.computing((device,)):
+        state = lane.upload(staged)
+        if plan.backend.name == "cuda":
+            final = pim_exec.gate_serial(state, *gates, packed=packed)
+        else:
+            final = kref.pim_exec_ref(state, *gates)
+        out = lane.download(final)
+    return out.result(lambda st: unpack_rows(st, program.ports, n_rows,
+                                             names=output_names(program)))
 
 
 def run_program(program, inputs: Dict[str, np.ndarray], n_rows: int,
                 plan=None, levelized: bool = True, *, backend=None,
-                schedule=None, layout=None, device=None
+                mesh=None, schedule=None, layout=None, device=None
                 ) -> Dict[str, np.ndarray]:
     """Element-parallel execution of a gate program over ``n_rows`` rows.
 
@@ -843,14 +1004,19 @@ def run_program(program, inputs: Dict[str, np.ndarray], n_rows: int,
     Hopper kernels, 'ref' their plain PyTorch versions, 'numpy' the
     gate-serial oracle); the keywords build a plan at this boundary.
     'cuda' and 'ref' run the plan's levelized schedule by default;
-    ``levelized=False`` selects the gate-serial executors (rows32 only).
-    Returns the program's output ports (every port for direction-less
-    programs, the :func:`output_names` contract)."""
-    plan = as_plan(plan, backend=backend, schedule=schedule, layout=layout,
-                   device=device)
-    if not levelized and plan.layout.planes > 1:
-        raise ValueError(f"layout {plan.layout.name!r} requires the "
-                         "levelized executors")
+    ``levelized=False`` selects the gate-serial executors (rows32, one
+    device).  The plan's mesh (see :func:`row_mesh`) shards the packed
+    word axis over devices.  Returns the program's output ports (every
+    port for direction-less programs, the :func:`output_names`
+    contract)."""
+    plan = as_plan(plan, backend=backend, mesh=mesh, schedule=schedule,
+                   layout=layout, device=device)
+    if not levelized and (plan.mesh is not None or plan.layout.planes > 1):
+        raise ValueError(
+            "mesh sharding requires a levelized backend "
+            f"(got backend={plan.backend.name!r}, levelized={levelized})"
+            if plan.mesh is not None else
+            f"layout {plan.layout.name!r} requires the levelized executors")
     if plan.backend.name == "numpy":
         telemetry.record_dispatch(n_rows, _serial_model(program))
         state = pack_rows(inputs, program.ports, n_rows, program.n_cells)
@@ -863,37 +1029,182 @@ def run_program(program, inputs: Dict[str, np.ndarray], n_rows: int,
     return _dispatch_levelized(program, inputs, n_rows, plan)()
 
 
+def _row_inputs(inputs: Dict[str, np.ndarray], n_rows: int,
+                what: str = "input") -> Dict[str, np.ndarray]:
+    inputs = {n: np.asarray(v) for n, v in inputs.items()}
+    for n, v in inputs.items():
+        if len(v) != n_rows:
+            raise ValueError(
+                f"{what} {n!r} has {len(v)} rows, expected {n_rows}")
+    return inputs
+
+
 def run_program_streaming(program, inputs: Dict[str, np.ndarray],
                           n_rows: int, plan=None, *, backend=None,
-                          chunk_rows=None, schedule=None, layout=None,
-                          device=None) -> Dict[str, np.ndarray]:
-    """Chunked, pipelined execution over ``n_rows`` on one device.
+                          chunk_rows=None, mesh=None, schedule=None,
+                          layout=None, device=None,
+                          deadline: Optional[float] = None
+                          ) -> Dict[str, np.ndarray]:
+    """Chunked, pipelined, optionally sharded execution over ``n_rows``.
 
     Rows are tiled into word-aligned chunks of the plan's chunk size; the
-    loop launches chunk ``k``, packs chunk ``k+1`` on the host while ``k``
-    runs, then waits for ``k``'s result."""
-    plan = as_plan(plan, backend=backend, chunk_rows=chunk_rows,
+    loop launches chunk ``k``, fills chunk ``k+1``'s staging buffer on the
+    host while ``k`` runs (on a CUDA device its copy in may run while
+    ``k``'s kernel does), then waits for ``k``'s result.  Every chunk, the ragged last
+    one too, has the padded word count of a whole chunk.  The plan's mesh
+    additionally shards each chunk's word axis over devices.
+
+    ``deadline`` is an absolute ``time.monotonic()`` bound checked before
+    dispatch and between chunks (:class:`DeadlineExceeded` on expiry)."""
+    plan = as_plan(plan, backend=backend, chunk_rows=chunk_rows, mesh=mesh,
                    schedule=schedule, layout=layout, device=device)
     if plan.backend.name == "numpy":
         raise ValueError("streaming requires a levelized backend "
                          "('cuda' or 'ref'), got 'numpy'")
     chunk = plan.effective_chunk_rows
+    _check_deadline(deadline)
     if n_rows <= chunk:
         return run_program(program, inputs, n_rows, plan)
-    inputs = {n: np.asarray(v) for n, v in inputs.items()}
-    for n, v in inputs.items():
-        if len(v) != n_rows:
-            raise ValueError(
-                f"input {n!r} has {len(v)} rows, expected {n_rows}")
+    inputs = _row_inputs(inputs, n_rows)
     parts = []
     pending = None
     for start in range(0, n_rows, chunk):
+        _check_deadline(deadline)
         rows_k = min(chunk, n_rows - start)
         chunk_in = {n: v[start:start + rows_k] for n, v in inputs.items()}
-        fin = _dispatch_levelized(program, chunk_in, rows_k, plan)
+        fin = _dispatch_levelized(program, chunk_in, rows_k, plan,
+                                  pad_rows=chunk)
         if pending is not None:
             parts.append(pending())     # waits on k-1 while k runs
         pending = fin
     parts.append(pending())
     return {name: np.concatenate([p[name] for p in parts])
             for name in parts[0]}
+
+
+def dispatch_program(program, inputs: Dict[str, np.ndarray], n_rows: int,
+                     plan=None, *, backend=None, mesh=None, schedule=None,
+                     layout=None, device=None, pad_rows: Optional[int] = None
+                     ) -> Callable:
+    """Launch one levelized execution asynchronously; returns a zero-arg
+    ``finalize`` that waits for the result and unpacks the output ports.
+    The pipelining primitive behind :func:`run_program_streaming` and
+    :func:`run_program_groups`: callers fill the next unit of work on the
+    host while this one runs."""
+    plan = as_plan(plan, backend=backend, mesh=mesh, schedule=schedule,
+                   layout=layout, device=device)
+    if plan.backend.name == "numpy":
+        raise ValueError("dispatch requires a levelized backend, got "
+                         f"{plan.backend.name!r}")
+    return _dispatch_levelized(program, inputs, n_rows, plan,
+                               pad_rows=pad_rows)
+
+
+def _packed_stage(program, n_rows: int, plan: ExecPlan, *, inputs=None,
+                  in_block=None, in_names=None, device_out: bool = False,
+                  deadline: Optional[float] = None) -> Callable:
+    """:func:`dispatch_packed` after its argument checks; ``device_out``
+    keeps the output block on the device (see :func:`_dispatch_levelized`),
+    the form the reduction trees chain their levels with."""
+    _check_deadline(deadline)
+    if in_block is not None:
+        if not in_names:
+            raise ValueError("in_block requires in_names")
+        return _dispatch_levelized(program, {n: None for n in in_names},
+                                   n_rows, plan, packed_in=in_block,
+                                   packed_out=True, device_out=device_out)
+    return _dispatch_levelized(program, inputs, n_rows, plan,
+                               packed_out=True, device_out=device_out)
+
+
+def dispatch_packed(program, n_rows: int, plan=None, *,
+                    inputs: Optional[Dict[str, np.ndarray]] = None,
+                    in_block: Optional[np.ndarray] = None,
+                    in_names: Optional[Tuple[str, ...]] = None,
+                    vrun=None, stage: int = 0,
+                    deadline: Optional[float] = None) -> Callable:
+    """Launch one levelized execution that stays in the packed word
+    domain; returns a zero-arg ``finalize`` yielding the packed output
+    block (uint32, out-ports' cells stacked in ``output_names`` order,
+    rows packed 32 per word along the trailing axis -- rows64 plans keep
+    the planes-leading 3-D state shape).
+
+    Feed it either ``inputs`` (row-value dict, packed once on the way in)
+    or ``in_block`` + ``in_names`` (a block from a previous packed
+    dispatch, cell axis stacking the named in-ports in sorted order) --
+    the primitive behind the in-memory reduction trees of ``pim.dot``/
+    ``pim.gemv``.  ``deadline`` (absolute ``time.monotonic()``) is checked
+    before dispatch.  ``vrun``/``stage`` belong to verified execution,
+    which is not ported yet."""
+    plan = as_plan(plan)
+    if plan.backend.name == "numpy":
+        raise ValueError("packed dispatch requires a levelized backend, "
+                         f"got {plan.backend.name!r}")
+    if vrun is not None or stage:
+        raise NotImplementedError("verified packed stages (vrun=, stage=) "
+                                  "are not ported yet (ROADMAP A9)")
+    if (in_block is None) == (inputs is None):
+        raise ValueError("pass exactly one of inputs= or in_block=")
+    if in_block is not None:
+        in_block = np.ascontiguousarray(np.asarray(in_block, np.uint32))
+    return _packed_stage(program, n_rows, plan, inputs=inputs,
+                         in_block=in_block, in_names=in_names,
+                         deadline=deadline)
+
+
+def run_program_groups(groups: Iterable[dict]) -> list:
+    """Execute several program groups back to back with cross-group
+    pipelining; returns their output dicts in input order.
+
+    Each group is a dict: ``program``, ``inputs`` (port name -> row
+    values), ``n_rows``, plus a ``plan`` (:class:`ExecPlan`; the
+    ``backend``/``schedule``/``layout``/``mesh``/``chunk_rows``/
+    ``device`` keys normalize into one here, at the boundary).  The loop
+    launches group ``k`` and fills group ``k+1`` on the host while ``k``
+    runs -- the streaming pipeline across different programs.  Groups
+    larger than their plan's chunk size tile into word-aligned chunks
+    inside the same pipeline.  A numpy-backend group is a synchronization
+    point (the oracle runs on the host).  A group may carry a
+    ``deadline`` (absolute ``time.monotonic()``), checked before each of
+    its chunks is launched."""
+    groups = list(groups)
+    parts: list = [[] for _ in groups]
+    pending: "collections.deque" = collections.deque()
+
+    def drain(limit: int) -> None:
+        while len(pending) > limit:
+            gi, fin = pending.popleft()
+            parts[gi].append(fin())
+
+    for gi, g in enumerate(groups):
+        program, n_rows = g["program"], int(g["n_rows"])
+        plan = as_plan(g.get("plan"), backend=g.get("backend"),
+                       schedule=g.get("schedule"), layout=g.get("layout"),
+                       mesh=g.get("mesh"), chunk_rows=g.get("chunk_rows"),
+                       device=g.get("device"))
+        deadline = g.get("deadline")
+        inputs = _row_inputs(g["inputs"], n_rows, f"group {gi}: input")
+        if plan.backend.name == "numpy":
+            drain(0)
+            _check_deadline(deadline)
+            parts[gi].append(run_program(program, inputs, n_rows, plan))
+            continue
+        chunk = plan.effective_chunk_rows
+        if n_rows <= chunk:
+            _check_deadline(deadline)
+            pending.append((gi, _dispatch_levelized(program, inputs, n_rows,
+                                                    plan)))
+            drain(1)
+            continue
+        for start in range(0, n_rows, chunk):
+            _check_deadline(deadline)
+            rows_k = min(chunk, n_rows - start)
+            chunk_in = {n: v[start:start + rows_k]
+                        for n, v in inputs.items()}
+            pending.append((gi, _dispatch_levelized(
+                program, chunk_in, rows_k, plan, pad_rows=chunk)))
+            drain(1)
+    drain(0)
+    return [ps[0] if len(ps) == 1 else
+            {k: np.concatenate([p[k] for p in ps]) for k in ps[0]}
+            for ps in parts]

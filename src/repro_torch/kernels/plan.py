@@ -11,9 +11,10 @@ The PyTorch/CUDA counterpart of ``repro.kernels.plan``:
   plain PyTorch versions (``kernels.slots``, ``kernels.ref``), ``numpy``
   the gate-serial oracle.
 * :class:`ExecPlan` -- one immutable description of how a program runs:
-  backend, schedule kind, word layout, streaming chunk size and the torch
-  device.  ``plan.key`` is the full execution identity, ``plan.compile_key``
-  the compiled-program cache's per-plan identity.
+  backend, schedule kind, word layout, streaming chunk size, the torch
+  device and the row mesh (the devices the packed word axis is split over,
+  one shard each).  ``plan.key`` is the full execution identity,
+  ``plan.compile_key`` the compiled-program cache's per-plan identity.
 
 :func:`as_plan` is the boundary normalizer: public entry points accept the
 convenience strings and convert them to a plan exactly once.
@@ -140,19 +141,26 @@ DEFAULT_DEVICE = "cuda"
 class ExecPlan:
     """One immutable description of *how* a gate program executes: the
     backend descriptor, the schedule kind, the packed word layout, the
-    streaming chunk size and the torch device the executor runs on.
+    streaming chunk size, the torch device the executor runs on and the
+    row mesh.  ``mesh`` is None (the plan runs on ``device``) or a tuple of
+    torch device names, one shard each: the packed word axis is split into
+    contiguous blocks of whole words, one block a device, and the blocks
+    are concatenated at the end (no collective runs).  A device may appear
+    more than once, so one device can run several shards.
     ``faults``/``verify`` name the reference's fault injection and
     verified execution, which have no executor here yet: a plan that sets
     either raises."""
     backend: Backend = BACKENDS[DEFAULT_BACKEND]
     schedule: str = DEFAULT_SCHEDULE
     layout: WordLayout = ROWS32
+    mesh: Optional[tuple] = None         # torch device names, one a shard
     chunk_rows: Optional[int] = None     # None -> backend.chunk_rows
     device: str = DEFAULT_DEVICE
     faults: Optional[FaultModel] = None
     verify: Optional[VerifyPolicy] = None
 
     def __post_init__(self):
+        object.__setattr__(self, "mesh", _mesh_of(self.mesh))
         if self.schedule not in SCHEDULES:
             raise ValueError(f"unknown schedule {self.schedule!r} "
                              f"(expected one of {SCHEDULES})")
@@ -160,6 +168,10 @@ class ExecPlan:
             raise ValueError(
                 f"layout {self.layout.name!r} requires a levelized "
                 f"backend (got backend={self.backend.name!r})")
+        if self.mesh is not None and self.backend.name == "numpy":
+            raise ValueError(
+                "mesh sharding requires a levelized backend "
+                f"(got backend={self.backend.name!r})")
         if self.faults is not None or self.verify is not None:
             raise NotImplementedError(
                 "fault injection and verified execution (faults=, verify=) "
@@ -176,12 +188,18 @@ class ExecPlan:
                 f"backend 'cuda' runs slot schedules of at most "
                 f"{LEVEL_MAX_WIDTH} lanes (got slot_width="
                 f"{self.backend.slot_width})")
-        if self.backend.name == "cuda" and \
-                torch.device(self.device).type != "cuda":
-            raise ValueError(
-                "backend 'cuda' runs only on a CUDA device "
-                f"(got device={self.device!r}); use backend='ref' for "
-                "the plain PyTorch version")
+        if self.backend.name == "cuda":
+            for device in (self.device,) + (self.mesh or ()):
+                if torch.device(device).type != "cuda":
+                    raise ValueError(
+                        "backend 'cuda' runs only on a CUDA device "
+                        f"(got device={device!r}); use backend='ref' for "
+                        "the plain PyTorch version")
+
+    @property
+    def devices(self) -> tuple:
+        """The device of each shard: the mesh, or the plan's one device."""
+        return self.mesh if self.mesh is not None else (self.device,)
 
     # ------------------------------------------------------------- identity
 
@@ -199,14 +217,14 @@ class ExecPlan:
         field must never share one packed state."""
         return (dataclasses.astuple(self.backend), self.schedule,
                 self.layout.name, self.effective_chunk_rows,
-                str(torch.device(self.device)))
+                str(torch.device(self.device)), self.mesh)
 
     @property
     def compile_key(self) -> tuple:
         """The plan fields that determine a cache entry's compiled
         artifacts: the allocators' widths and the straight-line segment
-        size.  Backend, schedule kind, layout and device are excluded on
-        purpose -- every executor consumes the same schedule arrays, and
+        size.  Backend, schedule kind, layout, device and mesh are excluded
+        on purpose -- every executor consumes the same schedule arrays, and
         one entry holds each alloc's schedule and its device copies per
         device."""
         return (self.backend.slot_width, self.backend.level_max_width,
@@ -246,6 +264,20 @@ def _verify_of(verify) -> Optional[VerifyPolicy]:
                     f"got {type(verify).__name__}")
 
 
+def _mesh_of(mesh) -> Optional[tuple]:
+    """``mesh=``: None, or a sequence of torch devices (names or
+    ``torch.device``), normalized to a tuple of device names."""
+    if mesh is None:
+        return None
+    if isinstance(mesh, (str, torch.device)):
+        raise TypeError("mesh must be a sequence of devices, got one device "
+                        f"{mesh!r}")
+    devices = tuple(str(torch.device(d)) for d in mesh)
+    if not devices:
+        raise ValueError("mesh must name at least one device")
+    return devices
+
+
 def _faults_of(faults) -> Optional[FaultModel]:
     if faults is None or isinstance(faults, FaultModel):
         return faults
@@ -254,16 +286,17 @@ def _faults_of(faults) -> Optional[FaultModel]:
 
 
 def as_plan(plan=None, *, backend=None, schedule=None, layout=None,
-            chunk_rows=None, device=None, faults=None, verify=None,
-            default_backend: str = DEFAULT_BACKEND) -> ExecPlan:
+            mesh=None, chunk_rows=None, device=None, faults=None,
+            verify=None, default_backend: str = DEFAULT_BACKEND) -> ExecPlan:
     """Normalize entry-point arguments into an :class:`ExecPlan`.
 
     ``plan`` may already be an ExecPlan (returned as-is when no override is
     given, else rebuilt with the overrides), a backend name string, or
-    None.  The keyword strings are converted here, exactly once."""
+    None.  The keyword strings are converted here, exactly once.  A plan
+    given a ``mesh`` and no ``device`` takes the mesh's first device."""
     if isinstance(plan, ExecPlan):
         if backend is None and schedule is None and layout is None \
-                and chunk_rows is None and device is None \
+                and mesh is None and chunk_rows is None and device is None \
                 and faults is None and verify is None:
             return plan
         return dataclasses.replace(
@@ -271,6 +304,7 @@ def as_plan(plan=None, *, backend=None, schedule=None, layout=None,
             backend=plan.backend if backend is None else _backend_of(backend),
             schedule=plan.schedule if schedule is None else schedule,
             layout=plan.layout if layout is None else _layout_of(layout),
+            mesh=plan.mesh if mesh is None else _mesh_of(mesh),
             chunk_rows=plan.chunk_rows if chunk_rows is None else chunk_rows,
             device=plan.device if device is None else str(device),
             faults=plan.faults if faults is None else _faults_of(faults),
@@ -285,12 +319,14 @@ def as_plan(plan=None, *, backend=None, schedule=None, layout=None,
         raise TypeError(
             f"plan must be an ExecPlan, a backend name or None, "
             f"got {type(plan).__name__}")
+    mesh = _mesh_of(mesh)
+    if device is None:
+        device = DEFAULT_DEVICE if mesh is None else mesh[0]
     return ExecPlan(
         backend=_backend_of(default_backend if backend is None else backend),
         schedule=DEFAULT_SCHEDULE if schedule is None else schedule,
         layout=_layout_of(DEFAULT_LAYOUT if layout is None else layout),
-        chunk_rows=chunk_rows,
-        device=DEFAULT_DEVICE if device is None else str(device),
+        mesh=mesh, chunk_rows=chunk_rows, device=str(device),
         faults=_faults_of(faults), verify=_verify_of(verify))
 
 

@@ -13,9 +13,14 @@ execution streams through ``kernels.ops.run_program_streaming``.
 
 Calls run on the CUDA device through the hand-written kernels unless the
 caller asks otherwise (``schedule=`` and ``layout=`` pick the kernel and
-the word layout, as in the reference): ``device="cpu", backend="ref"`` runs the plain
-PyTorch version on the CPU, ``backend="numpy"`` the gate-serial oracle.
-With no GPU a default call raises; it never drops to the CPU.
+the word layout, ``shards=``/``mesh=`` split the rows over devices, as in
+the reference): ``device="cpu", backend="ref"`` runs the plain PyTorch
+version on the CPU, ``backend="numpy"`` the gate-serial oracle.  With no
+GPU a default call raises; it never drops to the CPU.
+
+    e = pim.lazy(a) * pim.lazy(b) + pim.lazy(c)   # records a graph
+    pim.fuse(e).run()          # one composed program, one pack and unpack
+    pim.dot(x, y); pim.gemv(m, x); pim.reduce_sum(e)   # in-memory trees
 
 Per the paper, FP operands must be normal-range or zero: NaN/Inf and
 subnormals are rejected up front (``check=False`` skips the scan).
@@ -28,7 +33,9 @@ import dataclasses
 from typing import Callable, Dict, Optional
 
 import numpy as np
+import torch
 
+from .core import pim_numerics as pn
 from .core.floatfmt import FORMATS
 from .core.pim_numerics import program_for
 from .kernels import ops as kops
@@ -36,12 +43,16 @@ from .kernels import plan as kplan
 
 __all__ = ["add", "sub", "mul", "div",
            "fp_add", "fp_sub", "fp_mul", "fp_div",
-           "lazy", "fuse", "reduce_sum", "dot", "gemv",
+           "lazy", "LazyExpr", "fuse", "reduce_sum", "dot", "gemv",
            "prepare", "Prepared",
            "config", "configure", "options"]
 
 INT_OPS = ("add", "sub", "mul", "div")
 FP_OPS = ("fp_add", "fp_sub", "fp_mul", "fp_div")
+
+#: Binary ops the lazy expression graph records (division does not fuse:
+#: data-dependent iteration and a two-port result).
+LAZY_OPS = ("add", "sub", "mul", "fp_add", "fp_sub", "fp_mul")
 
 
 @dataclasses.dataclass
@@ -57,10 +68,11 @@ class Config:
     or 'dense' (the level-gather kernel).  layout: 'rows32' or 'rows64'
     (64 rows per word).
 
-    shards, faults, verify and cache_dir mirror the reference's
-    configuration; only their defaults run in this package, and any other
-    value raises ``NotImplementedError`` naming the ROADMAP item that
-    brings it.  tuned: apply registered tuned Backend defaults
+    shards: CUDA devices to split the rows over (None: all of this
+    machine's, 1: none).  faults, verify and cache_dir mirror the
+    reference's configuration; only their defaults run in this package,
+    and any other value raises ``NotImplementedError`` naming the ROADMAP
+    item that brings it.  tuned: apply registered tuned Backend defaults
     (``kernels.plan.register_tuned``) per program family.
     """
     backend: str = kplan.DEFAULT_BACKEND
@@ -111,22 +123,23 @@ def _not_ported(what: str, item: str):
 def _resolve(kw, family: Optional[str] = None):
     """Normalize ufunc keywords + module defaults into one ExecPlan;
     returns ``(plan, parallel)``.  ``family`` ("add:16", "fp_mul:fp16") keys
-    the tuned-defaults overlay (``kernels.plan.apply_tuned``)."""
+    the tuned-defaults overlay (``kernels.plan.apply_tuned``).  ``shards=``
+    splits the rows over that many of the machine's CUDA devices
+    (``kernels.ops.row_mesh``; None: all of them, 1: none); ``mesh=`` names
+    the devices, one shard each."""
     def opt(name, default):
         v = kw.pop(name, None)
         return default if v is None else v
 
     if opt("cache_dir", config.cache_dir) is not None:
         raise _not_ported("the artifact cache (cache_dir=)", "A11")
-    if "mesh" in kw or opt("shards", config.shards) not in (None, 1):
-        raise _not_ported("row sharding over devices (shards=, mesh=)", "A7")
     faults = opt("faults", config.faults)
     verify = opt("verify", config.verify)
     parallel = opt("parallel", config.parallel)
     if "plan" in kw:
         plan = kw.pop("plan")
         for k in ("backend", "device", "schedule", "layout", "chunk_rows",
-                  "tuned"):
+                  "mesh", "shards", "tuned"):
             if kw.pop(k, None) is not None:
                 raise TypeError(
                     f"plan= is exclusive with the {k}= convenience keyword")
@@ -142,10 +155,18 @@ def _resolve(kw, family: Optional[str] = None):
     tuned = opt("tuned", config.tuned)
     schedule = opt("schedule", config.schedule)
     layout = opt("layout", config.layout)
+    if "mesh" in kw:
+        mesh = kw.pop("mesh")
+        kw.pop("shards", None)
+    elif backend == "numpy" or torch.device(device).type != "cuda":
+        kw.pop("shards", None)
+        mesh = None
+    else:
+        mesh = kops.row_mesh(opt("shards", config.shards))
     if kw:
         raise TypeError(f"unknown keyword arguments {sorted(kw)}")
     plan = kops.as_plan(backend=backend, schedule=schedule, layout=layout,
-                        chunk_rows=chunk_rows, device=device,
+                        mesh=mesh, chunk_rows=chunk_rows, device=device,
                         faults=faults, verify=verify)
     if tuned and family is not None:
         plan = kplan.apply_tuned(plan, family)
@@ -167,6 +188,12 @@ class Prepared:
     n_rows: int
     plan: object                 # kernels.plan.ExecPlan
     _finish: Callable
+    # compound-program provenance: how many primitive ufunc ops the fused
+    # program subsumes (1 for plain ufunc requests) and the per-op
+    # composition record -- ((op, width_or_fmt), ...) in topological order
+    # for ``op == "expr"`` handles from :func:`fuse`.
+    fused_ops: int = 1
+    provenance: tuple = ()
 
     @property
     def backend(self) -> str:
@@ -187,6 +214,10 @@ class Prepared:
     @property
     def chunk_rows(self) -> int:
         return self.plan.effective_chunk_rows
+
+    @property
+    def mesh(self):
+        return self.plan.mesh
 
     @property
     def key(self) -> bytes:
@@ -313,25 +344,35 @@ def _prepare_int(op, x, y, width, kw) -> Prepared:
 
 def add(x, y, *, width=None, **kw):
     """Elementwise ``x + y`` with the full carry: (width+1)-bit sums as
-    uint64 (object array beyond 63 bits)."""
+    uint64 (object array beyond 63 bits).  Lazy operands record a fusable
+    expression node instead of executing (see :func:`lazy`)."""
+    if _is_lazy(x, y):
+        return _lazy_node("add", x, y, width=width, kw=kw)
     return _prepare_int("add", x, y, width, kw).run()
 
 
 def sub(x, y, *, width=None, **kw):
     """Elementwise ``x - y`` modulo 2**width (two's-complement wraparound),
     as uint64 (object array beyond 63 bits)."""
+    if _is_lazy(x, y):
+        return _lazy_node("sub", x, y, width=width, kw=kw)
     return _prepare_int("sub", x, y, width, kw).run()
 
 
 def mul(x, y, *, width=None, **kw):
     """Elementwise ``x * y``: exact double-width (2*width-bit) products as
     uint64, or an object array when 2*width exceeds 63 bits."""
+    if _is_lazy(x, y):
+        return _lazy_node("mul", x, y, width=width, kw=kw)
     return _prepare_int("mul", x, y, width, kw).run()
 
 
 def div(x, y, *, width=None, **kw):
     """Elementwise unsigned division: ``(x // y, x % y)`` as uint64 arrays
     (object beyond 63 bits).  Zero divisors are rejected."""
+    if _is_lazy(x, y):
+        raise TypeError("pim.div does not fuse (see DESIGN.md §13); "
+                        "run it eagerly on materialized arrays")
     return _prepare_int("div", x, y, width, kw).run()
 
 
@@ -417,41 +458,365 @@ def _prepare_fp(op, x, y, kw) -> Prepared:
 
 def fp_add(x, y, *, fmt=None, **kw):
     """Elementwise FP addition, exactly rounded (IEEE RNE).  float16 /
-    float32 arrays, or ``fmt='bf16'`` etc. with bit-pattern arrays."""
+    float32 arrays, or ``fmt='bf16'`` etc. with bit-pattern arrays.
+    Lazy operands record a fusable expression node (see :func:`lazy`)."""
+    if _is_lazy(x, y):
+        return _lazy_node("fp_add", x, y, fmt=fmt, kw=kw)
     return _prepare_fp("add", x, y, dict(kw, fmt=fmt)).run()
 
 
 def fp_sub(x, y, *, fmt=None, **kw):
     """Elementwise FP subtraction, exactly rounded (IEEE RNE)."""
+    if _is_lazy(x, y):
+        return _lazy_node("fp_sub", x, y, fmt=fmt, kw=kw)
     return _prepare_fp("sub", x, y, dict(kw, fmt=fmt)).run()
 
 
 def fp_mul(x, y, *, fmt=None, **kw):
     """Elementwise FP multiplication, exactly rounded (IEEE RNE)."""
+    if _is_lazy(x, y):
+        return _lazy_node("fp_mul", x, y, fmt=fmt, kw=kw)
     return _prepare_fp("mul", x, y, dict(kw, fmt=fmt)).run()
 
 
 def fp_div(x, y, *, fmt=None, **kw):
     """Elementwise FP division, exactly rounded (IEEE RNE).  Zero divisors
     are rejected."""
+    if _is_lazy(x, y):
+        raise TypeError("pim.fp_div does not fuse (see DESIGN.md §13); "
+                        "run it eagerly on materialized arrays")
     return _prepare_fp("div", x, y, dict(kw, fmt=fmt)).run()
 
 
 # --------------------------------------------------------------------------
-# fusion and reductions: not ported yet
+# lazy expression graphs -> one fused program (DESIGN.md §13)
 # --------------------------------------------------------------------------
 
-def _a8(name):
-    def not_ported(*args, **kw):
-        raise _not_ported(f"pim.{name}", "A8")
-    not_ported.__name__ = name
-    not_ported.__doc__ = (f"``repro.pim_ufunc.{name}``'s counterpart; raises "
-                          "NotImplementedError until ROADMAP A8 lands.")
-    return not_ported
+@dataclasses.dataclass
+class LazyExpr:
+    """A recorded (unexecuted) expression DAG node.
+
+    Leaves hold a validated operand array (``value``: raw ints for fixed
+    point, uint64 bit patterns for fp) plus its width or format; interior
+    nodes hold a :data:`LAZY_OPS` op and two children.  Ufuncs called with
+    a lazy operand return nodes instead of executing; :func:`fuse` (or
+    ``expr.run()``) lowers the whole DAG into **one** levelized program --
+    one pack, one execution, one unpack, intermediates never leaving the
+    array.  ``+``/``-``/``*`` build nodes too, dispatching on ``kind``.
+    """
+    kind: str                            # 'int' | 'fp'
+    op: Optional[str] = None             # None for leaves
+    args: tuple = ()                     # child LazyExprs (nodes)
+    value: Optional[np.ndarray] = None   # operand array (leaves)
+    width: Optional[int] = None          # int leaves
+    fmt: Optional[str] = None            # fp leaves/nodes
+    dtype: Optional[object] = None       # native float dtype (fp leaves
+    #                                      built from float16/float32)
+
+    def _binop(self, op, other, reflect=False):
+        if self.kind == "fp":
+            op = "fp_" + op
+        x, y = (other, self) if reflect else (self, other)
+        return globals()[op](x, y)
+
+    def __add__(self, other): return self._binop("add", other)
+    def __radd__(self, other): return self._binop("add", other, True)
+    def __sub__(self, other): return self._binop("sub", other)
+    def __rsub__(self, other): return self._binop("sub", other, True)
+    def __mul__(self, other): return self._binop("mul", other)
+    def __rmul__(self, other): return self._binop("mul", other, True)
+
+    def fuse(self, **kw) -> "Prepared":
+        """Lower the DAG to one fused program handle (see :func:`fuse`)."""
+        return fuse(self, **kw)
+
+    def run(self, **kw):
+        """Fuse and execute; equivalent to ``fuse(expr, **kw).run()``."""
+        return fuse(self, **kw).run()
 
 
-lazy = _a8("lazy")
-fuse = _a8("fuse")
-reduce_sum = _a8("reduce_sum")
-dot = _a8("dot")
-gemv = _a8("gemv")
+def lazy(x, *, width=None, fmt=None, check=True) -> LazyExpr:
+    """Wrap an operand array as a lazy leaf.  Dispatch mirrors the eager
+    ufuncs: float16/float32 arrays (or ``fmt=`` with bit patterns) become
+    fp leaves, unsigned integer arrays (or ``width=``) fixed-point leaves.
+    Validation (range, NaN/Inf/subnormal rejection) happens here, so a
+    recorded graph is always executable.  Idempotent on LazyExpr."""
+    if isinstance(x, LazyExpr):
+        return x
+    x = np.asarray(x)
+    if fmt is None and x.dtype in _NP_FMT:
+        fmt = _NP_FMT[x.dtype]
+        bits = x.view(_FMT_VIEW[fmt]).astype(np.uint64)
+        if check and bits.size:
+            _check_fp_bits("lazy", "x", bits, FORMATS[fmt])
+        return LazyExpr("fp", value=bits, fmt=fmt, dtype=x.dtype)
+    if fmt is not None:
+        if fmt not in FORMATS:
+            raise ValueError(f"pim.lazy: unknown format {fmt!r} "
+                             f"(known: {sorted(FORMATS)})")
+        nbits = FORMATS[fmt].nbits
+        if x.dtype.kind not in "uiO":
+            raise TypeError(f"pim.lazy: fmt={fmt!r} takes bit-pattern "
+                            f"integer arrays, got dtype {x.dtype}")
+        if x.size and (_vmin(x) < 0 or _vmax(x) >> nbits):
+            raise ValueError(f"pim.lazy: bit patterns outside "
+                             f"[0, 2**{nbits})")
+        bits = x.astype(np.uint64)
+        if check and bits.size:
+            _check_fp_bits("lazy", "x", bits, FORMATS[fmt])
+        return LazyExpr("fp", value=bits, fmt=fmt)
+    if width is None:
+        width = _DTYPE_WIDTHS.get(x.dtype)
+        if width is None:
+            raise TypeError(
+                f"pim.lazy: cannot infer width from dtype {x.dtype}; pass "
+                "an unsigned integer array or an explicit width=")
+    else:
+        width = int(width)
+        if width < 1:
+            raise ValueError(f"pim.lazy: width must be >= 1, got {width}")
+        if x.dtype.kind not in "uiO":
+            raise TypeError(f"pim.lazy: operand must be an integer array, "
+                            f"got dtype {x.dtype}")
+        if x.size and (_vmin(x) < 0 or _vmax(x) >> width):
+            raise ValueError(
+                f"pim.lazy: operand has values outside [0, 2**{width})")
+    return LazyExpr("int", value=x, width=width)
+
+
+def _is_lazy(*vals) -> bool:
+    return any(isinstance(v, LazyExpr) for v in vals)
+
+
+def _lazy_node(op, x, y, width=None, fmt=None, kw=None) -> LazyExpr:
+    """Record one binary node (ufunc lazy branch).  Execution keywords are
+    rejected here -- they belong to fuse()/run(), where the whole graph's
+    plan is resolved once."""
+    if kw:
+        raise TypeError(
+            f"pim.{op}: execution keywords {sorted(kw)} do not apply to "
+            "lazy operands; pass them to fuse()/run()")
+    if op not in LAZY_OPS:
+        raise TypeError(f"pim.{op} does not fuse (see DESIGN.md §13)")
+    kind = "fp" if op.startswith("fp_") else "int"
+    x = x if isinstance(x, LazyExpr) else lazy(x, width=width, fmt=fmt)
+    y = y if isinstance(y, LazyExpr) else lazy(y, width=width, fmt=fmt)
+    if x.kind != kind or y.kind != kind:
+        raise TypeError(
+            f"pim.{op}: operand kinds ({x.kind}, {y.kind}) do not match "
+            "the op")
+    if kind == "fp":
+        if x.fmt != y.fmt:
+            raise TypeError(f"pim.{op}: mixed fp formats "
+                            f"({x.fmt}, {y.fmt})")
+        return LazyExpr("fp", op=op, args=(x, y), fmt=x.fmt)
+    return LazyExpr("int", op=op, args=(x, y))
+
+
+def _graph_of(expr: LazyExpr):
+    """Canonicalize a DAG into the hashable topological tuple
+    ``pim_numerics.fused_program_for`` consumes; returns ``(graph,
+    leaves)`` with leaves named ``i0, i1, ...`` in discovery order (shared
+    subtrees canonicalize once -- the SSA sharing survives into the fused
+    netlist)."""
+    entries = []
+    index: Dict[int, int] = {}
+    leaves = []
+
+    def visit(e: LazyExpr) -> int:
+        idx = index.get(id(e))
+        if idx is not None:
+            return idx
+        if e.op is None:
+            name = f"i{len(leaves)}"
+            leaves.append(e)
+            entries.append(("in", name, e.width))
+        else:
+            i = visit(e.args[0])
+            j = visit(e.args[1])
+            op = e.op[3:] if e.op.startswith("fp_") else e.op
+            entries.append((op, i, j))
+        idx = index[id(e)] = len(entries) - 1
+        return idx
+
+    visit(expr)
+    return tuple(entries), leaves
+
+
+def _expr_pieces(expr: LazyExpr):
+    """Lower a DAG to its execution pieces: (program, inputs, n_rows,
+    shape, kind, fmt, decode, fused_ops, provenance)."""
+    graph, leaves = _graph_of(expr)
+    is_fp = expr.kind == "fp"
+    fmt = expr.fmt
+    arrs = np.broadcast_arrays(*[l.value for l in leaves])
+    shape = arrs[0].shape
+    inputs = {f"i{k}": a.ravel() for k, a in enumerate(arrs)}
+    n_rows = int(arrs[0].size)
+    kind = "fp-serial" if is_fp else "int-serial"
+    prog = pn.fused_program_for(kind, graph, fmt)
+    if is_fp:
+        dts = {l.dtype for l in leaves}
+        if len(dts) == 1 and None not in dts:
+            dt = dts.pop()
+            view = _FMT_VIEW[fmt]
+            decode = lambda b: np.asarray(b, np.uint64).astype(view) \
+                .view(dt).reshape(shape)
+        else:
+            decode = lambda b: np.asarray(b).reshape(shape)
+    else:
+        decode = lambda b: np.asarray(b).reshape(shape)
+    widths, prov = [], []
+    for e in graph:
+        if e[0] == "in":
+            widths.append(e[2])
+        else:
+            op, i, j = e
+            if is_fp:
+                widths.append(None)
+                prov.append((f"fp_{op}", fmt))
+            else:
+                w = max(widths[i], widths[j])
+                widths.append(pn._INT_OUT_WIDTH[op](w))
+                prov.append((op, w))
+    return (prog, inputs, n_rows, shape, kind, fmt, decode,
+            max(1, len(prov)), tuple(prov))
+
+
+def fuse(expr: LazyExpr, **kw) -> Prepared:
+    """Lower a lazy expression DAG into **one** fused program handle.
+
+    The per-op gate programs are stitched into a single netlist
+    (``gates.compose``) and levelized as a whole -- shared SSA across op
+    boundaries, DCE of intermediate port unpacks -- so the chain executes
+    with one pack, one compiled program, one unpack, and flows through
+    every downstream path (streaming, sharding, serving coalescing) like
+    any other :class:`Prepared`.  Keywords are the ufunc execution
+    keywords; the handle's ``op`` is ``"expr"``, its ``fused_ops``/
+    ``provenance`` record the composition.
+    """
+    if not isinstance(expr, LazyExpr):
+        raise TypeError("pim.fuse takes a LazyExpr (build one with "
+                        "pim.lazy / lazy ufunc calls)")
+    plan, parallel = _resolve(kw)
+    if parallel:
+        raise ValueError("expression fusion is bit-serial only (the "
+                         "partition schedules of the bit-parallel "
+                         "builders do not concatenate)")
+    prog, inputs, n_rows, shape, kind, fmt, decode, n_ops, prov = \
+        _expr_pieces(expr)
+    finish = lambda outs: decode(outs["z"])
+    return Prepared("expr", prog, inputs, n_rows, plan, finish,
+                    fused_ops=n_ops, provenance=prov)
+
+
+# --------------------------------------------------------------------------
+# in-memory reductions: reduce_sum / dot / gemv
+# --------------------------------------------------------------------------
+
+def _pow2_at_least(n: int) -> int:
+    p = 1
+    while p < n:
+        p <<= 1
+    return p
+
+
+def _pad_rows(vals: np.ndarray, total: int) -> np.ndarray:
+    out = np.zeros(total, object if vals.dtype == object else np.uint64)
+    out[:len(vals)] = vals
+    return out
+
+
+def reduce_sum(x, *, width=None, fmt=None, fused=True, deadline=None, **kw):
+    """Sum every element of ``x`` (an array or a lazy expression) with a
+    log-depth in-memory adder tree; returns a scalar.
+
+    The elementwise stage (the fused expression program, or an identity
+    copy for a plain array) and all reduction levels stay in the packed
+    word domain, the block on the device between tree levels -- one pack
+    in, one single-row unpack out (``pim_numerics.tree_reduce_rows``).  Fixed point sums exactly (the
+    accumulator grows one bit per level); fp sums in *tree order* under
+    RNE, bit-exact against the same-shaped host tree.  ``fused=False``
+    runs the identical pairing through per-op round trips (the unfused
+    reference).  ``deadline`` (absolute ``time.monotonic()``) cancels the
+    reduction between tree levels."""
+    e = lazy(x, width=width, fmt=fmt)
+    plan, parallel = _resolve(kw)
+    if parallel:
+        raise ValueError("reductions are bit-serial only")
+    prog, inputs, n_rows, shape, kind, efmt, decode, _, _ = _expr_pieces(e)
+    if n_rows < 1:
+        raise ValueError("pim.reduce_sum: empty reduction")
+    total = _pow2_at_least(n_rows)
+    padded = {n: _pad_rows(v, total) for n, v in inputs.items()}
+    out = pn.tree_reduce_rows(prog, padded, total, 1, kind=kind, fmt=efmt,
+                              plan=plan, fused=fused, deadline=deadline)
+    if e.kind == "fp":
+        leaves = _graph_of(e)[1]
+        dts = {l.dtype for l in leaves}
+        if len(dts) == 1 and None not in dts:
+            view = _FMT_VIEW[efmt]
+            return np.asarray(out, np.uint64).astype(view).view(
+                dts.pop())[0]
+        return np.asarray(out)[0]
+    return np.asarray(out)[0]
+
+
+def dot(x, y, *, width=None, fmt=None, fused=True, deadline=None, **kw):
+    """In-memory dot product ``sum_k x[k] * y[k]``: one element-parallel
+    multiply feeding a log-depth adder tree, intermediates never leaving
+    the packed array (DESIGN.md §13).  Operands follow ufunc dispatch
+    (unsigned ints / ``width=``; float16/float32 / ``fmt=`` bit
+    patterns).  Fixed point is exact; fp is the tree-order RNE sum."""
+    ex = lazy(x, width=width, fmt=fmt)
+    ey = lazy(y, width=width, fmt=fmt)
+    return reduce_sum(ex * ey, fused=fused, deadline=deadline, **kw)
+
+
+def gemv(a, x, *, width=None, fmt=None, fused=True, deadline=None, **kw):
+    """In-memory GEMV ``y[m] = sum_k a[m, k] * x[k]``.
+
+    Each output ``m`` is a packed-domain reduction lane: products land at
+    rows ``j*group + m`` (one multiply over all M*K products at once) and
+    log2(K) in-memory adder levels fold the K axis -- the GEMV executes in
+    ``1 + log2(K)`` program dispatches with no host round trip between
+    them (the block stays on the device).  Semantics per element match :func:`dot`."""
+    ea = lazy(a, width=width, fmt=fmt)
+    ex = lazy(x, width=width, fmt=fmt)
+    if ea.op is not None or ex.op is not None:
+        raise TypeError("pim.gemv takes operand arrays (compose lazy "
+                        "expressions with reduce_sum instead)")
+    if ea.kind != ex.kind or (ea.kind == "fp" and ea.fmt != ex.fmt):
+        raise TypeError(f"pim.gemv: operand kinds/formats do not match "
+                        f"({ea.kind}/{ea.fmt} vs {ex.kind}/{ex.fmt})")
+    av, xv = ea.value, ex.value
+    if av.ndim != 2 or xv.ndim != 1 or av.shape[1] != xv.shape[0]:
+        raise ValueError(f"pim.gemv: need a (M, K) matrix and a (K,) "
+                         f"vector, got {av.shape} and {xv.shape}")
+    m, k = av.shape
+    if k < 1 or m < 1:
+        raise ValueError("pim.gemv: empty operands")
+    plan, parallel = _resolve(kw)
+    if parallel:
+        raise ValueError("reductions are bit-serial only")
+    group = pn.reduce_group(m)
+    kp = _pow2_at_least(k)
+    is_fp = ea.kind == "fp"
+    w = None if is_fp else max(ea.width, ex.width)
+    graph = (("in", "i0", w), ("in", "i1", w), ("mul", 0, 1))
+    kind = "fp-serial" if is_fp else "int-serial"
+    prog = pn.fused_program_for(kind, graph, ea.fmt)
+    odt = object if (av.dtype == object or xv.dtype == object) else \
+        np.uint64
+    xa = np.zeros((kp, group), odt)
+    xb = np.zeros((kp, group), odt)
+    xa[:k, :m] = av.T                    # row j*group + m  <-  a[m, j]
+    xb[:k, :m] = np.asarray(xv)[:, None]
+    out = pn.tree_reduce_rows(prog, {"i0": xa.ravel(), "i1": xb.ravel()},
+                              kp * group, group, kind=kind, fmt=ea.fmt,
+                              plan=plan, fused=fused, deadline=deadline)
+    out = np.asarray(out)[:m]
+    if is_fp and ea.dtype is not None and ea.dtype == ex.dtype:
+        return np.asarray(out, np.uint64).astype(
+            _FMT_VIEW[ea.fmt]).view(ea.dtype)
+    return out

@@ -5,7 +5,8 @@ has not ported.
   anything of the JAX package ``repro``.
 * With no GPU, a default call raises instead of running on the CPU.
 * Every option that is not ported raises ``NotImplementedError`` naming the
-  ROADMAP item that brings it.
+  ROADMAP item that brings it; the options and entry points ported since
+  run through the port and agree with ``repro`` on the CPU.
 """
 
 import ast
@@ -57,8 +58,8 @@ def test_the_scan_sees_the_whole_package():
     names = {p.relative_to(PKG).as_posix() for p in SOURCES if PKG in p.parents}
     assert {"core/gates.py", "core/pim_numerics.py", "kernels/ops.py",
             "kernels/pim_exec.py", "kernels/slots.py", "kernels/plan.py",
-            "runtime/telemetry.py", "runtime/faults.py",
-            "pim_ufunc.py"} <= names
+            "kernels/transfer.py", "runtime/telemetry.py",
+            "runtime/faults.py", "pim_ufunc.py"} <= names
     assert {"kernels/ref.py"} <= names
     for src in ("slot_scan.cu", "level_gather.cu", "gate_serial.cu",
                 "pim_state.cuh"):
@@ -84,8 +85,6 @@ def test_cuda_backend_refuses_the_cpu():
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"shards": 2}, "A7"),
-    ({"mesh": object()}, "A7"),
     ({"faults": FaultModel(seed=1)}, "A9"),
     ({"verify": True}, "A9"),
     ({"verify": VerifyPolicy()}, "A9"),
@@ -104,8 +103,40 @@ def test_unported_configuration_raises():
             pim.add(x, x)
 
 
+@pytest.mark.parametrize("kw", [{"shards": 2}, {"mesh": ("cpu", "cpu")}],
+                         ids=["shards", "mesh"])
+def test_sharding_options_match_reference(kw):
+    """``shards=`` (no CUDA device here: one shard) and ``mesh=`` (two
+    shards on the CPU) run through the port and agree with ``repro``."""
+    from repro import pim_ufunc as rpim
+    x = np.arange(100, dtype=np.uint8)
+    y = x[::-1].copy()
+    want = rpim.add(x, y)
+    got = pim.add(x, y, device="cpu", backend="ref", **kw)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
+def _lazy_sum(p, a, b):
+    return p.lazy(a, width=8) + p.lazy(b, width=8)
+
+
 @pytest.mark.parametrize("name", ["lazy", "fuse", "reduce_sum", "dot",
                                   "gemv"])
-def test_unported_entry_points_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        getattr(pim, name)(np.uint8([1, 2]))
+def test_fusion_entry_points_match_reference(name):
+    """The entry points of fusion and the packed reductions run through
+    the port and agree with ``repro``."""
+    from repro import pim_ufunc as rpim
+    a = np.arange(1, 13, dtype=np.uint8)
+    b = (a * 7 % 11).astype(np.uint8)
+    ref = {"backend": "ref"}
+    cpu = {"device": "cpu", "backend": "ref"}
+    calls = {
+        "lazy": lambda p, kw: _lazy_sum(p, a, b).run(**kw),
+        "fuse": lambda p, kw: p.fuse(_lazy_sum(p, a, b), **kw).run(),
+        "reduce_sum": lambda p, kw: p.reduce_sum(_lazy_sum(p, a, b), **kw),
+        "dot": lambda p, kw: p.dot(a, b, **kw),
+        "gemv": lambda p, kw: p.gemv(a.reshape(3, 4), b[:4], **kw),
+    }
+    got, want = calls[name](pim, cpu), calls[name](rpim, ref)
+    assert np.array_equal(np.asarray(got, np.uint64),
+                          np.asarray(want, np.uint64))

@@ -753,3 +753,105 @@ def test_gate_serial_path_launches_its_kernel(cuda):
     assert np.array_equal(out["z"], x + y)
     assert pim_exec.LAUNCHES["gate_serial"] == 1
     assert not any(ref.CALLS.values())
+
+
+# --------------------------------------------------------------------------
+# on the card: the scale layer and the packed reductions
+# --------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["slots", "dense"])
+@pytest.mark.parametrize("layout", ["rows32", "rows64"])
+def test_packed_stage_on_a_device_block_matches_plain_version(cuda, kind,
+                                                             layout):
+    """B1 io and B3 io on a packed block kept on the device (a tree level's
+    input), out as a device block, against the plain version on the CPU."""
+    prog = program_for("int-serial", "add", 24)
+    planes = 1 if layout == "rows32" else 2
+    n_rows = 64 * 37 + 5
+    n_words = kplan.LAYOUTS[layout].n_words(n_rows)
+    rng = np.random.default_rng(21)
+    shape = (48, n_words) if planes == 1 else (2, 48, n_words)
+    blk = _bits(rng, shape)
+    want = ops.dispatch_packed(
+        prog, n_rows, kplan.as_plan(schedule=kind, layout=layout,
+                                    backend="ref", device="cpu"),
+        in_block=blk, in_names=("x", "y"))()
+    plan = kplan.as_plan(schedule=kind, layout=layout)
+    pim_exec.reset_counts()
+    got = ops._packed_stage(prog, n_rows, plan, in_block=_t(blk).to(cuda),
+                            in_names=("x", "y"), device_out=True)()
+    assert got.device.type == "cuda"
+    torch.cuda.synchronize()
+    assert np.array_equal(_np(got), want)
+    entry = ("slot_scan_io" if kind == "slots" else "level_gather_io") + \
+        ("" if planes == 1 else "_rows64")
+    assert pim_exec.LAUNCHES[entry] == 1
+    host = ops.dispatch_packed(prog, n_rows, plan, in_block=blk,
+                               in_names=("x", "y"))()
+    assert host.dtype == np.uint32 and np.array_equal(host, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fp32-add", "uint32-add"])
+def test_streaming_pipeline_matches_plain_version(cuda, name):
+    """Three whole chunks and a ragged tail through the pinned staging
+    buffers and copy streams, against ``backend="ref"`` on the card and on
+    the CPU."""
+    prog = PROGRAMS[name]()
+    n = 3 * 4096 + 77
+    rng = np.random.default_rng(22)
+    ins = {p: _bits(rng, n).astype(np.uint64) for p in sorted(prog.in_ports)}
+    want = ops.run_program(prog, ins, n, backend="ref", device="cpu")
+    pim_exec.reset_counts()
+    got = ops.run_program_streaming(prog, ins, n, chunk_rows=4096)
+    assert sum(pim_exec.LAUNCHES.values()) == 4
+    plain = ops.run_program_streaming(prog, ins, n, chunk_rows=4096,
+                                      backend="ref")
+    for k in want:
+        assert np.array_equal(got[k], want[k]) and \
+            np.array_equal(plain[k], want[k]), k
+
+
+@pytest.mark.cuda
+def test_mesh_on_one_card_matches_unsharded(cuda):
+    prog = PROGRAMS["fp32-add"]()
+    rng = np.random.default_rng(23)
+    n = 100_003
+    ins = {p: _bits(rng, n).astype(np.uint64) & np.uint64(0x3FFFFFFF)
+           for p in ("x", "y")}
+    want = ops.run_program(prog, ins, n)
+    for mesh in (("cuda:0", "cuda:0"), ("cuda:0",) * 3):
+        got = ops.run_program_streaming(prog, ins, n, mesh=mesh,
+                                        chunk_rows=1 << 15)
+        assert np.array_equal(got["z"], want["z"]), mesh
+
+
+@pytest.mark.cuda
+def test_reductions_on_the_card(cuda):
+    rng = np.random.default_rng(24)
+    a = rng.integers(0, 16, (100, 37)).astype(np.uint64)
+    x = rng.integers(0, 16, 37).astype(np.uint64)
+    pim_exec.reset_counts()
+    assert np.array_equal(np.asarray(pim.gemv(a, x, width=4), np.uint64),
+                          a @ x)
+    assert pim_exec.LAUNCHES["slot_scan_io"] == 1 + 6
+    u = rng.integers(0, 256, 1000).astype(np.uint64)
+    assert int(pim.dot(u, u, width=8, layout="rows64")) == int((u * u).sum())
+    f = (rng.uniform(1, 2, 64) * rng.choice([-1, 1], 64)).astype(np.float16)
+    got = pim.dot(f, f, schedule="dense")
+    p = (f * f).astype(np.float16)
+    while len(p) > 1:
+        p = (p[:len(p) // 2] + p[len(p) // 2:]).astype(np.float16)
+    assert got.view(np.uint16) == p[0].view(np.uint16)
+
+
+@pytest.mark.cuda
+def test_fused_fp32_chain_on_the_card(cuda):
+    rng = np.random.default_rng(25)
+    a, b, c = (rng.uniform(1, 2, 5000).astype(np.float32) for _ in range(3))
+    want = (a * b).astype(np.float32) + c
+    for schedule in ("slots", "dense", "slots-static"):
+        e = pim.fp_add(pim.fp_mul(pim.lazy(a), pim.lazy(b)), pim.lazy(c))
+        got = pim.fuse(e, schedule=schedule).run()
+        assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
