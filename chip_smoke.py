@@ -25,7 +25,10 @@ Phases, each of which raises (exit code 1) on failure:
    (B3), the static-slice kernels (B2) and the gate-serial kernel (B4),
    under rows32 and rows64, the ring kernels (B3, B4) on long streams
    and at fewer than 32 words per CTA, and the slot scan at slot widths
-   4 and 8;
+   4 and 8; and the check fold of verified execution (B6) on fused
+   blocks of 1, 31, 32 and 33 ports at 1000, 1 Mi and 16 Mi rows and on
+   packed rows32 and rows64 blocks of 1, 33 and 64 cells and odd word
+   counts, also against numpy's XOR reduction of the host copy;
 4. drive the main path through the public entry points, each run checked
    against numpy with the launch counters zeroed just before and read just
    after -- its kernel must have run and no plain version may have:
@@ -50,13 +53,24 @@ Phases, each of which raises (exit code 1) on failure:
    ``pim_linear_i8`` 1x4096x4096 against numpy's int64 matmul;
 9. ``pim.fuse`` of fp32 ``a*b + c`` at 4 Mi rows under the slot and dense
    schedules against numpy, rounded per op;
+
+   verified: verified execution under injected faults
+   (:func:`fault_model`): the main path in turns, plain, ``verify=True``
+   and faults with ``VerifyPolicy()``, three rounds, each run bit-exact
+   with its health counters, walls and overheads (the check fold B6
+   launched once a chunk attempt where both are set, never elsewhere);
+   the faults without a policy (the result must differ at the injected
+   rows); ``pim.gemv`` fp16 4096x4096 under the faults and a policy, and
+   with ``verify=True`` alone (its blocks stay on the card: one D2H
+   copy); two shards on one card under the faults;
 10. time each kernel entry at one chunk of 1 Mi rows beside its plain
    version, one PyTorch library call computing the same function, and its
-   bound, with its launch attributes (CTAs an SM, registers, local bytes).
+   bound, with its launch attributes (CTAs an SM, registers, local bytes),
+   and the check fold on a fused and a packed chunk.
 
-Phases 4 to 9 each zero the launch counters just before a run and read
-them just after: the run's kernels must have launched and no plain
-version may have run.
+Phases 4 to 9 and the verified phase each zero the launch counters just
+before a run and read them just after: the run's kernels must have
+launched and no plain version may have run.
 
 The line before the last is a JSON object with one record per kernel entry;
 the last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -105,6 +119,8 @@ ENTRIES = {
                      "src/repro_torch/kernels/pim_exec.py"),
     "gate_serial": ("src/repro/kernels/pim_exec.py:93",
                     "src/repro_torch/csrc/gate_serial.cu"),
+    "check_words": ("src/repro/kernels/pim_exec.py:407",
+                    "src/repro_torch/csrc/check_words.cu"),
 }
 
 
@@ -183,8 +199,8 @@ def operands(program, kind: str = "slots", planes: int = 1,
         lb=dev(s.b), lo=dev(s.out), out_idx=dev(out_cells),
         in_widths=tuple(len(s.pack_cells(n)) for n in in_names),
         out_widths=tuple(len(s.ports[n]) for n in out_names),
-        k_out=len(out_cells), in_base=ops._as_run(in_cells),
-        out_base=ops._as_run(out_cells) if kind == "slots" else None,
+        k_out=len(out_cells), in_base=ops.as_run(in_cells),
+        out_base=ops.as_run(out_cells) if kind == "slots" else None,
         one_cell=s.one_cell,
         packed=(pim_exec.pack_levels if kind == "dense" else
                 pim_exec.pack_slots)(s.a, s.b, s.out,
@@ -415,6 +431,41 @@ def check_kernels(progs, statics) -> dict:
     return worst
 
 
+#: Phase 3's check-fold cases (shape, axis): fused blocks (ports, rows)
+#: over the ports, packed blocks (cells, words) and rows64 blocks (2,
+#: cells, words) over the cells, at odd word counts.
+FOLD_CHECKS = ([((p, r), 0) for p in (1, 31, 32, 33)
+                for r in (1000, 1 << 20, 1 << 24)] +
+               [((k, w), 0) for k in (1, 33, 64) for w in (32769, 524289)] +
+               [((2, k, w), 1) for k in (1, 33, 64)
+                for w in (16385, 262145)])
+
+
+def check_folds(worst: dict) -> None:
+    """Phase 3 for B6: the check fold against its plain version on the
+    card and against numpy's XOR reduction of the host copy, bit for bit,
+    on random bits made on the card."""
+    from repro_torch.kernels import pim_exec, ref as kref
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+    for shape, axis in FOLD_CHECKS:
+        blk = torch.randint(-(1 << 31), 1 << 31, shape, dtype=torch.int32,
+                            device="cuda", generator=g)
+        got = pim_exec.check_words(blk, axis)
+        torch.cuda.synchronize()
+        want = kref.check_words(blk, axis)
+        host = np.bitwise_xor.reduce(blk.cpu().numpy().view(np.uint32),
+                                     axis=axis)
+        err = int((got.long() - want.long()).abs().max())
+        worst["check_words"] = max(worst.get("check_words", 0), err)
+        same = torch.equal(got, want) and \
+            np.array_equal(got.cpu().numpy().view(np.uint32), host)
+        print(f"check check_words {shape} axis={axis}: equal={same} (plain "
+              "version and numpy)", flush=True)
+        if not same:
+            raise AssertionError(f"check_words != plain version: {shape}")
+
+
 def _plain_calls() -> dict:
     from repro_torch.kernels import ref as kref, slots as kslots
     return {**kslots.CALLS, **kref.CALLS}
@@ -589,6 +640,7 @@ def device_timeline(fn) -> tuple:
              "kernels": len(kernels),
              "kernel_ms": sum(e["dur"] for e in kernels) / 1e3,
              "h2d": rate(h2d), "d2h": rate(d2h), "h2d_count": len(h2d),
+             "d2h_count": len(d2h),
              "h2d_overlap_share": (
                  _overlap_us(h2d, _intervals(kernels)) /
                  sum(e["dur"] for e in h2d) if h2d else 0.0)}
@@ -853,6 +905,221 @@ def fused_phase(gpu: str, kw=None, rows: int = FUSED_ROWS) -> dict:
               f"{s * 1e3:.3f} ms", flush=True)
     return ran
 
+
+# --------------------------------------------------------------------------
+# verified execution under injected faults (the verified phase)
+# --------------------------------------------------------------------------
+
+#: Chunk-relative row of the forced flip (output cell 0, every chunk's and
+#: every tree stage's first attempt) and the faults' chunk size.
+FLIP_ROW = 7
+FAULT_CHUNK = 1 << 20
+#: Rows of the two-shard run under faults.
+MESH_FAULT_ROWS = 16 << 20
+
+
+def fault_model():
+    """The verified phase's substrate: a forced flip of output cell 0 at
+    row :data:`FLIP_ROW` of every chunk's first attempt, a dead row in
+    chunk 3, a word column stuck at 1 in chunk 7, and transient flips at
+    the reference's acceptance rate (p_flip=5e-4 a level), seeded."""
+    from repro_torch.runtime.faults import FaultModel
+    return FaultModel(seed=SEED, p_flip=5e-4, force_flips=((0, FLIP_ROW),),
+                      force_dead_rows=(3 * FAULT_CHUNK + 1000,),
+                      force_stuck=((7 * FAULT_CHUNK // 32 + 5, 1),))
+
+
+def _verified_turns(a, b, want, gpu: str, kw) -> dict:
+    """fp32 ``fp_add`` at the main path's rows: plain, ``verify=True`` and
+    the faults under ``VerifyPolicy()``, in turns, three rounds.  Each run
+    is bit-exact, launches B1 once a chunk attempt and the check fold
+    once a chunk attempt where faults and a policy are both set, never
+    elsewhere.  Returns the check fold's launches in the first faulty
+    run."""
+    from repro_torch import pim_ufunc as pim
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.faults import VerifyPolicy
+    modes = {"plain": {}, "verify-only": {"verify": True},
+             "faults+verify": {"faults": fault_model(),
+                               "verify": VerifyPolicy()}}
+    n_chunks = -(-len(a) // FAULT_CHUNK)
+    folds = None
+    for rnd in range(3):
+        walls = {}
+        for mode, opts in modes.items():
+            ops.drain_health()
+            t0 = time.perf_counter()
+            prep = pim.prepare("fp_add", a, b, **opts, **kw)
+            prepare_s = time.perf_counter() - t0
+            got, ran, run_s = _counted(f"verified {mode}",
+                                       ("slot_scan_fused",), prep.run)
+            h = ops.drain_health()
+            if not _same_bits(got, want):
+                raise AssertionError(f"fp_add {mode} differs from numpy")
+            attempts = ran["slot_scan_fused"]
+            n_folds = ran.get("check_words", 0)
+            if mode == "faults+verify":
+                if n_folds != attempts or attempts != n_chunks + \
+                        h.get("retries", 0):
+                    raise AssertionError(f"{mode}: {attempts} attempts, "
+                                         f"{n_folds} folds, health {h}")
+                short = [k for k in ("faults_injected", "faults_detected",
+                                     "faults_corrected", "retries",
+                                     "remapped_rows") if h.get(k, 0) < 1]
+                if short:
+                    raise AssertionError(f"{mode}: no {short}: {h}")
+                folds = folds or n_folds
+            elif n_folds or attempts != n_chunks or \
+                    h.get("faults_detected") or h.get("retries"):
+                raise AssertionError(f"{mode}: launches {ran}, health {h}")
+            walls[mode] = (prepare_s + run_s, run_s)
+            print(f"verified round {rnd} fp_add fp32 rows={len(a)} {mode}: "
+                  f"{gpu}; bit-exact vs numpy; launches {ran}; health {h}; "
+                  f"wall {walls[mode][0] * 1e3:.3f} ms (prepare "
+                  f"{prepare_s * 1e3:.3f} ms, run phase "
+                  f"{run_s * 1e3:.3f} ms)", flush=True)
+        pw, pr = walls["plain"]
+        print(f"verified round {rnd} overheads vs plain: verify-only wall "
+              f"{walls['verify-only'][0] / pw:.6f}x run phase "
+              f"{walls['verify-only'][1] / pr:.6f}x; faults+verify wall "
+              f"{walls['faults+verify'][0] / pw:.6f}x run phase "
+              f"{walls['faults+verify'][1] / pr:.6f}x", flush=True)
+    return folds
+
+
+def verified_phase(a, b, gpu: str, kw=None, gemv_shape=GEMV_SHAPE,
+                   mesh=("cuda:0", "cuda:0")) -> dict:
+    """The verified phase (after phase 9): verified execution under
+    injected faults through the public entry points, each run checked
+    against numpy with the launch counters zeroed just before and read
+    just after.  Returns the check fold's launches on its main paths: the
+    faulty fp_add (fused blocks) and the faulty gemv (packed blocks)."""
+    from repro_torch import pim_ufunc as pim
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.faults import VerifyPolicy
+    kw = kw or {}
+    want = a + b
+    ran = {"check_words_fused": _verified_turns(a, b, want, gpu, kw)}
+
+    # the faults with no policy reach the result
+    fm = fault_model()
+    ops.drain_health()
+    got, launches, s = _counted("faults without verify",
+                                ("slot_scan_fused",),
+                                lambda: pim.fp_add(a, b, faults=fm, **kw))
+    h = ops.drain_health()
+    differ = got.view(np.uint32) != want.view(np.uint32)
+    rows = np.arange(FLIP_ROW, len(a), FAULT_CHUNK)
+    if launches.get("check_words") or not differ[rows].all() or \
+            not differ[3 * FAULT_CHUNK + 1000]:
+        raise AssertionError("unverified faults did not reach the result "
+                             f"as injected: launches {launches}, {h}")
+    print(f"verified fp_add fp32 rows={len(a)} faults without verify: "
+          f"{gpu}; differs from numpy at {int(differ.sum())} rows, the "
+          f"{len(rows)} forced-flip rows and the dead row among them; "
+          f"launches {launches}; health {h}; wall {s * 1e3:.3f} ms",
+          flush=True)
+
+    # the packed tree under the faults, and verify-only
+    rng = np.random.default_rng(SEED + 9)
+    m, k = gemv_shape
+    ga = uniform_signed(rng, m * k, np.float16).reshape(m, k)
+    gx = uniform_signed(rng, k, np.float16)
+    prods = np.zeros((m, 1 << (k - 1).bit_length()), np.float16)
+    prods[:, :k] = ga * gx
+    tree = _host_tree(prods)
+    stages = 1 + (k - 1).bit_length()
+    for label, opts in (("faults+verify", {"faults": fm,
+                                           "verify": VerifyPolicy()}),
+                        ("verify-only", {"verify": True})):
+        ops.drain_health()
+        keys = ("slot_scan_io",) + (("check_words",) if "faults" in opts
+                                    else ())
+
+        def counted():
+            return _counted(f"gemv {label}", keys,
+                            lambda: pim.gemv(ga, gx, **opts, **kw))
+        if torch.cuda.is_available():
+            (got, launches, s), _, st = device_timeline(counted)
+        else:
+            (got, launches, s), st = counted(), None
+        h = ops.drain_health()
+        if not _same_bits(got, tree):
+            raise AssertionError(f"gemv fp16 {label} != host tree")
+        n_io = launches["slot_scan_io"]
+        if "faults" in opts:
+            if launches["check_words"] != n_io or \
+                    n_io != stages + h.get("retries", 0):
+                raise AssertionError(f"gemv {label}: launches {launches}, "
+                                     f"health {h}")
+            ran["check_words_io"] = launches["check_words"]
+        elif n_io != stages or launches.get("check_words") or \
+                (st is not None and st["d2h_count"] != 1):
+            raise AssertionError(f"gemv {label}: launches {launches}, "
+                                 f"D2H {st and st['d2h_count']}")
+        d2h = "not measured" if st is None else \
+            f"{st['d2h_count']} D2H copies ({st['d2h'][1]} B)"
+        print(f"verified gemv fp16 {m}x{k} {label}: {gpu}; bit-exact vs the "
+              f"numpy host tree; {stages} stages; launches {launches}; "
+              f"health {h}; {d2h}; wall {s * 1e3:.3f} ms", flush=True)
+
+    # two shards on the one card under the faults
+    n = min(MESH_FAULT_ROWS, len(a))
+    ops.drain_health()
+    got, launches, s = _counted(
+        "mesh faults+verify", ("slot_scan_fused", "check_words"),
+        lambda: pim.fp_add(a[:n], b[:n], mesh=mesh, faults=fm,
+                           verify=VerifyPolicy(), **kw))
+    h = ops.drain_health()
+    if not _same_bits(got, want[:n]):
+        raise AssertionError("fp_add mesh faults+verify differs from numpy")
+    print(f"verified fp_add fp32 rows={n} mesh={mesh} faults+verify: {gpu}; "
+          f"bit-exact vs numpy; launches {launches}; health {h}; wall "
+          f"{s * 1e3:.3f} ms", flush=True)
+    return ran
+
+
+def fold_bound(outer: int, k: int, inner: int, lop_rate: float) -> tuple:
+    """Least time of B6 on ``outer x k x inner`` words: the block read
+    and the fold written once at the HBM rate, against one 32-bit XOR a
+    word read at ``lop_rate``."""
+    t_bytes = 4 * outer * inner * (k + 1) / HBM_BYTES_PER_S * 1e3
+    t_ops = outer * k * inner / lop_rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def measure_folds(chunk_rows: int, launches: dict, worst: dict,
+                  gpu: str) -> list:
+    """Phase 10 for B6: the check fold at one chunk, fused (one port,
+    ``chunk_rows`` rows) and packed (uint32 add's 33 output cells over the
+    chunk's words), beside its plain version and its bound.  torch has no
+    XOR reduction, so there is no library time."""
+    from repro_torch.kernels import pim_exec, ref as kref
+    sm_clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
+    lop_rate = N_SMS * LOPS_PER_SM_CLOCK * sm_clock_hz
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+    rows = []
+    for key, shape in (("check_words_fused", (1, chunk_rows)),
+                       ("check_words_io", (33, chunk_rows // 32))):
+        blk = torch.randint(-(1 << 31), 1 << 31, shape, dtype=torch.int32,
+                            device="cuda", generator=g)
+        ms = cuda_ms(lambda: pim_exec.check_words(blk, 0), 200)
+        plain_ms = cuda_ms(lambda: kref.check_words(blk, 0), 20)
+        bound_ms, bound_by = fold_bound(1, shape[0], shape[1], lop_rate)
+        print(f"time {key}: {gpu}; block {shape} folded over axis 0; kernel "
+              f"{ms:.6f} ms/launch, {launches[key]} launches on its main "
+              f"path; plain {plain_ms:.6f} ms; library none (torch has no "
+              f"XOR reduction); bound {bound_ms:.6f} ms ({bound_by})",
+              flush=True)
+        replaces, source = ENTRIES["check_words"]
+        rows.append({
+            "name": key, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[key],
+            "max_abs_err": worst["check_words"], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None})
+    return rows
 
 
 def bound(entry: str, s, n_rows: int, fused, lop_rate: float,
@@ -1552,14 +1819,16 @@ def main() -> None:
     chunk_rows = kplan.DEFAULT_CHUNK_ROWS
 
     worst = check_kernels(progs, statics)
+    check_folds(worst)
     main = main_path()
     unsharded = streaming_phase(main["a"], main["b"], gpu)
     groups_phase()
     sharding_phase(main["a"], main["b"], unsharded)
     reductions_phase(gpu)
     fused_phase(gpu)
+    folds = verified_phase(main["a"], main["b"], gpu)
     kernels = measure(progs, statics, chunk_rows, main["launches"], worst,
-                      gpu)
+                      gpu) + measure_folds(chunk_rows, folds, worst, gpu)
     if args.turns:
         turns(main["a"], main["b"], gpu, args.turns)
     if args.probe is not None:

@@ -202,7 +202,18 @@ def tree_reduce_rows(row_program, inputs: Dict[str, np.ndarray],
     ``fused=False`` (or the numpy backend) runs the same pairing through
     per-op ``run_program`` round trips, the bit-identical reference.
     ``deadline`` (absolute ``time.monotonic()``) is checked between
-    levels."""
+    levels.
+
+    A plan with a fault model or a verify policy runs the tree under
+    verified execution, one ``_VerifyRun`` for the whole tree and every
+    level a verify cut-point (``stage`` counts the levels).  Under a fault
+    model each level's block comes to the host, is injected and checked
+    there (the check plane folds the whole block, zero pad rows
+    included), and the block that passed is the next level's input, as in
+    the reference, whose next level reads that host block; a failed level
+    re-runs from its own input block, never from the leaves.  A
+    verify-only plan injects and folds nothing, so its blocks stay on the
+    device as a plain plan's do."""
     plan = kops.as_plan(plan)
     R = int(total_rows)
     group = int(group)
@@ -243,20 +254,32 @@ def tree_reduce_rows(row_program, inputs: Dict[str, np.ndarray],
         raise ValueError("tree_reduce_rows needs a row program with the "
                          "single out-port 'z'")
     rpw = 32 * plan.layout.planes
+    vrun = kops._VerifyRun(plan) if kops._needs_ft(plan) else None
+    on_host = plan.faults is not None
+    stage = 0
     with transfer.computing(plan.devices):
         block = kops._packed_stage(row_program, R, plan, inputs=inputs,
-                                   device_out=True, deadline=deadline)()
+                                   vrun=vrun, device_out=not on_host,
+                                   deadline=deadline)()
         while R > group:
             kops._check_deadline(deadline)
             half = R // 2
+            if on_host:
+                block = torch.from_numpy(block.view(np.int32))
             x, y = _halves(block, half, rpw)
+            in_block = torch.cat([x, y], dim=-2)
+            if on_host:
+                in_block = in_block.numpy().view(np.uint32)
+            stage += 1
             block = kops._packed_stage(
                 adder(w), half, plan, in_names=("x", "y"),
-                in_block=torch.cat([x, y], dim=-2), device_out=True,
-                deadline=deadline)()
+                in_block=in_block, vrun=vrun, stage=stage,
+                device_out=not on_host, deadline=deadline)()
             if not is_fp:
                 w += 1
             R = half
+        if on_host:
+            return kops._unpack_sub(block, [("z", w)], group)["z"]
         host = transfer.lane(block.device).download(block)
     return host.result(lambda b: kops._unpack_sub(b, [("z", w)],
                                                   group)["z"])

@@ -33,6 +33,13 @@ that the host fills chunk k+1 while chunk k runs.
 stages of the reduction trees in ``core.pim_numerics``, whose blocks stay
 on the device between levels).
 
+Verified execution: a plan with a fault model (``faults``) or a verify
+policy (``verify``) runs each chunk, group and tree stage through the
+reference's detect -> retry -> remap loop (:func:`_verified_dispatch`,
+:func:`_verified_dispatch_packed`), with the check fold (B6,
+``pim_exec.check_words``) on the device when both are set;
+:data:`HEALTH` counts what it did.
+
 The ``cuda`` backend runs the kernels (``kernels.pim_exec``), ``ref`` their
 plain versions (``kernels.slots``, ``kernels.ref``) on the plan's devices,
 ``numpy`` the gate-serial oracle (``Program.exec_packed``).
@@ -52,14 +59,30 @@ import torch
 
 from ..core.gates import LevelSchedule, levelize
 from ..runtime import telemetry
-from ..runtime.faults import DeadlineExceeded
+from ..runtime.faults import (DeadlineExceeded, FaultError,  # noqa: F401
+                              FaultModel, VerifyPolicy, note_quarantine,
+                              record_wear)
 from . import pim_exec
 from . import ref as kref
 from . import slots as kslots
 from . import transfer
-from .plan import DEFAULT_PLAN, ROWS32, ExecPlan, WordLayout, as_plan
+from .pim_exec import check_words  # noqa: F401
+from .plan import (BACKENDS, DEFAULT_LAYOUT, DEFAULT_PLAN,  # noqa: F401
+                   DEFAULT_SCHEDULE, LAYOUTS, ROWS32, ROWS64, SCHEDULES,
+                   Backend, ExecPlan, WordLayout, as_plan)
+# Tunables re-exported from their home on kernels.plan, for callers that
+# import them from here.
+from .plan import (DEFAULT_CHUNK_ROWS, LEVEL_MAX_WIDTH,  # noqa: F401
+                   SLOT_WIDTH)
 
 _FULL = np.uint32(0xFFFFFFFF)
+
+
+def make_plan(**kw) -> ExecPlan:
+    """Build an :class:`ExecPlan` from convenience keywords (``backend=``,
+    ``schedule=``, ``layout=``, ``mesh=``, ``chunk_rows=``, ``device=``,
+    ``faults=``, ``verify=``, or a ready plan via ``plan=``)."""
+    return as_plan(kw.pop("plan", None), **kw)
 
 
 # --------------------------------------------------------------------------
@@ -219,7 +242,7 @@ def _stacked_cells(cell_lists) -> np.ndarray:
         [np.asarray(c, np.int64) for c in cell_lists]).astype(np.int32)
 
 
-def _as_run(idx) -> Optional[int]:
+def as_run(idx) -> Optional[int]:
     """Start of the single contiguous ascending run ``idx`` forms, or None."""
     idx = np.asarray(idx)
     if idx.size == 0:
@@ -448,7 +471,7 @@ class _Compiled:
             dev = tuple(torch.from_numpy(np.ascontiguousarray(x, np.int32)
                                          ).to(device)
                         for x in (s.a, s.b, s.out, cells)) + \
-                (names, _as_run(cells) if alloc == "slots" else None)
+                (names, as_run(cells) if alloc == "slots" else None)
             self.devs[(alloc, device)] = dev
         return dev
 
@@ -473,7 +496,7 @@ class _Compiled:
             s = self.get_schedule(program, plan, kind)
             cells = _stacked_cells([s.pack_cells(n) for n in in_names])
             self.in_idx[key] = (torch.from_numpy(cells).to(device),
-                                _as_run(cells))
+                                as_run(cells))
         return self.in_idx[key]
 
     def resolve(self, program, plan: ExecPlan, in_names: tuple,
@@ -580,6 +603,12 @@ def is_compiled(program, plan: Optional[ExecPlan] = None) -> bool:
     plan = DEFAULT_PLAN if plan is None else plan
     entry = _compiled.get(cache_key(program, plan))
     return entry is not None and _alloc_of(plan.schedule) in entry.scheds
+
+
+def program_arrays(program):
+    """(ops, a, b, out, n_cells) of the NOR-lowered program, cached by
+    structural content hash (under the default plan's cache entry)."""
+    return compiled(program).get_arrays(program)
 
 
 def program_schedule(program, plan: Optional[ExecPlan] = None
@@ -792,6 +821,311 @@ def _fit_packed(block, n_words: int):
 
 
 # --------------------------------------------------------------------------
+# verified execution under injected faults
+# --------------------------------------------------------------------------
+#
+# A plan with a fault model and/or a verify policy runs every chunk, group
+# and packed tree level through a detect -> retry -> remap loop, as the
+# reference does: the dispatcher injects the model's faults into the output
+# on its way to the host (numpy, ``FaultModel.inject_values`` /
+# ``inject_packed``), and -- when both are set -- compares the host's refold
+# of what it received with the XOR check fold the device computed before
+# the readback (``pim_exec.check_words``, B6, on the compute stream behind
+# the executor; its plain version on ``ref``).  A failed check re-runs the
+# chunk; retries that keep failing re-home it onto a clean spare span.
+# Wear and quarantine go to ``runtime.faults``.  A plan with neither never
+# enters this machinery.
+
+#: Cumulative health counters (faults_injected/detected/corrected,
+#: retries, remapped_rows, spot_checks, spot_mismatches) on the global
+#: telemetry registry's ``pim.health.*`` names; :func:`drain_health`
+#: snapshots and resets them.
+HEALTH: "telemetry.CounterGroup" = telemetry.REGISTRY.group("pim.health")
+
+
+def drain_health() -> dict:
+    """Snapshot and reset :data:`HEALTH`; returns the non-zero counters."""
+    return HEALTH.drain()
+
+
+class _Corrupt(Exception):
+    """Internal: a chunk's verification failed (check-word mismatch or
+    oracle spot-check miss); drives the retry loop, never escapes it."""
+
+
+def _state_span(plan: ExecPlan, rows: int) -> int:
+    """Physical rows covered by one dispatch's packed state, word padding
+    included -- the span the media scan certifies and the injectors
+    corrupt; the word count of ``_dispatch_levelized`` (padded to a
+    multiple of the shard count)."""
+    n_words = plan.layout.n_words(rows, len(plan.devices))
+    return n_words * 32 * plan.layout.planes
+
+
+def _chunk_salt(pkey: bytes, start: int) -> int:
+    """Deterministic per-(program, chunk) transient-sampling salt."""
+    return (int.from_bytes(pkey[:8], "little")
+            ^ (start * 0x9E3779B97F4A7C15)) & ((1 << 64) - 1)
+
+
+@dataclasses.dataclass
+class _FaultCtx:
+    """One dispatch attempt's injection + verification context, threaded
+    into ``_dispatch_levelized``; its ``finalize`` calls the ``process_*``
+    hook of its output representation on the host copy."""
+    faults: Optional[FaultModel]
+    verify: Optional[VerifyPolicy]
+    row_base: int
+    salt: int
+    attempt: int
+
+    @property
+    def folds(self) -> bool:
+        """The device folds a check plane: only when there is simulated
+        media to distrust and a policy to act on a mismatch."""
+        return self.faults is not None and self.verify is not None
+
+    def _checked(self, clean_chk, data, axis: int, injected: int):
+        if injected:
+            HEALTH.add("faults_injected", injected)
+        if clean_chk is not None and self.faults is not None:
+            if not np.array_equal(np.bitwise_xor.reduce(data, axis=axis),
+                                  clean_chk):
+                HEALTH.add("faults_detected")
+                raise _Corrupt("check-word mismatch")
+        return data
+
+    def process_values(self, o: np.ndarray, out_widths, n_levels: int,
+                       clean_chk: Optional[np.ndarray]) -> np.ndarray:
+        """Fused branch: ``o`` is uint32[n_ports, padded_rows]."""
+        if self.folds and clean_chk is None:
+            clean_chk = np.bitwise_xor.reduce(o, axis=0)
+        injected = 0
+        if self.faults is not None:
+            o, injected = self.faults.inject_values(
+                o, out_widths, row_base=self.row_base, salt=self.salt,
+                attempt=self.attempt, n_levels=n_levels)
+        return self._checked(clean_chk, o, 0, injected)
+
+    def process_packed(self, sub: np.ndarray, n_levels: int,
+                       clean_chk: Optional[np.ndarray]) -> np.ndarray:
+        """io branch: ``sub`` is the packed output block (cell axis -2,
+        rows32 2-D or planes-leading 3-D)."""
+        if self.folds and clean_chk is None:
+            clean_chk = np.bitwise_xor.reduce(sub, axis=sub.ndim - 2)
+        injected = 0
+        if self.faults is not None:
+            sub, injected = self.faults.inject_packed(
+                sub, row_base=self.row_base, salt=self.salt,
+                attempt=self.attempt, n_levels=n_levels)
+        return self._checked(clean_chk, sub, sub.ndim - 2, injected)
+
+
+# Rows verified since the last oracle spot check, shared across calls so
+# the oracle's cost amortizes per row served, not per call.  Starts
+# saturated so the first verified execution in a process is spot-checked.
+_spot_debt = 1 << 62
+
+
+class _VerifyRun:
+    """Per-execution (one streaming run, one group, one reduction tree)
+    retry + remap state: the logical-start -> spare-span remap table and
+    the spare allocator.  :data:`HEALTH` aggregates across runs."""
+
+    def __init__(self, plan: ExecPlan):
+        self.plan = plan
+        self.faults = plan.faults
+        self.policy = plan.verify
+        self.spare_next = None if self.faults is None \
+            else int(self.faults.spare_base)
+        self.remap: Dict[int, int] = {}
+
+    def _alloc(self, span: int) -> int:
+        base = self.spare_next
+        self.spare_next += (span + 63) // 64 * 64
+        return base
+
+    def _clean_spare(self, span: int, limit: int) -> int:
+        base = self._alloc(span)
+        tries = 0
+        while self.faults.span_bad(base, span):
+            tries += 1
+            if tries > limit:
+                raise FaultError(
+                    f"media scan found no clean {span}-row spare span "
+                    f"after {limit} candidates",
+                    span_rows=span, scan_limit=limit)
+            base = self._alloc(span)
+        return base
+
+    def place(self, start: int, span: int) -> int:
+        """Physical base for the chunk at logical row ``start``: the
+        existing remap target, or -- when the media scan flags the span's
+        persistent faults -- a freshly scanned clean spare."""
+        base = self.remap.get(start, start)
+        if self.faults is None or self.policy is None:
+            return base
+        if self.faults.span_bad(base, span):
+            note_quarantine(base, span)
+            base = self._clean_spare(span, self.policy.scan_limit)
+            self.remap[start] = base
+            HEALTH.add("remapped_rows", span)
+        return base
+
+    def rehome(self, start: int, span: int) -> int:
+        """Force a fresh spare placement: the current span keeps failing
+        verification although the scan called it clean."""
+        if self.faults is None:
+            return self.remap.get(start, start)
+        note_quarantine(self.remap.get(start, start), span)
+        base = self._clean_spare(span, self.policy.scan_limit)
+        self.remap[start] = base
+        HEALTH.add("remapped_rows", span)
+        return base
+
+    def maybe_spot(self, program, inputs, n_rows: int, out: dict) -> None:
+        """Amortized oracle spot check: every ``spot_interval_rows``
+        verified rows, recompute ``spot_rows`` sampled rows on the numpy
+        oracle and compare bit-exactly (catches what the per-word parity
+        cannot, such as two flips of one bit position).  Raises
+        :class:`_Corrupt` on a mismatch so the chunk retries."""
+        global _spot_debt
+        pol = self.policy
+        if pol is None or pol.spot_rows <= 0 or n_rows <= 0:
+            return
+        _spot_debt += n_rows
+        if _spot_debt < pol.spot_interval_rows:
+            return
+        _spot_debt = 0
+        HEALTH.add("spot_checks")
+        k = min(pol.spot_rows, n_rows)
+        idx = np.unique(np.linspace(0, n_rows - 1, num=k, dtype=np.int64))
+        sub_in = {n: np.asarray(v)[idx] for n, v in inputs.items()}
+        # the oracle runs on the host: no mesh, no device, no faults
+        oplan = dataclasses.replace(
+            self.plan, backend=BACKENDS["numpy"], mesh=None, layout=ROWS32,
+            chunk_rows=None, device="cpu", faults=None, verify=None)
+        want = run_program(program, sub_in, int(idx.size), oplan)
+        for name, w in want.items():
+            if not np.array_equal(np.asarray(out[name])[idx], w):
+                HEALTH.add("spot_mismatches")
+                HEALTH.add("faults_detected")
+                raise _Corrupt(f"oracle spot check mismatch on {name!r}")
+
+
+def _retry_loop(plan: ExecPlan, vrun: _VerifyRun, start: int, span: int,
+                dispatch: Callable, base: int, failed: Callable,
+                check: Callable = lambda out: None,
+                deadline: Optional[float] = None) -> Callable:
+    """The ``finalize`` of a verified dispatch: wait for attempt 0
+    (launched now, asynchronously, as a plain dispatch is), run ``check``
+    on its result, and re-dispatch synchronously while it fails --
+    re-homing the span from ``remap_after`` retries on.  ``failed(attempt)``
+    builds the :class:`FaultError` raised after ``max_retries``."""
+    first = dispatch(0, base)
+
+    def finalize():
+        pol = plan.verify
+        attempt, row_base, fin = 0, base, first
+        while True:
+            try:
+                out = fin()
+                check(out)
+                break
+            except _Corrupt:
+                attempt += 1
+                if pol is None or attempt > pol.max_retries:
+                    raise failed(attempt) from None
+                HEALTH.add("retries")
+                _check_deadline(deadline)
+                time.sleep(min(pol.backoff_s * (1 << (attempt - 1)), 0.05))
+                if attempt >= pol.remap_after and plan.faults is not None:
+                    row_base = vrun.rehome(start, span)
+                fin = dispatch(attempt, row_base)
+        if attempt:
+            HEALTH.add("faults_corrected")
+        return out
+
+    return finalize
+
+
+def _verified_dispatch(program, inputs: Dict[str, np.ndarray], n_rows: int,
+                       plan: ExecPlan, pad_rows: Optional[int],
+                       vrun: _VerifyRun, start: int) -> Callable:
+    """Dispatch one chunk (logical rows from ``start``) under the plan's
+    fault model / verify policy; returns a ``finalize`` that runs the
+    detect -> retry -> remap loop and the amortized oracle spot check."""
+    span = _state_span(plan, n_rows if pad_rows is None else pad_rows)
+    base = vrun.place(start, span)
+    pkey = content_key(program)
+    salt = _chunk_salt(pkey, start)
+
+    def dispatch(attempt: int, row_base: int) -> Callable:
+        fctx = _FaultCtx(plan.faults, plan.verify, row_base, salt, attempt)
+        record_wear(row_base, span)           # every attempt writes media
+        return _dispatch_levelized(program, inputs, n_rows, plan,
+                                   pad_rows=pad_rows, fctx=fctx)
+
+    def failed(attempt: int) -> FaultError:
+        return FaultError(
+            f"rows [{start}, {start + n_rows}): verification still "
+            f"failing after {attempt - 1} retries",
+            program_key=pkey[:8].hex(), chunk_start=start, rows=n_rows,
+            attempts=attempt, remapped_base=vrun.remap.get(start))
+
+    return _retry_loop(
+        plan, vrun, start, span, dispatch, base, failed,
+        check=lambda out: vrun.maybe_spot(program, inputs, n_rows, out))
+
+
+def _verified_dispatch_packed(program, n_rows: int, plan: ExecPlan,
+                              vrun: _VerifyRun, stage: int, *,
+                              inputs=None, packed_in=None, in_names=None,
+                              device_out: bool = False,
+                              deadline: Optional[float] = None) -> Callable:
+    """A packed-domain stage under the plan's fault model / verify policy
+    (the reduction trees' :func:`_verified_dispatch`).  Every stage is its
+    own verify cut-point: the check plane folds the whole packed block,
+    zero pad rows included, and the stage's input block (``packed_in``) is
+    kept until the stage passes, so a detected corruption re-runs only
+    this stage.  The tree shares one ``vrun`` keyed at logical row 0 (a
+    remap sticks for every later level); ``stage`` salts each level's
+    transient stream.  ``device_out`` keeps the output on the device (see
+    :func:`_dispatch_levelized`); with no fault model nothing is injected
+    or checked, so a verify-only tree keeps its blocks there."""
+    if device_out and plan.faults is not None:
+        raise ValueError("a stage under a fault model is injected and "
+                         "checked on the host: device_out needs "
+                         "faults=None")
+    span = _state_span(plan, n_rows)
+    base = vrun.place(0, span)
+    pkey = content_key(program)
+    salt = _chunk_salt(pkey, stage)
+    names = inputs if packed_in is None else {n: None for n in in_names}
+
+    def dispatch(attempt: int, row_base: int) -> Callable:
+        fctx = _FaultCtx(plan.faults, plan.verify, row_base, salt, attempt)
+        record_wear(row_base, span)
+        return _dispatch_levelized(program, names, n_rows, plan, fctx=fctx,
+                                   packed_in=packed_in, packed_out=True,
+                                   device_out=device_out)
+
+    def failed(attempt: int) -> FaultError:
+        return FaultError(
+            f"packed stage {stage} ({n_rows} rows): verification still "
+            f"failing after {attempt - 1} retries",
+            program_key=pkey[:8].hex(), stage=stage, rows=n_rows,
+            attempts=attempt, remapped_base=vrun.remap.get(0))
+
+    return _retry_loop(plan, vrun, 0, span, dispatch, base, failed,
+                       deadline=deadline)
+
+
+def _needs_ft(plan: ExecPlan) -> bool:
+    return plan.faults is not None or plan.verify is not None
+
+
+# --------------------------------------------------------------------------
 # execution
 # --------------------------------------------------------------------------
 
@@ -847,17 +1181,19 @@ def _run_io(comp, program, plan: ExecPlan, r: _Resolved, in_names,
     return kref.pim_exec_ref_level_io(x, *sched_args, **common)
 
 
-def _gathered(parts: list, consume, axis: int):
-    """``consume`` of the shards' downloads joined along ``axis``; one
-    shard's is read straight out of its staging buffer."""
+def _gathered(parts: list, consume):
+    """``consume`` of the shards' downloads, each array joined along its
+    last (word or row) axis; one shard's are read straight out of its
+    staging buffer."""
     if len(parts) == 1:
         return parts[0].result(consume)
-    return consume(np.concatenate([p.result(np.array) for p in parts],
-                                  axis=axis))
+    got = [p.result(lambda *a: [np.array(x) for x in a]) for p in parts]
+    return consume(*(np.concatenate(col, axis=-1) for col in zip(*got)))
 
 
 def _dispatch_levelized(program, inputs: Dict[str, np.ndarray], n_rows: int,
                         plan: ExecPlan, pad_rows: Optional[int] = None, *,
+                        fctx: Optional[_FaultCtx] = None,
                         packed_in=None, packed_out: bool = False,
                         device_out: bool = False):
     """Pack ``inputs`` and launch one levelized execution under ``plan``;
@@ -880,7 +1216,19 @@ def _dispatch_levelized(program, inputs: Dict[str, np.ndarray], n_rows: int,
     (out-ports stacked in ``output_names`` order) as numpy uint32 -- or,
     with ``device_out``, as an int32 tensor on the mesh's first device,
     made on its compute stream, which a packed stage takes as its
-    ``packed_in`` without a trip through the host."""
+    ``packed_in`` without a trip through the host.
+
+    ``fctx`` is a verified dispatch's attempt (:class:`_FaultCtx`):
+    finalize hands the host copy to its ``process_*`` hook (injection,
+    check).  Under a fault model the fused branch stages and runs every
+    shard's whole padded span, zero inputs in the pad, as the injectors
+    address physical rows of it; with a verify policy too, the check fold
+    (B6) runs on the output behind the executor and comes back with it.
+
+    When ``telemetry.TRACER`` is enabled, finalize records an ``exec``
+    event (``cat="pim.exec"``, with ``rows``, ``levels`` and ``kind``)
+    from the launch to its own return; for a ``device_out`` stage that is
+    when the tensor is handed over, not when the device is done."""
     comp = compiled(program, plan)
     in_names = sorted(inputs)
     devices = tuple(_checked_device(d) for d in plan.devices)
@@ -888,12 +1236,32 @@ def _dispatch_levelized(program, inputs: Dict[str, np.ndarray], n_rows: int,
           for d in dict.fromkeys(devices)}
     r = rs[devices[0]]
     telemetry.record_dispatch(n_rows, r.model)
+    tracer = telemetry.TRACER
+    t_disp = time.perf_counter() if tracer.enabled else 0.0
+
+    def traced(fin: Callable) -> Callable:
+        if not tracer.enabled:
+            return fin
+
+        def wrapped():
+            out = fin()
+            tracer.event("exec", t_disp, time.perf_counter(),
+                         cat="pim.exec", rows=n_rows,
+                         levels=int(r.sched.n_levels), kind=r.kind)
+            return out
+        return wrapped
+
     layout = plan.layout
     rpw = layout.rows_per_word
     shards = len(devices)
     n_words = layout.n_words(n_rows if pad_rows is None else pad_rows,
                              shards)
     wps = n_words // shards                 # words a shard
+    injects = fctx is not None and fctx.faults is not None
+    fold = None
+    if fctx is not None and fctx.folds:
+        fold = pim_exec.check_words if plan.backend.name == "cuda" \
+            else kref.check_words
     use_fused = r.fused_ok and packed_in is None and not packed_out
     if use_fused:
         vals = [np.asarray(inputs[n]) for n in in_names]
@@ -904,20 +1272,28 @@ def _dispatch_levelized(program, inputs: Dict[str, np.ndarray], n_rows: int,
             for s, dev in enumerate(devices):
                 lo = min(s * wps * rpw, n_rows)
                 hi = min(lo + wps * rpw, n_rows)
-                if s and hi == lo:
+                if s and hi == lo and not injects:
                     continue                 # a shard of padding only
                 lane = transfer.lane(dev, s)
-                staged = lane.stage((len(vals), hi - lo))
+                staged = lane.stage((len(vals),
+                                     wps * rpw if injects else hi - lo))
                 for p, v in enumerate(vals):
-                    staged.array[p] = v[lo:hi]   # same-kind cast in place
+                    staged.array[p, :hi - lo] = v[lo:hi]  # cast in place
+                    staged.array[p, hi - lo:] = 0
                 outs = _run_fused(comp, program, plan, rs[dev], in_names,
                                   lane.upload(staged))
-                parts.append(lane.download(outs))
+                parts.append(lane.download(outs) if fold is None else
+                             lane.download(outs, fold(outs, 0)))
 
             def finalize() -> Dict[str, np.ndarray]:
-                o = _gathered(parts, lambda a: a.astype(np.uint64), 1)
+                def consume(o, chk=None):
+                    if fctx is not None:
+                        o = fctx.process_values(o, r.out_widths,
+                                                r.sched.n_levels, chk)
+                    return o[:, :n_rows].astype(np.uint64)
+                o = _gathered(parts, consume)
                 return {n: o[p] for p, n in enumerate(r.names)}
-            return finalize
+            return traced(finalize)
 
         k_in = sum(len(r.sched.pack_cells(n)) for n in in_names)
         if packed_in is not None:
@@ -953,21 +1329,22 @@ def _dispatch_levelized(program, inputs: Dict[str, np.ndarray], n_rows: int,
         if device_out:
             out = subs[0] if shards == 1 else torch.cat(
                 [t.to(devices[0]) for t in subs], dim=-1)
-            return lambda: out
-        parts = [transfer.lane(dev, s).download(t)
+            return traced(lambda: out)
+        parts = [transfer.lane(dev, s).download(
+                     t, *(() if fold is None else (fold(t, t.dim() - 2),)))
                  for s, (dev, t) in enumerate(zip(devices, subs))]
-
-    if packed_out:
-        def finalize() -> np.ndarray:
-            return _gathered(parts, np.array, -1)
-        return finalize
 
     name_widths = [(n, len(r.sched.ports[n])) for n in r.names]
 
-    def finalize() -> Dict[str, np.ndarray]:
-        return _gathered(parts, lambda sub: _unpack_sub(sub, name_widths,
-                                                        n_rows), -1)
-    return finalize
+    def finalize():
+        def consume(sub, chk=None):
+            if fctx is not None:
+                sub = fctx.process_packed(sub, r.sched.n_levels, chk)
+            if packed_out:
+                return np.array(sub)
+            return _unpack_sub(sub, name_widths, n_rows)
+        return _gathered(parts, consume)
+    return traced(finalize)
 
 
 def _run_gate_serial(program, inputs: Dict[str, np.ndarray], n_rows: int,
@@ -1006,9 +1383,10 @@ def run_program(program, inputs: Dict[str, np.ndarray], n_rows: int,
     'cuda' and 'ref' run the plan's levelized schedule by default;
     ``levelized=False`` selects the gate-serial executors (rows32, one
     device).  The plan's mesh (see :func:`row_mesh`) shards the packed
-    word axis over devices.  Returns the program's output ports (every
-    port for direction-less programs, the :func:`output_names`
-    contract)."""
+    word axis over devices.  A plan with a fault model or a verify
+    policy runs the verified detect -> retry -> remap loop (levelized
+    executors only).  Returns the program's output ports (every port for
+    direction-less programs, the :func:`output_names` contract)."""
     plan = as_plan(plan, backend=backend, mesh=mesh, schedule=schedule,
                    layout=layout, device=device)
     if not levelized and (plan.mesh is not None or plan.layout.planes > 1):
@@ -1017,6 +1395,9 @@ def run_program(program, inputs: Dict[str, np.ndarray], n_rows: int,
             f"(got backend={plan.backend.name!r}, levelized={levelized})"
             if plan.mesh is not None else
             f"layout {plan.layout.name!r} requires the levelized executors")
+    if not levelized and _needs_ft(plan):
+        raise ValueError("fault injection / verified execution require "
+                         "the levelized executors")
     if plan.backend.name == "numpy":
         telemetry.record_dispatch(n_rows, _serial_model(program))
         state = pack_rows(inputs, program.ports, n_rows, program.n_cells)
@@ -1026,6 +1407,9 @@ def run_program(program, inputs: Dict[str, np.ndarray], n_rows: int,
                            names=output_names(program))
     if not levelized:
         return _run_gate_serial(program, inputs, n_rows, plan)
+    if _needs_ft(plan):
+        return _verified_dispatch(program, inputs, n_rows, plan, None,
+                                  _VerifyRun(plan), 0)()
     return _dispatch_levelized(program, inputs, n_rows, plan)()
 
 
@@ -1055,7 +1439,10 @@ def run_program_streaming(program, inputs: Dict[str, np.ndarray],
     additionally shards each chunk's word axis over devices.
 
     ``deadline`` is an absolute ``time.monotonic()`` bound checked before
-    dispatch and between chunks (:class:`DeadlineExceeded` on expiry)."""
+    dispatch and between chunks (:class:`DeadlineExceeded` on expiry).
+    A plan with a fault model or a verify policy runs every chunk through
+    the detect -> retry -> remap loop, one :class:`_VerifyRun` for the
+    whole run."""
     plan = as_plan(plan, backend=backend, chunk_rows=chunk_rows, mesh=mesh,
                    schedule=schedule, layout=layout, device=device)
     if plan.backend.name == "numpy":
@@ -1063,8 +1450,12 @@ def run_program_streaming(program, inputs: Dict[str, np.ndarray],
                          "('cuda' or 'ref'), got 'numpy'")
     chunk = plan.effective_chunk_rows
     _check_deadline(deadline)
+    vrun = _VerifyRun(plan) if _needs_ft(plan) else None
     if n_rows <= chunk:
-        return run_program(program, inputs, n_rows, plan)
+        if vrun is None:
+            return run_program(program, inputs, n_rows, plan)
+        return _verified_dispatch(program, inputs, n_rows, plan, None,
+                                  vrun, 0)()
     inputs = _row_inputs(inputs, n_rows)
     parts = []
     pending = None
@@ -1072,8 +1463,12 @@ def run_program_streaming(program, inputs: Dict[str, np.ndarray],
         _check_deadline(deadline)
         rows_k = min(chunk, n_rows - start)
         chunk_in = {n: v[start:start + rows_k] for n, v in inputs.items()}
-        fin = _dispatch_levelized(program, chunk_in, rows_k, plan,
-                                  pad_rows=chunk)
+        if vrun is None:
+            fin = _dispatch_levelized(program, chunk_in, rows_k, plan,
+                                      pad_rows=chunk)
+        else:
+            fin = _verified_dispatch(program, chunk_in, rows_k, plan,
+                                     chunk, vrun, start)
         if pending is not None:
             parts.append(pending())     # waits on k-1 while k runs
         pending = fin
@@ -1090,26 +1485,38 @@ def dispatch_program(program, inputs: Dict[str, np.ndarray], n_rows: int,
     ``finalize`` that waits for the result and unpacks the output ports.
     The pipelining primitive behind :func:`run_program_streaming` and
     :func:`run_program_groups`: callers fill the next unit of work on the
-    host while this one runs."""
+    host while this one runs.  Under a fault model or a verify policy the
+    ``finalize`` runs the detect -> retry -> remap loop."""
     plan = as_plan(plan, backend=backend, mesh=mesh, schedule=schedule,
                    layout=layout, device=device)
     if plan.backend.name == "numpy":
         raise ValueError("dispatch requires a levelized backend, got "
                          f"{plan.backend.name!r}")
+    if _needs_ft(plan):
+        return _verified_dispatch(program, inputs, n_rows, plan, pad_rows,
+                                  _VerifyRun(plan), 0)
     return _dispatch_levelized(program, inputs, n_rows, plan,
                                pad_rows=pad_rows)
 
 
 def _packed_stage(program, n_rows: int, plan: ExecPlan, *, inputs=None,
-                  in_block=None, in_names=None, device_out: bool = False,
+                  in_block=None, in_names=None, vrun=None, stage: int = 0,
+                  device_out: bool = False,
                   deadline: Optional[float] = None) -> Callable:
     """:func:`dispatch_packed` after its argument checks; ``device_out``
     keeps the output block on the device (see :func:`_dispatch_levelized`),
-    the form the reduction trees chain their levels with."""
+    the form the reduction trees chain their levels with.  A plan with a
+    fault model or a verify policy runs the stage verified, under
+    ``vrun`` (a fresh one when None)."""
     _check_deadline(deadline)
+    if in_block is not None and not in_names:
+        raise ValueError("in_block requires in_names")
+    if _needs_ft(plan):
+        return _verified_dispatch_packed(
+            program, n_rows, plan, vrun or _VerifyRun(plan), stage,
+            inputs=inputs, packed_in=in_block, in_names=in_names,
+            device_out=device_out, deadline=deadline)
     if in_block is not None:
-        if not in_names:
-            raise ValueError("in_block requires in_names")
         return _dispatch_levelized(program, {n: None for n in in_names},
                                    n_rows, plan, packed_in=in_block,
                                    packed_out=True, device_out=device_out)
@@ -1133,23 +1540,24 @@ def dispatch_packed(program, n_rows: int, plan=None, *,
     or ``in_block`` + ``in_names`` (a block from a previous packed
     dispatch, cell axis stacking the named in-ports in sorted order) --
     the primitive behind the in-memory reduction trees of ``pim.dot``/
-    ``pim.gemv``.  ``deadline`` (absolute ``time.monotonic()``) is checked
-    before dispatch.  ``vrun``/``stage`` belong to verified execution,
-    which is not ported yet."""
+    ``pim.gemv``.  A plan with a fault model or a verify policy runs the
+    stage through the packed detect -> retry -> remap loop: pass one
+    shared ``vrun`` across a tree's stages (a remap sticks for later
+    levels, and a failed stage retries from its own input block, not the
+    leaves) and a distinct ``stage`` ordinal to salt each level's
+    transient stream.  ``deadline`` (absolute ``time.monotonic()``) is
+    checked before dispatch and between retry attempts."""
     plan = as_plan(plan)
     if plan.backend.name == "numpy":
         raise ValueError("packed dispatch requires a levelized backend, "
                          f"got {plan.backend.name!r}")
-    if vrun is not None or stage:
-        raise NotImplementedError("verified packed stages (vrun=, stage=) "
-                                  "are not ported yet (ROADMAP A9)")
     if (in_block is None) == (inputs is None):
         raise ValueError("pass exactly one of inputs= or in_block=")
     if in_block is not None:
         in_block = np.ascontiguousarray(np.asarray(in_block, np.uint32))
     return _packed_stage(program, n_rows, plan, inputs=inputs,
-                         in_block=in_block, in_names=in_names,
-                         deadline=deadline)
+                         in_block=in_block, in_names=in_names, vrun=vrun,
+                         stage=stage, deadline=deadline)
 
 
 def run_program_groups(groups: Iterable[dict]) -> list:
@@ -1166,7 +1574,9 @@ def run_program_groups(groups: Iterable[dict]) -> list:
     inside the same pipeline.  A numpy-backend group is a synchronization
     point (the oracle runs on the host).  A group may carry a
     ``deadline`` (absolute ``time.monotonic()``), checked before each of
-    its chunks is launched."""
+    its chunks is launched.  A plan with a fault model or a verify policy
+    runs its group's chunks through the detect -> retry -> remap loop (one
+    :class:`_VerifyRun` a group)."""
     groups = list(groups)
     parts: list = [[] for _ in groups]
     pending: "collections.deque" = collections.deque()
@@ -1189,11 +1599,14 @@ def run_program_groups(groups: Iterable[dict]) -> list:
             _check_deadline(deadline)
             parts[gi].append(run_program(program, inputs, n_rows, plan))
             continue
+        vrun = _VerifyRun(plan) if _needs_ft(plan) else None
         chunk = plan.effective_chunk_rows
         if n_rows <= chunk:
             _check_deadline(deadline)
-            pending.append((gi, _dispatch_levelized(program, inputs, n_rows,
-                                                    plan)))
+            pending.append((gi, _dispatch_levelized(
+                program, inputs, n_rows, plan) if vrun is None
+                else _verified_dispatch(program, inputs, n_rows, plan,
+                                        None, vrun, 0)))
             drain(1)
             continue
         for start in range(0, n_rows, chunk):
@@ -1202,7 +1615,10 @@ def run_program_groups(groups: Iterable[dict]) -> list:
             chunk_in = {n: v[start:start + rows_k]
                         for n, v in inputs.items()}
             pending.append((gi, _dispatch_levelized(
-                program, chunk_in, rows_k, plan, pad_rows=chunk)))
+                program, chunk_in, rows_k, plan, pad_rows=chunk)
+                if vrun is None
+                else _verified_dispatch(program, chunk_in, rows_k, plan,
+                                        chunk, vrun, start)))
             drain(1)
     drain(0)
     return [ps[0] if len(ps) == 1 else

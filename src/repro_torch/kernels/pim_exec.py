@@ -1,6 +1,6 @@
 """Hopper kernels of the PIM executor: build, binding and wrappers.
 
-Four CUDA kernels, one per TPU kernel of ``repro.kernels.pim_exec``:
+Five CUDA kernels, one per kernel of ``repro.kernels.pim_exec``:
 
 * ``csrc/slot_scan.cu`` (B1) -- the slot-scan kernel, the counterpart of
   ``_slot_scan_kernel``, with the bit-transpose bridges of
@@ -13,7 +13,10 @@ Four CUDA kernels, one per TPU kernel of ``repro.kernels.pim_exec``:
   of ``_pim_level_kernel``: :func:`static_source` writes the schedule out
   as straight-line CUDA with every cell offset a constant;
 * ``csrc/gate_serial.cu`` (B4) -- the gate-serial kernel, the counterpart
-  of ``_pim_kernel``, run from a packed stream (:func:`pack_gates`).
+  of ``_pim_kernel``, run from a packed stream (:func:`pack_gates`);
+* ``csrc/check_words.cu`` (B6) -- verified execution's XOR check fold of
+  an output block over one axis, the counterpart of ``check_words`` (jnp
+  there, no Pallas): :func:`check_words`.
 
 B1, B2 and B3 share ``csrc/pim_state.cuh`` (the state in shared memory,
 the fused bridges as warp transposes) and run both word layouts.  B1, B3
@@ -57,7 +60,8 @@ CSRC = _PKG / "csrc"
 #: kernel name -> CUDA source
 SOURCES = {"slot_scan": CSRC / "slot_scan.cu",
            "level_gather": CSRC / "level_gather.cu",
-           "gate_serial": CSRC / "gate_serial.cu"}
+           "gate_serial": CSRC / "gate_serial.cu",
+           "check_words": CSRC / "check_words.cu"}
 #: Headers the sources include; part of every build's key.
 HEADERS = (CSRC / "pim_state.cuh", CSRC / "ring.cuh")
 BUILD_DIR = _PKG.parent.parent / "build" / "repro_torch"
@@ -103,6 +107,7 @@ LAUNCHES = {f"{e}{sfx}": 0
                       "slots_static_fused")
             for sfx in ("", "_rows64")}
 LAUNCHES["gate_serial"] = 0
+LAUNCHES["check_words"] = 0
 
 #: Dynamic shared memory one CTA may opt into on sm_90 (227 KB).
 SMEM_PER_CTA = 232448
@@ -120,6 +125,7 @@ _ARGTYPES = {
     "slot_scan_fused": _FUSED_ARGS, "slot_scan_io": _IO_ARGS,
     "level_gather_fused": _FUSED_ARGS, "level_gather_io": _IO_ARGS,
     "gate_serial": [_P, _P, _P, _I, _I, _I, _LL, _I, _I, _I, _P],
+    "check_words": [_P, _P, _LL, _I, _LL, _P],
     "kernel_info": [_I, _I, _I, _I, _P],
     "slots_static_fused": [_P, _P, _I, _P, _I, _P, _P, _I, _I, _P, _LL, _I,
                            _I, _I, _I, _I, _P],
@@ -748,6 +754,41 @@ def gate_serial(state, ops, a, b, o, *, words_per_cta: Optional[int] = None,
             n_cells, wpc, ring_lanes(wpc), _stream(dev))
     _raise_on(err, "gate_serial")
     LAUNCHES["gate_serial"] += 1
+    return out
+
+
+# --------------------------------------------------------------------------
+# B6: the check-word fold
+# --------------------------------------------------------------------------
+
+def check_words(block, axis: int):
+    """XOR fold of ``block`` (int32 bit patterns) over ``axis`` (B6), the
+    signature of ``ref.check_words``: fused per-port row values
+    ``(n_ports, rows)`` over axis 0, packed blocks ``(..., k, n_words)``
+    over the cell axis ``ndim - 2``.  On a CPU tensor it calls the plain
+    version; on a CUDA tensor it launches the kernel on the current
+    stream or raises."""
+    if block.device.type == "cpu":
+        return kref.check_words(block, axis)
+    dev = _on_cuda(block, "check_words")
+    _check(dev, block=block)
+    if block.dim() == 0 or not -block.dim() <= axis < block.dim():
+        raise ValueError(f"axis {axis} is outside a block of shape "
+                         f"{tuple(block.shape)}")
+    axis %= block.dim()
+    shape = tuple(block.shape)
+    outer = int(np.prod(shape[:axis], dtype=np.int64))
+    inner = int(np.prod(shape[axis + 1:], dtype=np.int64))
+    out = torch.empty(shape[:axis] + shape[axis + 1:], dtype=torch.int32,
+                      device=dev)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(dev):
+        err = _lib("check_words").check_words(
+            _ptr(block), out.data_ptr(), outer, shape[axis], inner,
+            _stream(dev))
+    _raise_on(err, "check_words")
+    LAUNCHES["check_words"] += 1
     return out
 
 

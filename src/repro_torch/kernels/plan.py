@@ -147,9 +147,11 @@ class ExecPlan:
     contiguous blocks of whole words, one block a device, and the blocks
     are concatenated at the end (no collective runs).  A device may appear
     more than once, so one device can run several shards.
-    ``faults``/``verify`` name the reference's fault injection and
-    verified execution, which have no executor here yet: a plan that sets
-    either raises."""
+    ``faults`` is a seeded substrate fault model to inject (None: a
+    perfect substrate) and ``verify`` the verified-execution policy
+    (None: no checking); they are execution semantics, so they are part
+    of ``key`` (a faulty request never shares a packed state with a clean
+    one) and not of ``compile_key`` (both run the same artifacts)."""
     backend: Backend = BACKENDS[DEFAULT_BACKEND]
     schedule: str = DEFAULT_SCHEDULE
     layout: WordLayout = ROWS32
@@ -172,10 +174,12 @@ class ExecPlan:
             raise ValueError(
                 "mesh sharding requires a levelized backend "
                 f"(got backend={self.backend.name!r})")
-        if self.faults is not None or self.verify is not None:
-            raise NotImplementedError(
-                "fault injection and verified execution (faults=, verify=) "
-                "are not ported yet (ROADMAP A9)")
+        if (self.faults is not None or self.verify is not None) \
+                and self.backend.name == "numpy":
+            raise ValueError(
+                "fault injection / verified execution require a levelized "
+                "backend (the numpy oracle is the fault-free reference; "
+                f"got backend={self.backend.name!r})")
         if self.backend.name == "cuda" and \
                 self.backend.level_max_width > LEVEL_MAX_WIDTH:
             raise ValueError(
@@ -217,16 +221,21 @@ class ExecPlan:
         field must never share one packed state."""
         return (dataclasses.astuple(self.backend), self.schedule,
                 self.layout.name, self.effective_chunk_rows,
-                str(torch.device(self.device)), self.mesh)
+                str(torch.device(self.device)), self.mesh,
+                None if self.faults is None
+                else dataclasses.astuple(self.faults),
+                None if self.verify is None
+                else dataclasses.astuple(self.verify))
 
     @property
     def compile_key(self) -> tuple:
         """The plan fields that determine a cache entry's compiled
         artifacts: the allocators' widths and the straight-line segment
-        size.  Backend, schedule kind, layout, device and mesh are excluded
-        on purpose -- every executor consumes the same schedule arrays, and
-        one entry holds each alloc's schedule and its device copies per
-        device."""
+        size.  Backend, schedule kind, layout, device, mesh, faults and
+        verify are excluded on purpose -- every executor consumes the same
+        schedule arrays, one entry holds each alloc's schedule and its
+        device copies per device, and injection and checking wrap the
+        executor at dispatch."""
         return (self.backend.slot_width, self.backend.level_max_width,
                 self.backend.seg_levels)
 

@@ -6,6 +6,9 @@ against, and what the ``ref`` backend runs on any device.
 
 * :func:`pim_exec_ref` -- gate-serial: one row update per lowered gate
   (INIT0=0, INIT1=1, NOT=2 stored as NOR with b == a, NOR=3), in place.
+* :func:`check_words` -- verified execution's check fold: the XOR of an
+  output block over one axis (the CUDA kernel ``csrc/check_words.cu`` is
+  held against it).
 * :func:`pim_exec_ref_level` and its io/fused wrappers -- the dense
   schedule (``alloc="scan"``): per level one gather of ``la[l]``/``lb[l]``,
   one NOR and one scatter to ``lo[l]``.  Pad lanes write distinct sink
@@ -25,9 +28,11 @@ import torch
 
 from .slots import _pad_rows, pack_values, plane_shape, unpack_values
 
-#: Calls of the plain executors; ``chip_smoke.py`` reads these to show the
-#: main path did not fall back to them.
-CALLS = {"level_fused": 0, "level_io": 0, "gate_serial": 0}
+#: Calls of the plain executors and of the plain check fold;
+#: ``chip_smoke.py`` reads these to show the main path did not fall back
+#: to them.
+CALLS = {"level_fused": 0, "level_io": 0, "gate_serial": 0,
+         "check_words": 0}
 
 
 def pim_exec_ref(state, ops, a, b, o, *, words_per_cta: Optional[int] = None):
@@ -105,3 +110,20 @@ def pim_exec_ref_level_fused(in_vals, in_idx, la, lb, lo, out_idx, *,
                         n_cells=n_cells, one_cell=one_cell)
     sub = pim_exec_ref_level(st, la, lb, lo, out_idx)
     return unpack_values(sub, out_widths, planes)[:, :n_rows].contiguous()
+
+
+def check_words(block, axis: int):
+    """Per-word XOR fold of an output block over ``axis``: fused per-port
+    row values ``(n_ports, rows)`` over axis 0, packed word blocks
+    ``(..., k, n_words)`` over the cell axis ``ndim - 2``.  Words are int32
+    bit patterns; an empty axis folds to zeros."""
+    CALLS["check_words"] += 1
+    parts = block.unbind(axis)
+    if not parts:
+        shape = block.shape[:axis % block.dim()] + \
+            block.shape[axis % block.dim() + 1:]
+        return torch.zeros(shape, dtype=block.dtype, device=block.device)
+    out = parts[0].clone()
+    for p in parts[1:]:
+        out.bitwise_xor_(p)
+    return out

@@ -15,7 +15,9 @@ host-to-device copy runs while chunk k's kernel runs:
   host writes an input buffer only after the copy that last read it has
   completed (its event); an output buffer is reused only after the
   ``finalize`` that read it has run, and a dispatch that finds both busy
-  takes a buffer of its own;
+  takes a buffer of its own.  A download may carry small tensors beside
+  its result (a verified dispatch's check fold), copied into the same
+  buffer behind it;
 * a tensor made on one stream and read on another is recorded on the
   reader (``Tensor.record_stream``), so the caching allocator does not
   hand its memory out before the reader is done.
@@ -97,22 +99,24 @@ class Staged:
 
 
 class Download:
-    """A result on its way to the host.  :meth:`result` waits for it and
-    hands the host copy to a function that must copy what it keeps: the
-    memory is a staging buffer that a later dispatch reuses."""
+    """A result on its way to the host, with the tensors downloaded beside
+    it.  :meth:`result` waits for them and hands their host copies, in
+    order, to a function that must copy what it keeps: the memory is a
+    staging buffer that a later dispatch reuses."""
 
-    def __init__(self, host: torch.Tensor, event=None, slot=None):
-        self._host, self._event, self._slot = host, event, slot
+    def __init__(self, hosts: List[torch.Tensor], event=None, slot=None):
+        self._hosts, self._event, self._slot = hosts, event, slot
 
-    def result(self, consume: Callable[[np.ndarray], object]):
+    def result(self, consume: Callable[..., object]):
         if self._event is not None:
             self._event.synchronize()
         try:
-            return consume(self._host.numpy().view(np.uint32))
+            return consume(*(h.numpy().view(np.uint32)
+                             for h in self._hosts))
         finally:
             if self._slot is not None:
                 self._slot.busy = False
-            self._host = self._slot = None
+            self._hosts = self._slot = None
 
 
 def _pinned(n: int) -> torch.Tensor:
@@ -165,13 +169,15 @@ class Lane:
         x.record_stream(s.compute)
         return x
 
-    def download(self, t: torch.Tensor) -> Download:
-        """Copy ``t`` (int32, made on this device's compute stream) to a
-        pinned buffer on the ``d2h`` stream."""
+    def download(self, t: torch.Tensor, *beside: torch.Tensor) -> Download:
+        """Copy ``t`` and the tensors ``beside`` it (int32, made on this
+        device's compute stream) to one pinned buffer on the ``d2h``
+        stream."""
+        ts = (t,) + beside
         if not self.cuda:
-            return Download(t)
+            return Download(list(ts))
         s = streams(self.device)
-        n = t.numel()
+        n = sum(x.numel() for x in ts)
         for i in (self._turn_out, self._turn_out ^ 1):
             if not self._outs[i].busy:
                 slot, self._turn_out = self._outs[i], i ^ 1
@@ -181,14 +187,18 @@ class Lane:
         if slot.buf is None or slot.buf.numel() < n:
             slot.buf = _pinned(n)
         slot.busy = True
-        host = slot.buf[:n].view(t.shape)
         s.d2h.wait_stream(s.compute)
+        hosts, at = [], 0
         with torch.cuda.stream(s.d2h):
-            host.copy_(t, non_blocking=True)
-        t.record_stream(s.d2h)
+            for x in ts:
+                host = slot.buf[at:at + x.numel()].view(x.shape)
+                host.copy_(x, non_blocking=True)
+                x.record_stream(s.d2h)
+                hosts.append(host)
+                at += x.numel()
         event = torch.cuda.Event()
         event.record(s.d2h)
-        return Download(host, event, slot)
+        return Download(hosts, event, slot)
 
 
 _lanes: Dict[tuple, Lane] = {}

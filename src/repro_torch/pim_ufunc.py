@@ -69,10 +69,13 @@ class Config:
     (64 rows per word).
 
     shards: CUDA devices to split the rows over (None: all of this
-    machine's, 1: none).  faults, verify and cache_dir mirror the
-    reference's configuration; only their defaults run in this package,
-    and any other value raises ``NotImplementedError`` naming the ROADMAP
-    item that brings it.  tuned: apply registered tuned Backend defaults
+    machine's, 1: none).  faults: a ``runtime.faults.FaultModel`` to
+    inject; verify: a ``VerifyPolicy`` (or True for the default one) --
+    verified execution's detect -> retry -> remap loop; the numpy oracle
+    drops both.  cache_dir mirrors the reference's configuration; only
+    its default runs in this package, and any other value raises
+    ``NotImplementedError`` naming the ROADMAP item that brings it.
+    tuned: apply registered tuned Backend defaults
     (``kernels.plan.register_tuned``) per program family.
     """
     backend: str = kplan.DEFAULT_BACKEND
@@ -126,26 +129,29 @@ def _resolve(kw, family: Optional[str] = None):
     the tuned-defaults overlay (``kernels.plan.apply_tuned``).  ``shards=``
     splits the rows over that many of the machine's CUDA devices
     (``kernels.ops.row_mesh``; None: all of them, 1: none); ``mesh=`` names
-    the devices, one shard each."""
+    the devices, one shard each.  An explicit ``plan=`` is exclusive with
+    the convenience keywords, ``faults=`` and ``verify=`` among them, and
+    takes none of the configured defaults; the numpy backend, the
+    fault-free oracle, drops faults and verify."""
     def opt(name, default):
         v = kw.pop(name, None)
         return default if v is None else v
 
     if opt("cache_dir", config.cache_dir) is not None:
         raise _not_ported("the artifact cache (cache_dir=)", "A11")
-    faults = opt("faults", config.faults)
-    verify = opt("verify", config.verify)
     parallel = opt("parallel", config.parallel)
     if "plan" in kw:
         plan = kw.pop("plan")
         for k in ("backend", "device", "schedule", "layout", "chunk_rows",
-                  "mesh", "shards", "tuned"):
+                  "mesh", "shards", "faults", "verify", "tuned"):
             if kw.pop(k, None) is not None:
                 raise TypeError(
                     f"plan= is exclusive with the {k}= convenience keyword")
         if kw:
             raise TypeError(f"unknown keyword arguments {sorted(kw)}")
-        return kops.as_plan(plan, faults=faults, verify=verify), parallel
+        return kops.as_plan(plan), parallel
+    faults = opt("faults", config.faults)
+    verify = opt("verify", config.verify)
     backend = opt("backend", config.backend)
     if backend not in kplan.BACKENDS:
         raise ValueError(f"unknown backend {backend!r} "
@@ -163,6 +169,8 @@ def _resolve(kw, family: Optional[str] = None):
         mesh = None
     else:
         mesh = kops.row_mesh(opt("shards", config.shards))
+    if backend == "numpy":
+        faults = verify = None     # the oracle is the fault-free reference
     if kw:
         raise TypeError(f"unknown keyword arguments {sorted(kw)}")
     plan = kops.as_plan(backend=backend, schedule=schedule, layout=layout,

@@ -7,6 +7,8 @@ has not ported.
 * Every option that is not ported raises ``NotImplementedError`` naming the
   ROADMAP item that brings it; the options and entry points ported since
   run through the port and agree with ``repro`` on the CPU.
+* The port's ``kernels.ops`` has every public name of ``repro``'s but the
+  JAX-only ones and those of the artifact cache (ROADMAP A11).
 """
 
 import ast
@@ -18,7 +20,6 @@ import torch
 
 from repro_torch import pim_ufunc as pim
 from repro_torch.kernels import plan as kplan
-from repro_torch.runtime.faults import FaultModel, VerifyPolicy
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "src" / "repro_torch"
@@ -62,7 +63,7 @@ def test_the_scan_sees_the_whole_package():
             "runtime/faults.py", "pim_ufunc.py"} <= names
     assert {"kernels/ref.py"} <= names
     for src in ("slot_scan.cu", "level_gather.cu", "gate_serial.cu",
-                "pim_state.cuh"):
+                "check_words.cu", "pim_state.cuh", "ring.cuh"):
         assert (PKG / "csrc" / src).exists(), src
 
 
@@ -85,9 +86,6 @@ def test_cuda_backend_refuses_the_cpu():
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"faults": FaultModel(seed=1)}, "A9"),
-    ({"verify": True}, "A9"),
-    ({"verify": VerifyPolicy()}, "A9"),
     ({"cache_dir": "artifacts"}, "A11"),
 ])
 def test_unported_options_raise(kw, item):
@@ -96,11 +94,153 @@ def test_unported_options_raise(kw, item):
         pim.add(x, x, device="cpu", backend="ref", **kw)
 
 
-def test_unported_configuration_raises():
+def _fault_kw(module, name: str) -> dict:
+    """The fault options of the former refusal cases, built from
+    ``module`` (``repro.runtime.faults`` or the port's)."""
+    return {"faults": {"faults": module.FaultModel(
+                seed=1, force_flips=((0, 3),))},
+            "verify": {"verify": True},
+            "policy": {"verify": module.VerifyPolicy(backoff_s=1e-5)},
+            "both": {"faults": module.FaultModel(seed=1,
+                                                 force_flips=((0, 3),)),
+                     "verify": module.VerifyPolicy(backoff_s=1e-5)}}[name]
+
+
+@pytest.mark.parametrize("name", ["faults", "verify", "policy", "both"])
+def test_fault_options_match_reference(name):
+    """``faults=``/``verify=`` run through the port and agree with
+    ``repro``: the result (corrupted at the same bit where there is no
+    policy) and the health counters."""
+    from repro import pim_ufunc as rpim
+    from repro.kernels import ops as rops
+    from repro.runtime import faults as rfaults
+    from repro_torch.kernels import ops as tops
+    from repro_torch.runtime import faults as tfaults
+    x = np.arange(100, dtype=np.uint8)
+    y = x[::-1].copy()
+    for ops in (rops, tops):
+        ops.drain_health()
+        ops._spot_debt = 1 << 62
+    want = rpim.add(x, y, backend="ref", **_fault_kw(rfaults, name))
+    want_health = rops.drain_health()
+    got = pim.add(x, y, device="cpu", backend="ref",
+                  **_fault_kw(tfaults, name))
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+    assert tops.drain_health() == want_health
+    if name == "faults":
+        assert not np.array_equal(got, x.astype(np.uint16) + y)
+    for f in (rfaults, tfaults):
+        f.drain_media_health()
+
+
+def test_fault_configuration_matches_reference():
+    """The configured ``verify=`` default runs through the port as it does
+    through ``repro``."""
+    from repro import pim_ufunc as rpim
+    from repro.kernels import ops as rops
+    from repro_torch.kernels import ops as tops
     x = np.uint8([1, 2])
+    for ops in (rops, tops):
+        ops.drain_health()
+        ops._spot_debt = 1 << 62
+    with rpim.options(backend="ref", verify=True):
+        want = rpim.add(x, x)
     with pim.options(device="cpu", backend="ref", verify=True):
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-            pim.add(x, x)
+        got = pim.add(x, x)
+    assert np.array_equal(got, want) and np.array_equal(got, x + x)
+    assert tops.drain_health() == rops.drain_health() == {"spot_checks": 1}
+
+
+def test_plan_key_separates_fault_plans_like_reference():
+    """``ExecPlan.key`` carries faults and verify (a faulty request never
+    coalesces with a clean one), ``compile_key`` neither, in both
+    packages."""
+    from repro.kernels import ops as rops
+    from repro.runtime import faults as rfaults
+    from repro_torch.kernels import ops as tops
+    from repro_torch.runtime import faults as tfaults
+    out = []
+    for ops, f, kw in ((rops, rfaults, {"backend": "ref"}),
+                       (tops, tfaults, {"backend": "ref", "device": "cpu"})):
+        plans = [ops.make_plan(**kw),
+                 ops.make_plan(**kw, faults=f.FaultModel(seed=1)),
+                 ops.make_plan(**kw, faults=f.FaultModel(seed=2)),
+                 ops.make_plan(**kw, verify=True),
+                 ops.make_plan(**kw, verify=f.VerifyPolicy(max_retries=1))]
+        keys = [p.key for p in plans]
+        out.append([[a == b for b in keys] for a in keys])
+        assert len({p.compile_key for p in plans}) == 1
+    assert out[0] == out[1]
+    assert sum(map(sum, out[1])) == 5        # every plan its own key
+
+
+@pytest.mark.parametrize("kw", [{"faults": "model"}, {"verify": True}],
+                         ids=["faults", "verify"])
+def test_plan_is_exclusive_with_fault_options_like_reference(kw):
+    """An explicit ``plan=`` beside ``faults=``/``verify=`` raises
+    ``TypeError`` in both packages, and takes none of the configured
+    fault defaults."""
+    from repro import pim_ufunc as rpim
+    from repro.kernels import ops as rops
+    from repro.runtime import faults as rfaults
+    from repro_torch.kernels import ops as tops
+    from repro_torch.runtime import faults as tfaults
+    x = np.uint8([1, 2])
+    for p, ops, f, cpu in ((rpim, rops, rfaults, {"backend": "ref"}),
+                           (pim, tops, tfaults,
+                            {"backend": "ref", "device": "cpu"})):
+        opt = {k: f.FaultModel(seed=1) if v == "model" else v
+               for k, v in kw.items()}
+        plan = ops.make_plan(**cpu)
+        with pytest.raises(TypeError, match="plan= is exclusive with the "
+                           f"{next(iter(kw))}= convenience keyword"):
+            p.add(x, x, plan=plan, **opt)
+        ops.drain_health()
+        with p.options(**opt):
+            got = p.prepare("add", x, x, plan=plan)
+        assert got.plan.faults is None and got.plan.verify is None
+        assert np.array_equal(got.run(), x + x)
+        assert not ops.drain_health()
+
+
+def test_numpy_backend_drops_and_refuses_faults_like_reference():
+    """``backend="numpy"``, the oracle, drops faults and verify at the
+    ufunc boundary and refuses them in an ``ExecPlan``, in both
+    packages."""
+    from repro import pim_ufunc as rpim
+    from repro.kernels import ops as rops
+    from repro.runtime import faults as rfaults
+    from repro_torch.kernels import ops as tops
+    from repro_torch.runtime import faults as tfaults
+    x = np.arange(40, dtype=np.uint8)
+    for p, ops, f in ((rpim, rops, rfaults), (pim, tops, tfaults)):
+        fm = f.FaultModel(seed=1, p_flip=1.0)
+        prep = p.prepare("add", x, x, backend="numpy", faults=fm,
+                         verify=True)
+        assert prep.plan.faults is None and prep.plan.verify is None
+        assert np.array_equal(prep.run(), x.astype(np.uint16) + x)
+        assert not ops.drain_health()
+        with pytest.raises(ValueError, match="fault injection / verified "
+                           "execution require a levelized"):
+            ops.make_plan(backend="numpy", faults=fm)
+
+
+#: Public names of ``repro.kernels.ops`` the port does not carry: the JAX
+#: and Pallas ones, and the artifact cache's (ROADMAP A11).
+_JAX_ONLY = {"Mesh", "P", "shard_map", "TILE_W", "make_slots_static"}
+_A11 = {"artifact_cache", "set_artifact_cache", "note_provenance",
+        "provenance_of"}
+
+
+def test_ops_has_the_reference_public_names():
+    import inspect
+    from repro.kernels import ops as rops
+    from repro_torch.kernels import ops as tops
+    public = {n for n, v in vars(rops).items()
+              if not n.startswith("_") and not inspect.ismodule(v)}
+    missing = {n for n in public - set(vars(tops))
+               if not n.startswith("pim_exec_")} - _JAX_ONLY - _A11
+    assert not missing, sorted(missing)
 
 
 @pytest.mark.parametrize("kw", [{"shards": 2}, {"mesh": ("cpu", "cpu")}],

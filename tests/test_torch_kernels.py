@@ -855,3 +855,72 @@ def test_fused_fp32_chain_on_the_card(cuda):
         e = pim.fp_add(pim.fp_mul(pim.lazy(a), pim.lazy(b)), pim.lazy(c))
         got = pim.fuse(e, schedule=schedule).run()
         assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+# --------------------------------------------------------------------------
+# B6: the check-word fold of verified execution
+# --------------------------------------------------------------------------
+
+def test_check_words_takes_the_plain_version_on_cpu_tensors():
+    rng = np.random.default_rng(26)
+    blk = _bits(rng, (2, 33, 7))
+    pim_exec.reset_counts()
+    got = pim_exec.check_words(_t(blk), 1)
+    assert ref.CALLS["check_words"] == 1
+    assert not any(pim_exec.LAUNCHES.values())
+    assert np.array_equal(_np(got), np.bitwise_xor.reduce(blk, axis=1))
+
+
+def test_check_words_rejects_other_devices():
+    meta = torch.zeros((2, 64), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        pim_exec.check_words(meta, 0)
+
+
+#: (shape, axis) of the fold on the card: fused blocks of 1, 31, 32 and 33
+#: ports, packed rows32 and rows64 blocks of odd word counts.
+CHECK_SHAPES = [((1, 1000), 0), ((31, 1000), 0), ((32, 4097), 0),
+                ((33, (1 << 20) + 3), 0), ((1, 7), 0), ((33, 32769), 0),
+                ((64, 33), 0), ((2, 1, 5), 1), ((2, 33, 32769), 1),
+                ((2, 64, 4097), 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,axis", CHECK_SHAPES,
+                         ids=[f"{s}-axis{a}" for s, a in CHECK_SHAPES])
+def test_check_words_matches_plain_version(cuda, shape, axis):
+    rng = np.random.default_rng(27)
+    blk = _bits(rng, shape)
+    pim_exec.reset_counts()
+    got = pim_exec.check_words(_t(blk).to(cuda), axis)
+    torch.cuda.synchronize()
+    assert pim_exec.LAUNCHES["check_words"] == 1
+    assert not ref.CALLS["check_words"]
+    want = ref.check_words(_t(blk), axis)
+    assert torch.equal(got.cpu(), want)
+    assert np.array_equal(_np(got), np.bitwise_xor.reduce(blk, axis=axis))
+
+
+@pytest.mark.cuda
+def test_verified_main_path_launches_the_fold(cuda):
+    """A plan with faults and verify folds every chunk attempt on the
+    card; a verify-only plan folds nothing, as in the reference."""
+    from repro_torch.runtime.faults import FaultModel, VerifyPolicy
+    rng = np.random.default_rng(28)
+    a = rng.standard_normal(5000).astype(np.float32)
+    b = rng.standard_normal(5000).astype(np.float32)
+    ops.drain_health()
+    pim_exec.reset_counts()
+    assert np.array_equal(pim.fp_add(a, b, chunk_rows=2048, verify=True),
+                          a + b)
+    assert pim_exec.LAUNCHES["check_words"] == 0
+    fm = FaultModel(seed=3, force_flips=((0, 5),))
+    pim_exec.reset_counts()
+    got = pim.fp_add(a, b, chunk_rows=2048, faults=fm,
+                     verify=VerifyPolicy(backoff_s=1e-5))
+    assert np.array_equal(got, a + b)
+    h = ops.drain_health()
+    assert h["faults_detected"] >= 1 and h["retries"] >= 1
+    assert pim_exec.LAUNCHES["check_words"] == 3 + h["retries"]
+    assert pim_exec.LAUNCHES["slot_scan_fused"] == 3 + h["retries"]
+    assert not any(slots.CALLS.values()) and not ref.CALLS["check_words"]

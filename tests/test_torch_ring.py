@@ -394,8 +394,8 @@ def _slots(case, width):
         in_widths=tuple(len(s.pack_cells(n)) for n in in_names),
         out_widths=tuple(len(s.ports[n]) for n in out_names),
         kw=dict(n_cells=s.n_cells, one_cell=s.one_cell,
-                in_base=ops._as_run(in_cells),
-                out_base=ops._as_run(out_cells)))
+                in_base=ops.as_run(in_cells),
+                out_base=ops.as_run(out_cells)))
 
 
 def _oracle_values(s, d, vals):

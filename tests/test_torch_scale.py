@@ -388,9 +388,13 @@ def test_packed_dispatch_errors_match_reference():
         lambda: tops.dispatch_packed(tp, 64, "numpy", inputs={"x": x}),
         lambda: rops.dispatch_packed(rp, 64, "numpy", inputs={"x": x}),
         ValueError, "packed dispatch requires a levelized")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        tops.dispatch_packed(tp, 64, tplan_, inputs={"x": x, "y": x},
-                             stage=1)
+    # a stage ordinal only salts a verified stage: a plain plan runs as
+    # with none, in both packages
+    got = tops.dispatch_packed(tp, 64, tplan_, inputs={"x": x, "y": x},
+                               stage=1)()
+    want = rops.dispatch_packed(rp, 64, rplan_, inputs={"x": x, "y": x},
+                                stage=1)()
+    assert np.array_equal(got, np.asarray(want))
 
 
 def test_packed_dispatch_matches_reference_block():

@@ -129,8 +129,8 @@ class Case:
             [s.pack_cells(n) for n in self.in_names])
         self.out_idx = tops._stacked_cells(
             [s.ports[n] for n in self.out_names])
-        self.in_base = tops._as_run(self.in_idx)
-        self.out_base = tops._as_run(self.out_idx)
+        self.in_base = tops.as_run(self.in_idx)
+        self.out_base = tops.as_run(self.out_idx)
         self.k_out = int(self.out_idx.size)
 
     def operands(self, lib):
