@@ -63,13 +63,28 @@ Phases, each of which raises (exit code 1) on failure:
    rows); ``pim.gemv`` fp16 4096x4096 under the faults and a policy, and
    with ``verify=True`` alone (its blocks stay on the card: one D2H
    copy); two shards on one card under the faults;
+
+   serving: batched PIM serving (:func:`serving_phase`): the reference's
+   serving mix (uint16 and fp16 add, sub, mul and div, 8 requests each)
+   at 1 Mi rows a request (64 Mi rows) through ``BatchRuntime.execute``
+   and the per-request serial loop in turns, three rounds, with the
+   prepare, coalesce, exec and unpack split and the device's busy share
+   (nothing degraded, shed or failed); the same mix at 1024 rows a
+   request (8 launches batched, 64 serial); ``serve_pim_batched`` on an
+   in-memory JSON-lines stream of 256 requests of 4096 rows with a fused
+   expression, a width-70 add (B1 io), ``dense`` (B3), ``slots-static``
+   (B2) and ``rows64`` requests and malformed lines, every answer in
+   order, its stats and trace spans; the mix under
+   ``FaultModel(seed=7, p_flip=5e-4)`` and ``verify=True`` (B6 with
+   every B1 launch); and ``python -m repro_torch.launch.serve`` as a
+   subprocess (``--pim-serve`` and ``--pim fp_add`` at 16 Mi rows);
 10. time each kernel entry at one chunk of 1 Mi rows beside its plain
    version, one PyTorch library call computing the same function, and its
    bound, with its launch attributes (CTAs an SM, registers, local bytes),
    and the check fold on a fused and a packed chunk.
 
-Phases 4 to 9 and the verified phase each zero the launch counters just
-before a run and read them just after: the run's kernels must have
+Phases 4 to 9, the verified and the serving phase each zero the launch
+counters just before a run and read them just after: the run's kernels must have
 launched and no plain version may have run.
 
 The line before the last is a JSON object with one record per kernel entry;
@@ -1079,6 +1094,473 @@ def verified_phase(a, b, gpu: str, kw=None, gemv_shape=GEMV_SHAPE,
     return ran
 
 
+# --------------------------------------------------------------------------
+# batched serving (the serving phase)
+# --------------------------------------------------------------------------
+
+#: Rows of a request of the serving mix at card size (64 requests: the
+#: main path's 64 Mi rows) and at the reference's size
+#: (``benchmarks/run.py`` ``_serve_rows``); requests of each program.
+SERVE_ROWS = 1 << 20
+SERVE_SMALL_ROWS = 1024
+SERVE_PER_PROGRAM = 8
+#: The JSON-lines stream: requests of ``STREAM_ROWS`` rows each, the
+#: micro-batching window and the row cap of a batch.
+STREAM_REQUESTS = 256
+STREAM_ROWS = 4096
+STREAM_WINDOW_MS = 5.0
+STREAM_MAX_BATCH_ROWS = 65536
+
+
+def _mid_fp16(rng, n) -> np.ndarray:
+    """fp16 with mid-range exponents (``benchmarks/run.py:548``): every
+    sum, difference, product and quotient of two is 0 or normal."""
+    return (rng.integers(10, 21, n).astype(np.uint16) << 10 |
+            rng.integers(0, 1 << 10, n).astype(np.uint16)).view(np.float16)
+
+
+def _flushed(v: np.ndarray) -> np.ndarray:
+    """numpy's fp16 answer in the suite's range: a result below the normal
+    range (here only the difference of two close operands, which is
+    exact) comes out of the reference's gate netlist, and of the port, as
+    a zero of its sign (``tests/test_torch_serve.py``
+    ``test_fp16_underflow_is_a_signed_zero_like_reference`` holds both
+    packages to that on the CPU)."""
+    b = v.view(np.uint16).copy()
+    b[(b & 0x7C00) == 0] &= 0x8000
+    return b.view(np.float16)
+
+
+def _u16_want(op: str, x, y):
+    """numpy's answer with the ufunc's semantics: the full sum and product
+    and the difference modulo 2**16 as uint64, div's (q, r) pair."""
+    x, y = x.astype(np.uint64), y.astype(np.uint64)
+    return {"add": lambda: x + y, "mul": lambda: x * y,
+            "sub": lambda: (x - y) & np.uint64(0xFFFF),
+            "div": lambda: (x // y, x % y)}[op]()
+
+
+def serving_mix(rows: int, per_program: int = SERVE_PER_PROGRAM,
+                seed: int = SEED + 11) -> list:
+    """The reference's serving mix (``benchmarks/run.py:531-640``): uint16
+    add, sub, mul and div and fp16 add, sub, mul and div, round robin,
+    ``per_program`` requests of each at ``rows`` rows.  Returns
+    ``[(op, x, y, numpy's answer)]``, fp16 answers :func:`_flushed`."""
+    rng = np.random.default_rng(seed)
+    traffic = []
+    for _ in range(per_program):
+        x = rng.integers(0, 1 << 16, rows).astype(np.uint16)
+        y = rng.integers(0, 1 << 16, rows).astype(np.uint16)
+        d = rng.integers(1, 1 << 16, rows).astype(np.uint16)
+        fa, fb, fd = (_mid_fp16(rng, rows) for _ in range(3))
+        traffic += [(op, x, v, _u16_want(op, x, v))
+                    for op, v in (("add", y), ("sub", y), ("mul", y),
+                                  ("div", d))]
+        traffic += [(op, fa, v, _flushed(want)) for op, v, want in (
+            ("fp_add", fb, fa + fb), ("fp_sub", fb, fa - fb),
+            ("fp_mul", fb, fa * fb), ("fp_div", fd, fa / fd))]
+    return traffic
+
+
+def _same_value(got, want) -> bool:
+    if isinstance(want, tuple):
+        return isinstance(got, tuple) and len(got) == len(want) and \
+            all(_same_bits(g, w) for g, w in zip(got, want))
+    return _same_bits(got, want)
+
+
+def _span_ms(events) -> dict:
+    """Milliseconds of the serving spans (``cat="pim.serve"``) by name,
+    and of the dispatcher's events as ``cat:name``."""
+    out: dict = {}
+    for e in events:
+        key = e["name"] if e.get("cat") == "pim.serve" else \
+            f"{e.get('cat')}:{e['name']}"
+        out[key] = out.get(key, 0.0) + e["dur"] / 1e3
+    return out
+
+
+def _union_ms(events, cat: str) -> float:
+    """Milliseconds of the union of the events of ``cat`` (the dispatcher's
+    ``exec`` events overlap: one chunk is staged while another runs)."""
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") == cat)
+    total, end = 0.0, None
+    for t0, t1 in spans:
+        if end is None or t0 > end:
+            total += t1 - t0
+            end = t1
+        elif t1 > end:
+            total += t1 - end
+            end = t1
+    return total / 1e3
+
+
+def _chunks(rows: int, plan) -> int:
+    return -(-rows // plan.effective_chunk_rows)
+
+
+def _serve_turns(traffic, label: str, gpu: str, keys,
+                 profile: bool = True) -> dict:
+    """The mix through ``BatchRuntime.execute`` and through the
+    per-request serial loop (``Prepared.run()``), in turns, three rounds.
+    Each run prepares its requests (both paths pay the same validation),
+    is held against numpy and is counted: its launches must be one a
+    chunk of each group (batched) or of each request (serial).  Each run
+    is traced: the batched run's ``exec`` span splits into the groups'
+    input checks and output join (``pim.groups`` events), the union of
+    the dispatcher's ``exec`` events (staging, launch, copy back and
+    unpack of each chunk) and the rest; the serial run reports the same
+    union.  Then, with ``profile``, one batched and one serial run under
+    ``torch.profiler`` (the device's busy share).  Returns the walls and
+    launches by path."""
+    from repro_torch import pim_ufunc as pim
+    from repro_torch.runtime import pim_batch, telemetry
+    rows = sum(len(t[1]) for t in traffic)
+    tracer = telemetry.TRACER
+    walls = {"batched": [], "serial": []}
+    launches = {}
+
+    def prepare():
+        return [pim.prepare(op, x, y) for op, x, y, _ in traffic]
+
+    for p in prepare()[:8]:
+        p.warm()                      # levelize and pack outside the runs
+
+    def batched():
+        rt = pim_batch.BatchRuntime(pin_cap=16)
+        try:
+            t0 = time.perf_counter()
+            preps = prepare()
+            prep_s = time.perf_counter() - t0
+            results = rt.execute(preps)
+        finally:
+            rt.close()
+        st = rt.stats
+        bad = [r.error for r in results if r.error is not None]
+        if bad or st.degraded_groups or st.shed_requests:
+            raise AssertionError(
+                f"{label} batched: errors {bad[:2]}, degraded groups "
+                f"{st.degraded_groups}, shed {st.shed_requests}")
+        n_launch = sum(_chunks(g.n_rows, g.preps[0].plan)
+                       for g in pim_batch.plan_groups(preps))
+        return [r.value for r in results], (prep_s, st.groups, n_launch)
+
+    def serial():
+        t0 = time.perf_counter()
+        preps = prepare()
+        prep_s = time.perf_counter() - t0
+        n_launch = sum(_chunks(p.n_rows, p.plan) for p in preps)
+        return [p.run() for p in preps], (prep_s, len(preps), n_launch)
+
+    for rnd in range(3):
+        for path, fn in (("batched", batched), ("serial", serial)):
+            was, tracer.enabled = tracer.enabled, True
+            tracer.drain()
+            try:
+                (vals, (prep_s, units, n_launch)), ran, s = _counted(
+                    f"{label} {path}", keys, fn)
+            finally:
+                tracer.enabled = was
+            events = tracer.drain()
+            spans = _span_ms(events)
+            dispatch = _union_ms(events, "pim.exec")
+            if not all(_same_value(v, t[3]) for v, t in zip(vals, traffic)):
+                raise AssertionError(f"{label} {path} differs from numpy")
+            if sum(ran.get(k, 0) for k in keys) != n_launch:
+                raise AssertionError(f"{label} {path}: launches {ran}, "
+                                     f"expected {n_launch}")
+            walls[path].append(s)
+            launches[path] = ran
+            if path == "serial":
+                split = f"; chunk exec events (union) {dispatch:.3f} ms"
+            else:
+                ex = spans.get("exec", 0.0)
+                joined = spans.get("pim.groups:join", 0.0)
+                checked = spans.get("pim.groups:inputs", 0.0)
+                split = (
+                    f"; coalesce {spans.get('coalesce', 0):.3f} ms, exec "
+                    f"{ex:.3f} ms (input checks {checked:.3f}, chunk exec "
+                    f"events (union) {dispatch:.3f}, output join "
+                    f"{joined:.3f}, rest {ex - checked - dispatch - joined:.3f}"
+                    f"), unpack {spans.get('unpack', 0):.3f} ms (pim.serve "
+                    f"and pim.groups spans)")
+            print(f"serve {label} round {rnd} {path}: {gpu}; {len(traffic)} "
+                  f"requests, {rows} rows, {units} "
+                  f"{'groups' if path == 'batched' else 'runs'}; bit-exact "
+                  f"vs numpy; launches {ran}, plain calls 0; wall "
+                  f"{s * 1e3:.3f} ms = {rows / s:.1f} rows/s; prepare "
+                  f"{prep_s * 1e3:.3f} ms{split}", flush=True)
+    if profile and torch.cuda.is_available():
+        for path, fn in (("batched", batched), ("serial", serial)):
+            _, wall, st = device_timeline(fn)
+            timeline_line(f"serve {label} {path} (prepare and run)", wall,
+                          st, gpu)
+    b, s = min(walls["batched"]), min(walls["serial"])
+    print(f"serve {label}: {gpu}; best of 3 in turns: batched "
+          f"{b * 1e3:.3f} ms ({rows / b:.1f} rows/s), serial "
+          f"{s * 1e3:.3f} ms ({rows / s:.1f} rows/s), serial/batched "
+          f"{s / b:.6f}", flush=True)
+    return {"walls": walls, "launches": launches}
+
+
+def _stream_lines(n_requests: int, rows: int, seed: int = SEED + 12):
+    """The JSON-lines stream of the serving phase: the eight programs of
+    the mix round robin, one fused ``expr`` request, one ``width: 70`` add
+    (the io branch), requests under ``"schedule": "dense"`` (B3),
+    ``"slots-static"`` (B2) and ``"layout": "rows64"``, and four
+    malformed lines.  Returns (lines, numpy's answer of each line: a
+    value, a ``(q, r)`` pair, or None where the answer must be an
+    error)."""
+    rng = np.random.default_rng(seed)
+    mix = serving_mix(rows, -(-n_requests // 8), seed)[:n_requests]
+
+    def enc(v):
+        return [float(t) for t in v] if v.dtype.kind == "f" else \
+            [int(t) for t in v]
+
+    reqs = [({"op": op, "dtype": x.dtype.name, "x": enc(x), "y": enc(y)},
+             want) for op, x, y, want in mix]
+    a, b, c = (_mid_fp16(rng, rows) for _ in range(3))
+    w = [rng.integers(0, 1 << 63, rows, dtype=np.uint64) * 2 + 1
+         for _ in range(2)]
+    u = [rng.integers(0, 1 << 16, rows).astype(np.uint16) for _ in range(2)]
+    f32 = [uniform_signed(rng, rows, np.float32) for _ in range(2)]
+    extra = [
+        ({"op": "expr", "dtype": "float16",
+          "expr": ["fp_add", ["fp_mul", "a", "b"], "c"],
+          "inputs": {"a": enc(a), "b": enc(b), "c": enc(c)}},
+         (a * b).astype(np.float16) + c),
+        ({"op": "add", "dtype": "uint64", "width": 70, "x": enc(w[0]),
+          "y": enc(w[1])}, w[0].astype(object) + w[1].astype(object)),
+        ({"op": "add", "dtype": "uint16", "x": enc(u[0]), "y": enc(u[1]),
+          "schedule": "dense"}, _u16_want("add", *u)),
+        ({"op": "fp_add", "dtype": "float32", "x": enc(f32[0]),
+          "y": enc(f32[1]), "schedule": "slots-static"}, f32[0] + f32[1]),
+        ({"op": "mul", "dtype": "uint16", "x": enc(u[0]), "y": enc(u[1]),
+          "layout": "rows64"}, _u16_want("mul", *u)),
+    ]
+    for i, item in enumerate(extra):
+        reqs.insert(3 + 37 * i, item)
+    lines = [json.dumps(r) for r, _ in reqs]
+    wants = [want for _, want in reqs]
+    for i, bad in enumerate(('{"op": "add", "x": [1]',
+                             '{"op": "nope", "x": [1], "y": [1]}',
+                             '{"op": "div", "dtype": "uint16", "x": [1], '
+                             '"y": [0]}',
+                             'not json')):
+        lines.insert(10 + 60 * i, bad)
+        wants.insert(10 + 60 * i, None)
+    return lines, wants
+
+
+def _right_answer(resp: dict, want) -> bool:
+    if want is None:
+        return "error" in resp
+    if "error" in resp:
+        return False
+    if isinstance(want, tuple):
+        return resp["q"] == [int(v) for v in want[0]] and \
+            resp["r"] == [int(v) for v in want[1]]
+    if want.dtype.kind == "f":
+        return _same_bits(np.asarray(resp["result"]).astype(want.dtype),
+                          want)
+    return resp["result"] == [int(v) for v in want]
+
+
+def _stream_phase(gpu: str) -> dict:
+    """The JSON-lines server in process (``serve_pim_batched`` on an
+    in-memory stream): every answer checked in input order, the stats,
+    and the trace file's spans.  Returns the launches."""
+    import io
+    from repro_torch.launch import serve
+    rows = STREAM_ROWS
+    lines, wants = _stream_lines(STREAM_REQUESTS, rows)
+    text = "\n".join(lines) + "\n"
+    warmed = set()
+    for line, want in zip(lines, wants):   # levelize and build outside
+        if want is not None:               # the run
+            p = serve._pim_prepare_request(json.loads(line))
+            if (p.key, p.plan.key) not in warmed:
+                warmed.add((p.key, p.plan.key))
+                p.warm()
+    trace = Path("build") / "chip_smoke_serve_trace.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    keys = ("slot_scan_fused", "slot_scan_io", "level_gather_fused",
+            "slots_static_fused", "slot_scan_fused_rows64")
+    outp = io.StringIO()
+
+    def run():
+        return serve.serve_pim_batched(
+            io.StringIO(text), outp, window_ms=STREAM_WINDOW_MS,
+            max_batch_rows=STREAM_MAX_BATCH_ROWS, trace_file=str(trace))
+    info, ran, s = _counted("serve stream", keys, run)
+    resps = [json.loads(l) for l in outp.getvalue().splitlines()]
+    wrong = [i for i, (r, w) in enumerate(zip(resps, wants))
+             if not _right_answer(r, w)]
+    if len(resps) != len(lines) or wrong:
+        raise AssertionError(f"serve stream: {len(resps)} answers for "
+                             f"{len(lines)} lines, wrong at {wrong[:5]}")
+    n_bad = sum(w is None for w in wants)
+    n_rows = sum(r.get("rows", 0) for r in resps)
+    if info["served"] != len(lines) or info["errors"] != n_bad or \
+            info["batches"] < -(-n_rows // STREAM_MAX_BATCH_ROWS) or \
+            info["groups"] < info["batches"] or info["degraded_groups"] or \
+            info["shed_requests"]:
+        raise AssertionError(f"serve stream stats: {info}")
+    spans = _span_ms(json.loads(trace.read_text())["traceEvents"])
+    trace.unlink()
+    missing = {"prepare", "enqueue", "coalesce", "exec", "unpack",
+               "pim.exec:exec"} - set(spans)
+    if missing:
+        raise AssertionError(f"serve stream trace lacks {missing}")
+    print(f"serve stream: {gpu}; {len(lines)} lines ({n_bad} malformed) of "
+          f"{rows} rows, window {STREAM_WINDOW_MS} ms, row cap "
+          f"{STREAM_MAX_BATCH_ROWS}: every answer right and in order; "
+          f"served {info['served']}, errors {info['errors']}, batches "
+          f"{info['batches']}, groups {info['groups']}, degraded "
+          f"{info['degraded_groups']}, shed {info['shed_requests']}; "
+          f"launches {ran}, plain calls 0; wall {s * 1e3:.3f} ms = "
+          f"{n_rows / s:.1f} rows/s; trace spans (ms, summed) "
+          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(spans.items())),
+          flush=True)
+    return ran
+
+
+def _cli_phase(gpu: str) -> None:
+    """The CLI as a subprocess on the card: ``--pim-serve`` on four lines
+    (one malformed), and the synthetic load at 16 Mi fp32 rows."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(root / "src") + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    reqs = ('{"op":"add","dtype":"uint8","x":[1,2],"y":[3,4]}\n'
+            '{"op":"div","dtype":"uint8","x":[17],"y":[5]}\n'
+            'broken\n'
+            '{"op":"add","dtype":"uint8","x":[9],"y":[9]}\n')
+    serve = [sys.executable, "-m", "repro_torch.launch.serve"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(serve + ["--pim-serve", "--pim-window-ms", "25"],
+                          input=reqs, cwd=root, env=env,
+                          capture_output=True, text=True, timeout=300)
+    s = time.perf_counter() - t0
+    lines = [json.loads(l) for l in proc.stdout.splitlines()]
+    if proc.returncode != 0 or len(lines) != 4 or \
+            lines[0].get("result") != [4, 6] or \
+            (lines[1].get("q"), lines[1].get("r")) != ([3], [2]) or \
+            "error" not in lines[2] or lines[3].get("result") != [18] or \
+            "pim-serve:" not in proc.stderr:
+        raise AssertionError(f"serve CLI: exit {proc.returncode}, "
+                             f"{proc.stdout[-500:]}{proc.stderr[-1500:]}")
+    stats = next(l for l in proc.stderr.splitlines() if "pim-serve:" in l)
+    summary = [json.loads(l) for l in proc.stderr.splitlines()
+               if l.startswith("{") and '"summary"' in l]
+    if len(summary) != 1 or summary[0].get("type") != "summary" or \
+            summary[0].get("degraded_groups") != 0 or \
+            summary[0].get("shed_requests") != 0 or \
+            summary[0].get("errors") != 1:
+        raise AssertionError(f"serve CLI summary: {summary}")
+    print(f"serve CLI --pim-serve: {gpu}; exit 0 in {s:.3f} s, four answers "
+          f"right; summary degraded_groups 0, shed_requests 0, errors 1 (the "
+          f"malformed line); {stats}", flush=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(serve + ["--pim", "fp_add", "--pim-dtype",
+                                   "float32", "--pim-rows", str(16 << 20),
+                                   "--pim-requests", "4"],
+                          cwd=root, env=env, capture_output=True, text=True,
+                          timeout=600)
+    s = time.perf_counter() - t0
+    out = proc.stdout.strip().splitlines()
+    n_dev = torch.cuda.device_count()
+    if proc.returncode != 0 or not out or \
+            f"on {n_dev} device(s)" not in out[-1]:
+        raise AssertionError(f"serve CLI --pim: exit {proc.returncode}, "
+                             f"{proc.stdout[-500:]}{proc.stderr[-1500:]}")
+    print(f"serve CLI --pim fp_add float32: {gpu}; exit 0 in {s:.3f} s; "
+          f"{out[-1]}", flush=True)
+
+
+def serving_phase(gpu: str) -> dict:
+    """The serving phase (after the verified phase): batched PIM serving
+    (``runtime.pim_batch``, ``launch.serve``) on the card.
+
+    1. The reference's serving mix, 8 requests of each of 8 programs at
+       ``SERVE_ROWS`` rows (64 Mi rows), batched and serial in turns,
+       three rounds, then each profiled; nothing degraded, shed or failed.
+    2. The same mix at ``SERVE_SMALL_ROWS`` (the reference's 1024): one
+       launch a group batched against one a request serial.
+    3. The JSON-lines server in process on ``STREAM_REQUESTS`` requests
+       of ``STREAM_ROWS`` rows: B1 io, B2 and B3 launched, every answer
+       right and in order, the trace's spans.
+    4. Step 1's mix under ``FaultModel(seed=7, p_flip=5e-4)`` and
+       ``verify=True`` (the reference's ``serve/mixed_8op_faulty``), two
+       rounds: bit-exact, retries, B6 launched with every B1 launch,
+       nothing shed; a group whose retries run out is rerun per request
+       on the card and counted.
+    5. The CLI as a subprocess: ``--pim-serve`` and ``--pim``.
+
+    Returns the launches of each step."""
+    from repro_torch import pim_ufunc as pim
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import pim_batch
+    from repro_torch.runtime.faults import FaultModel
+    ran = {}
+    big = serving_mix(SERVE_ROWS)
+    clean = _serve_turns(big, f"mix rows={SERVE_ROWS}", gpu,
+                         ("slot_scan_fused",))
+    ran["mix"] = clean["launches"]
+    small = _serve_turns(serving_mix(SERVE_SMALL_ROWS, seed=SEED + 13),
+                         f"mix rows={SERVE_SMALL_ROWS}", gpu,
+                         ("slot_scan_fused",), profile=False)
+    ran["mix_small"] = small["launches"]
+    if small["launches"]["batched"]["slot_scan_fused"] != 8 or \
+            small["launches"]["serial"]["slot_scan_fused"] != len(big):
+        raise AssertionError(f"coalescing: launches {small['launches']}")
+    ran["stream"] = _stream_phase(gpu)
+
+    fm = FaultModel(seed=7, p_flip=5e-4)
+    best = min(clean["walls"]["batched"])
+    for rnd in range(2):
+        ops.drain_health()
+        rt = pim_batch.BatchRuntime(pin_cap=16)
+
+        def faulty():
+            with pim.options(faults=fm, verify=True):
+                preps = [pim.prepare(op, x, y) for op, x, y, _ in big]
+            try:
+                return rt.execute(preps)
+            finally:
+                rt.close()
+        results, launches, s = _counted(
+            "serve mix faults+verify", ("slot_scan_fused", "check_words"),
+            faulty)
+        st = rt.stats
+        # a chunk whose flips outlast the policy's retries degrades its
+        # group to per-request runs on the card (the ladder, as in the
+        # reference); every answer must still be right, none shed
+        if not all(r.error is None and _same_value(r.value, t[3])
+                   for r, t in zip(results, big)) or st.retries < 1 or \
+                st.shed_requests or \
+                launches["check_words"] != launches["slot_scan_fused"]:
+            raise AssertionError(f"serve mix faults+verify: launches "
+                                 f"{launches}, stats {st.as_dict()}")
+        degraded = sorted({t[0] for r, t in zip(results, big)
+                           if r.degraded})
+        print(f"serve mix rows={SERVE_ROWS} faults+verify round {rnd}: "
+              f"{gpu}; "
+              f"FaultModel(seed=7, p_flip=5e-4), verify=True; bit-exact vs "
+              f"numpy; faults_detected {st.faults_detected}, "
+              f"faults_corrected {st.faults_corrected}, retries "
+              f"{st.retries}, remapped_rows {st.remapped_rows}, degraded "
+              f"groups {st.degraded_groups} {degraded} (rerun per request "
+              f"on the card), shed {st.shed_requests}; launches "
+              f"{launches}, plain calls 0; wall {s * 1e3:.3f} ms = "
+              f"{s / best:.6f}x the clean batched best", flush=True)
+        ran["faulty"] = launches
+    _cli_phase(gpu)
+    return ran
+
+
 def fold_bound(outer: int, k: int, inner: int, lop_rate: float) -> tuple:
     """Least time of B6 on ``outer x k x inner`` words: the block read
     and the fold written once at the HBM rate, against one 32-bit XOR a
@@ -1827,6 +2309,7 @@ def main() -> None:
     reductions_phase(gpu)
     fused_phase(gpu)
     folds = verified_phase(main["a"], main["b"], gpu)
+    serving_phase(gpu)
     kernels = measure(progs, statics, chunk_rows, main["launches"], worst,
                       gpu) + measure_folds(chunk_rows, folds, worst, gpu)
     if args.turns:

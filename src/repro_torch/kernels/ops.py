@@ -50,6 +50,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import hashlib
+import threading
 import time
 import weakref
 from typing import Callable, Dict, Iterable, Optional, Tuple
@@ -117,6 +118,11 @@ _CACHE = telemetry.REGISTRY.group("pim.cache")
 # Pinned entries (cache key -> refcount) are exempt from eviction.
 _pinned: Dict[tuple, int] = {}
 
+# One lock over the LRU, its pins and every read of them: the batched
+# server reads ``is_compiled`` (``Prepared.cached``) on whichever thread
+# asks while the dispatching thread inserts, pins and evicts.
+_CACHE_LOCK = threading.RLock()
+
 
 def _serial_model(program) -> "telemetry.ModeledCost":
     m = _serial_model_memo.get(program)
@@ -129,9 +135,10 @@ def _serial_model(program) -> "telemetry.ModeledCost":
 def clear_compiled_cache() -> int:
     """Drop every *unpinned* compiled-program entry; returns the number
     dropped."""
-    victims = [k for k in _compiled if k not in _pinned]
-    for k in victims:
-        del _compiled[k]
+    with _CACHE_LOCK:
+        victims = [k for k in _compiled if k not in _pinned]
+        for k in victims:
+            del _compiled[k]
     return len(victims)
 
 
@@ -139,22 +146,23 @@ def _evict_over_cap(protect: Optional[tuple] = None) -> None:
     """Drop least-recently-used *unpinned* entries while over either cap
     (entry count or total schedule weight).  ``protect`` exempts the entry
     a caller is in the middle of handing out."""
-    weight = sum(e.weight for e in _compiled.values())
-    for key in list(_compiled):
-        over_n = len(_compiled) > _COMPILED_CAP
-        over_w = weight > _COMPILED_WEIGHT_CAP
-        if not (over_n or over_w):
-            break
-        if key in _pinned or key == protect:
-            continue
-        if not over_n:      # weight pressure only: respect the floor
-            unpinned = sum(1 for k in _compiled
-                           if k not in _pinned and k != protect)
-            if unpinned <= _COMPILED_MIN_RESIDENT:
+    with _CACHE_LOCK:
+        weight = sum(e.weight for e in _compiled.values())
+        for key in list(_compiled):
+            over_n = len(_compiled) > _COMPILED_CAP
+            over_w = weight > _COMPILED_WEIGHT_CAP
+            if not (over_n or over_w):
                 break
-        weight -= _compiled[key].weight
-        del _compiled[key]
-        _CACHE.add("evictions")
+            if key in _pinned or key == protect:
+                continue
+            if not over_n:      # weight pressure only: respect the floor
+                unpinned = sum(1 for k in _compiled
+                               if k not in _pinned and k != protect)
+                if unpinned <= _COMPILED_MIN_RESIDENT:
+                    break
+            weight -= _compiled[key].weight
+            del _compiled[key]
+            _CACHE.add("evictions")
 
 
 def set_compiled_cache_cap(cap: int, weight_cap: Optional[int] = None) -> int:
@@ -184,22 +192,24 @@ def pin_program(program, plan: Optional[ExecPlan] = None) -> tuple:
     """Pin ``program``'s compiled-cache entry against eviction; returns the
     cache key (the token :func:`unpin_program` takes).  Pins nest."""
     key = cache_key(program, plan)
-    if key not in _compiled:
-        _compiled[key] = _Compiled()
-        _CACHE.add("misses")
-        _evict_over_cap(protect=key)
-    _pinned[key] = _pinned.get(key, 0) + 1
+    with _CACHE_LOCK:
+        if key not in _compiled:
+            _compiled[key] = _Compiled()
+            _CACHE.add("misses")
+            _evict_over_cap(protect=key)
+        _pinned[key] = _pinned.get(key, 0) + 1
     return key
 
 
 def unpin_program(key: tuple) -> bool:
     """Release one pin on ``key``; returns True while pins remain."""
-    n = _pinned.get(key, 0)
-    if n > 1:
-        _pinned[key] = n - 1
-        return True
-    _pinned.pop(key, None)
-    _evict_over_cap()
+    with _CACHE_LOCK:
+        n = _pinned.get(key, 0)
+        if n > 1:
+            _pinned[key] = n - 1
+            return True
+        _pinned.pop(key, None)
+        _evict_over_cap()
     return False
 
 
@@ -585,14 +595,15 @@ class _Compiled:
 
 def compiled(program, plan: Optional[ExecPlan] = None) -> _Compiled:
     key = cache_key(program, plan)
-    entry = _compiled.get(key)
-    if entry is None:
-        entry = _compiled[key] = _Compiled()
-        _CACHE.add("misses")
-    else:
-        _compiled.move_to_end(key)
-        _CACHE.add("hits")
-    _evict_over_cap(protect=key)
+    with _CACHE_LOCK:
+        entry = _compiled.get(key)
+        if entry is None:
+            entry = _compiled[key] = _Compiled()
+            _CACHE.add("misses")
+        else:
+            _compiled.move_to_end(key)
+            _CACHE.add("hits")
+        _evict_over_cap(protect=key)
     return entry
 
 
@@ -601,8 +612,11 @@ def is_compiled(program, plan: Optional[ExecPlan] = None) -> bool:
     for ``plan``'s schedule kind.  A pure query: never creates an entry,
     never touches LRU order."""
     plan = DEFAULT_PLAN if plan is None else plan
-    entry = _compiled.get(cache_key(program, plan))
-    return entry is not None and _alloc_of(plan.schedule) in entry.scheds
+    key = cache_key(program, plan)
+    with _CACHE_LOCK:
+        entry = _compiled.get(key)
+        return entry is not None and \
+            _alloc_of(plan.schedule) in entry.scheds
 
 
 def program_arrays(program):
@@ -1576,8 +1590,14 @@ def run_program_groups(groups: Iterable[dict]) -> list:
     ``deadline`` (absolute ``time.monotonic()``), checked before each of
     its chunks is launched.  A plan with a fault model or a verify policy
     runs its group's chunks through the detect -> retry -> remap loop (one
-    :class:`_VerifyRun` a group)."""
+    :class:`_VerifyRun` a group).
+
+    When ``telemetry.TRACER`` is enabled, each group's input check and the
+    final join of each group's chunk outputs record ``inputs`` and
+    ``join`` events (``cat="pim.groups"``) beside the dispatcher's
+    ``exec`` events."""
     groups = list(groups)
+    tracer = telemetry.TRACER
     parts: list = [[] for _ in groups]
     pending: "collections.deque" = collections.deque()
 
@@ -1593,7 +1613,10 @@ def run_program_groups(groups: Iterable[dict]) -> list:
                        mesh=g.get("mesh"), chunk_rows=g.get("chunk_rows"),
                        device=g.get("device"))
         deadline = g.get("deadline")
+        t_in = time.perf_counter()
         inputs = _row_inputs(g["inputs"], n_rows, f"group {gi}: input")
+        tracer.event("inputs", t_in, time.perf_counter(), cat="pim.groups",
+                     group=gi, rows=n_rows)
         if plan.backend.name == "numpy":
             drain(0)
             _check_deadline(deadline)
@@ -1621,6 +1644,10 @@ def run_program_groups(groups: Iterable[dict]) -> list:
                                         chunk, vrun, start)))
             drain(1)
     drain(0)
-    return [ps[0] if len(ps) == 1 else
+    t_join = time.perf_counter()
+    outs = [ps[0] if len(ps) == 1 else
             {k: np.concatenate([p[k] for p in ps]) for k in ps[0]}
             for ps in parts]
+    tracer.event("join", t_join, time.perf_counter(), cat="pim.groups",
+                 groups=len(parts), chunks=sum(len(ps) for ps in parts))
+    return outs

@@ -62,6 +62,8 @@ def test_the_scan_sees_the_whole_package():
             "kernels/transfer.py", "runtime/telemetry.py",
             "runtime/faults.py", "pim_ufunc.py"} <= names
     assert {"kernels/ref.py"} <= names
+    assert {"runtime/pim_batch.py", "runtime/fault_tolerance.py",
+            "launch/serve.py"} <= names
     for src in ("slot_scan.cu", "level_gather.cu", "gate_serial.cu",
                 "check_words.cu", "pim_state.cuh", "ring.cuh"):
         assert (PKG / "csrc" / src).exists(), src
@@ -92,6 +94,33 @@ def test_unported_options_raise(kw, item):
     x = np.uint8([1, 2])
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         pim.add(x, x, device="cpu", backend="ref", **kw)
+
+
+def test_serve_without_a_mode_raises_the_lm_item():
+    """The LM decode service of the reference's ``launch.serve`` is not
+    ported: a call with no ``--pim*`` mode names its item."""
+    from repro_torch.launch import serve
+    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+        serve.main([])
+
+
+def test_serve_cache_dir_raises_the_artifact_cache_item():
+    from repro_torch.launch import serve
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        serve.main(["--pim-serve", "--pim-device", "cpu",
+                    "--pim-cache-dir", "artifacts"])
+
+
+@pytest.mark.parametrize("mode", [["--pim-serve"], ["--pim-stdin"],
+                                  ["--pim", "add", "--pim-rows", "8"]])
+def test_serve_raises_without_a_gpu(monkeypatch, mode):
+    """With no GPU the server's default device raises before it reads a
+    line; it never serves on the CPU unless ``--pim-device cpu`` asks."""
+    from repro_torch.launch import serve
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(mode)
 
 
 def _fault_kw(module, name: str) -> dict:

@@ -924,3 +924,96 @@ def test_verified_main_path_launches_the_fold(cuda):
     assert pim_exec.LAUNCHES["check_words"] == 3 + h["retries"]
     assert pim_exec.LAUNCHES["slot_scan_fused"] == 3 + h["retries"]
     assert not any(slots.CALLS.values()) and not ref.CALLS["check_words"]
+
+
+@pytest.mark.cuda
+def test_batched_serving_on_the_card(cuda):
+    """A small mixed batch through ``BatchRuntime`` on the card: every
+    result bit-exact against numpy, the slot scan launched (fused and io)
+    and no plain version run, nothing degraded and nothing shed."""
+    from repro_torch.runtime import pim_batch
+    rng = np.random.default_rng(29)
+    n = 3000
+
+    def u(bits, lo=0):
+        return rng.integers(lo, 1 << bits, n, dtype=np.uint64).astype(
+            np.dtype(f"uint{bits}"))
+
+    def f16():
+        return (rng.uniform(1.0, 2.0, n) *
+                rng.choice([-1.0, 1.0], n)).astype(np.float16)
+
+    a8, b8, a16, b16, d16 = u(8), u(8), u(16), u(16), u(16, 1)
+    fa, fb = f16(), f16()
+    wide = np.array([(1 << 69) + int(v) for v in u(16)], object)
+    cases = [
+        ("add", a8, b8, {}, a8.astype(np.uint64) + b8),
+        ("mul", a16, b16, {}, a16.astype(np.uint64) * b16),
+        ("div", a16, d16, {}, (a16 // d16, a16 % d16)),
+        ("fp_add", fa, fb, {}, fa + fb),
+        ("fp_mul", fa, fb, {}, fa * fb),
+        ("add", wide, b16.astype(object), {"width": 70},
+         wide + b16.astype(object)),
+    ]
+    preps = [pim.prepare(op, x, y, **kw) for op, x, y, kw, _ in cases] * 2
+    for p in preps[:len(cases)]:
+        p.warm()
+    rt = pim_batch.BatchRuntime()
+    pim_exec.reset_counts()
+    try:
+        results = rt.execute(preps)
+    finally:
+        rt.close()
+    for r, (op, _, _, _, want) in zip(results, cases * 2):
+        got = r.value
+        if op == "div":
+            assert all(np.array_equal(g, w) for g, w in zip(got, want))
+        else:
+            assert np.array_equal(np.asarray(got).astype(object),
+                                  np.asarray(want).astype(object)), op
+    assert pim_exec.LAUNCHES["slot_scan_fused"] == len(cases) - 1
+    assert pim_exec.LAUNCHES["slot_scan_io"] == 1
+    assert not any(slots.CALLS.values()) and not any(ref.CALLS.values())
+    st = rt.stats
+    assert (st.groups, st.requests) == (len(cases), 2 * len(cases))
+    assert st.shed_requests == 0 and st.degraded_groups == 0 and \
+        st.errors == 0
+
+
+@pytest.mark.cuda
+def test_a_tripped_family_sheds_on_the_card(cuda, monkeypatch):
+    """Faults that exhaust their retries trip a family's breaker on the
+    card; its next request is shed on the card itself (the slot scan, no
+    plain version, never the host's numpy oracle), without the fault
+    model, bit-exact and marked ``shed``."""
+    from repro_torch.runtime import pim_batch
+    from repro_torch.runtime.faults import FaultModel, VerifyPolicy
+    real = ops.run_program
+
+    def run_program(program, inputs, n_rows, plan=None, **kwargs):
+        assert plan is None or plan.backend.name != "numpy"
+        return real(program, inputs, n_rows, plan, **kwargs)
+    monkeypatch.setattr(ops, "run_program", run_program)
+    x = np.arange(4096, dtype=np.uint16)
+    y = x[::-1].copy()
+    with pim.options(faults=FaultModel(seed=3, p_flip=1.0),
+                     verify=VerifyPolicy(max_retries=1, remap_after=99,
+                                         backoff_s=1e-6)):
+        prep = pim.prepare("add", x, y)
+    pim.prepare("add", x, y).warm()     # the same build, fault-free
+    rt = pim_batch.BatchRuntime(breaker=pim_batch.BreakerPolicy(
+        window=8, trip_failures=2, cooldown_s=60.0, probes=1))
+    try:
+        failed = [rt.execute([prep])[0] for _ in range(2)]
+        pim_exec.reset_counts()
+        shed = rt.execute([prep])[0]
+    finally:
+        rt.close()
+    ops.drain_health()
+    assert all(r.error["code"] == "exec_failed" for r in failed)
+    assert shed.shed and shed.error is None
+    assert np.array_equal(shed.value, x.astype(np.uint64) + y)
+    assert pim_exec.LAUNCHES["slot_scan_fused"] == 1
+    assert pim_exec.LAUNCHES["check_words"] == 0
+    assert not any(slots.CALLS.values()) and not any(ref.CALLS.values())
+    assert rt.stats.shed_requests == 1 and rt.stats.breaker_trips == 1
