@@ -78,6 +78,21 @@ Phases, each of which raises (exit code 1) on failure:
    ``FaultModel(seed=7, p_flip=5e-4)`` and ``verify=True`` (B6 with
    every B1 launch); and ``python -m repro_torch.launch.serve`` as a
    subprocess (``--pim-serve`` and ``--pim fp_add`` at 16 Mi rows);
+
+   tune: the autotuner's quick ``cuda`` sweep (:func:`tune_phase`) of
+   ``add:16`` and ``fp_add:fp16`` at 1 Mi rows, each candidate's wall,
+   its spread and its kernels' ms; its tuned.json installed in a fresh
+   process through a cache directory, the plans overlaid exactly where
+   the winners say, results bit-exact under them;
+
+   warm-start: two ``--pim-serve --pim-cache-dir`` replicas sharing one
+   fresh cache directory (:func:`warm_start_phase`), run from a copy of
+   ``src/repro_torch`` whose build directory is emptied before each, on
+   the serving mix at 1024 rows a request with a ``slots-static`` (B2)
+   and a ``dense`` (B3) request: every answer bit-exact; the cold one
+   levelizes, packs and runs ``nvcc``, the warm one none of them, with
+   disk hits, no disk error, and B1, B2 and B3 launched and no plain
+   version; time to the first answer, walls and bytes on disk by tier;
 10. time each kernel entry at one chunk of 1 Mi rows beside its plain
    version, one PyTorch library call computing the same function, and its
    bound, with its launch attributes (CTAs an SM, registers, local bytes),
@@ -1561,6 +1576,246 @@ def serving_phase(gpu: str) -> dict:
     return ran
 
 
+#: Rows a request of the warm-start phase: the reference's serving mix at
+#: its small size (``benchmarks/run.py``).
+WARM_ROWS = 1024
+#: Where the warm-start and tune phases keep their trees, caches and
+#: tuned.json (inside the checkout, under the ignored build directory).
+PHASE_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_a11"
+#: Families and rows of the tune phase's quick sweep.
+TUNE_FAMILIES = ("add:16", "fp_add:fp16")
+TUNE_ROWS = 1 << 20
+
+
+def _warm_traffic(rows: int = WARM_ROWS, seed: int = SEED + 21):
+    """The warm-start phase's requests: the serving mix (uint16 and fp16
+    add, sub, mul and div, 8 requests each) at ``rows`` rows, one
+    ``slots-static`` fp32 add (B2) and one ``dense`` uint16 add (B3).
+    Returns (JSON lines, numpy's answer of each)."""
+    rng = np.random.default_rng(seed)
+
+    def enc(v):
+        return [float(t) for t in v] if v.dtype.kind == "f" else \
+            [int(t) for t in v]
+    reqs = [({"op": op, "dtype": x.dtype.name, "x": enc(x), "y": enc(y)},
+             want) for op, x, y, want in serving_mix(rows, seed=seed)]
+    f32 = [uniform_signed(rng, rows, np.float32) for _ in range(2)]
+    u = [rng.integers(0, 1 << 16, rows).astype(np.uint16) for _ in range(2)]
+    reqs.insert(5, ({"op": "fp_add", "dtype": "float32", "x": enc(f32[0]),
+                     "y": enc(f32[1]), "schedule": "slots-static"},
+                    f32[0] + f32[1]))
+    reqs.insert(40, ({"op": "add", "dtype": "uint16", "x": enc(u[0]),
+                      "y": enc(u[1]), "schedule": "dense"},
+                     _u16_want("add", *u)))
+    return [json.dumps(r) for r, _ in reqs], [w for _, w in reqs]
+
+
+def _replica(tree: Path, cache: Path, lines_file: Path, label: str) -> dict:
+    """One ``python -m repro_torch.launch.serve --pim-serve
+    --pim-cache-dir`` replica run from ``tree`` (its own build
+    directory) on the requests in ``lines_file``: the time from its start
+    to its first answer, its wall, its answers and its stderr's
+    ``warm_start`` and ``summary`` lines."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(tree / "src")
+    err_file = PHASE_DIR / f"{label}.stderr"
+    t0 = time.perf_counter()
+    with open(lines_file) as inp, open(err_file, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--pim-serve",
+             "--pim-cache-dir", str(cache)], cwd=tree, env=env, stdin=inp,
+            stdout=subprocess.PIPE, stderr=err, text=True)
+        try:
+            first = proc.stdout.readline()
+            t_first = time.perf_counter() - t0
+            rest, _ = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    stderr = err_file.read_text()
+    if proc.returncode != 0:
+        raise AssertionError(f"warm-start {label}: exit {proc.returncode}, "
+                             f"{stderr[-2000:]}")
+    jl = [json.loads(l) for l in stderr.splitlines() if l.startswith("{")]
+    (warm,) = [l for l in jl if l.get("type") == "warm_start"]
+    (summary,) = [l for l in jl if l.get("type") == "summary"]
+    answers = [json.loads(l) for l in (first + rest).splitlines()]
+    return {"first_s": t_first, "wall_s": wall, "answers": answers,
+            "warm": warm, "summary": summary}
+
+
+def warm_start_phase(gpu: str) -> dict:
+    """Two ``--pim-serve`` replicas on the card share one fresh
+    ``--pim-cache-dir``, each run from a copy of ``src/repro_torch`` in a
+    tree of its own whose build directory is emptied before it starts: the
+    cold one levelizes, packs and runs ``nvcc`` and writes every artifact
+    through; the warm one must serve the same requests bit-exactly with
+    no levelize, no packing, no ``nvcc`` and no disk error, its B1, B2 and
+    B3 launched and no plain version.  Returns the warm replica's
+    summary."""
+    from repro_torch.runtime.artifact_cache import ArtifactCache
+    shutil.rmtree(PHASE_DIR, ignore_errors=True)
+    tree, cache = PHASE_DIR / "tree", PHASE_DIR / "cache"
+    shutil.copytree(Path(__file__).resolve().parent / "src" / "repro_torch",
+                    tree / "src" / "repro_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    lines, wants = _warm_traffic()
+    lines_file = PHASE_DIR / "requests.jsonl"
+    lines_file.write_text("\n".join(lines) + "\n")
+    runs = {}
+    for label in ("cold", "warm"):
+        shutil.rmtree(tree / "build", ignore_errors=True)
+        r = runs[label] = _replica(tree, cache, lines_file, label)
+        wrong = [i for i, (a, w) in enumerate(zip(r["answers"], wants))
+                 if not _right_answer(a, w)]
+        if len(r["answers"]) != len(lines) or wrong:
+            raise AssertionError(f"warm-start {label}: {len(r['answers'])} "
+                                 f"answers for {len(lines)} requests, "
+                                 f"wrong at {wrong[:5]}")
+        c, k = r["summary"]["cache"], r["summary"]["kernels"]
+        warm = {n: r["warm"][n] for n in ("schedules", "streams",
+                                          "executables", "skipped", "us")}
+        print(f"warm-start {label} replica: {gpu}; {len(lines)} requests of "
+              f"{WARM_ROWS} rows, every answer bit-exact vs numpy; first "
+              f"answer {r['first_s']:.3f} s after start, wall "
+              f"{r['wall_s']:.3f} s; levelized {c['levelized']}, packed "
+              f"{c['packed']}, disk_hits {c['disk_hits']}, disk_misses "
+              f"{c['disk_misses']}, disk_writes {c['disk_writes']}, "
+              f"disk_errors {c['disk_errors']}; nvcc runs {k['nvcc_runs']} "
+              f"({k['nvcc_s']:.3f} s); warm_start {warm}; "
+              f"launches {k['launches']}, plain calls {k['plain'] or 0}",
+              flush=True)
+    cold, warm = (runs[n]["summary"] for n in ("cold", "warm"))
+    cc, wc = cold["cache"], warm["cache"]
+    wk = warm["kernels"]
+    b123 = ("slot_scan_fused", "slots_static_fused", "level_gather_fused")
+    if not (cc["levelized"] > 0 and cc["disk_writes"] > 0 and
+            cold["kernels"]["nvcc_runs"] > 0):
+        raise AssertionError(f"warm-start cold replica: {cc}, "
+                             f"{cold['kernels']}")
+    if wc["levelized"] or wc["packed"] or wk["nvcc_runs"] or \
+            wc["disk_hits"] <= 0 or wc["disk_errors"] or wk["plain"] or \
+            not all(wk["launches"].get(e, 0) > 0 for e in b123):
+        raise AssertionError(f"warm-start warm replica: {wc}, {wk}")
+    sizes = ArtifactCache(cache).tier_bytes()
+    print(f"warm-start cache on disk: {gpu}; bytes by tier {sizes}; first "
+          f"answer cold {runs['cold']['first_s']:.3f} s vs warm "
+          f"{runs['warm']['first_s']:.3f} s", flush=True)
+    return warm
+
+
+def tune_phase(gpu: str) -> dict:
+    """The autotuner's quick ``cuda`` sweep of two families at
+    ``TUNE_ROWS`` rows in this process (each candidate's wall and kernel
+    ms printed), its tuned.json installed in a fresh process through a
+    cache directory, which must overlay the plans exactly where the
+    winners say and leave an untuned family alone, and give bit-exact
+    results under the winners (against numpy, and against the hand
+    defaults).  Returns the tuned.json document."""
+    from repro_torch.runtime import tune
+    t0 = time.perf_counter()
+    doc = tune.tune(TUNE_FAMILIES, backend="cuda", rows=TUNE_ROWS, reps=3,
+                    quick=True)
+    s = time.perf_counter() - t0
+    for e in doc["entries"]:
+        for c in e["candidates"]:
+            if c["us"] is None:
+                line = c["error"]
+            else:
+                k = c["kernel_ms"]
+                line = (f"wall {c['us'] / 1e3:.3f} ms (spread "
+                        f"{c['spread_us'] / 1e3:.3f} ms), kernel "
+                        f"{'not measured' if k is None else f'{k:.4f} ms'}")
+            print(f"tune {e['family']} rows={TUNE_ROWS} "
+                  f"{c['overrides'] or '(default)'}: {gpu}; {line}",
+                  flush=True)
+        if e["us"] > e["default_us"]:
+            raise AssertionError(f"tune {e['family']}: winner {e}")
+        print(f"tune {e['family']}: winner {e['overrides'] or '(defaults)'} "
+              f"wall {e['us'] / 1e3:.3f} ms vs default "
+              f"{e['default_us'] / 1e3:.3f} ms (spread "
+              f"{e['default_spread_us'] / 1e3:.3f} ms)", flush=True)
+    tune_dir = PHASE_DIR / "tuned"
+    shutil.rmtree(tune_dir, ignore_errors=True)
+    tune.save(doc, str(tune_dir))
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(root / "src")
+    proc = subprocess.run(
+        [sys.executable, "-c", _TUNED_CHECK, str(tune_dir), str(TUNE_ROWS)]
+        + list(TUNE_FAMILIES), cwd=root, env=env, capture_output=True,
+        text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"tuned.json in a fresh process: exit "
+                             f"{proc.returncode}, {proc.stderr[-2000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"tune phase: {gpu}; quick cuda sweep of {list(TUNE_FAMILIES)} "
+          f"in {s:.3f} s; tuned.json installed in a fresh process: "
+          f"{got['installed']} entries, plans overlaid as the winners say "
+          f"{got['plans']}, results bit-exact under the winners (vs numpy "
+          f"and the hand defaults)", flush=True)
+    return doc
+
+
+#: Run in a fresh process by :func:`tune_phase`: install the tuned.json of
+#: a cache directory through ``pim.configure(cache_dir=)``, check each
+#: family's plan against its winner and the untuned ``mul:16`` against the
+#: hand defaults, and run each family under its winner and under
+#: ``tuned=False`` against numpy.  Prints one JSON line.
+_TUNED_CHECK = """
+import json, sys
+import numpy as np
+from repro_torch import pim_ufunc as pim
+from repro_torch.kernels import plan as kplan
+from repro_torch.runtime import tune
+cache_dir, rows, families = sys.argv[1], int(sys.argv[2]), sys.argv[3:]
+with open(cache_dir + "/tuned.json") as f:
+    doc = json.load(f)
+pim.configure(cache_dir=cache_dir)
+rng = np.random.default_rng(5)
+plans = {}
+for e in doc["entries"]:
+    op, kw = tune.parse_family(e["family"])
+    if "width" in kw:
+        x = rng.integers(0, 1 << 16, rows).astype(np.uint16)
+        y = rng.integers(0, 1 << 16, rows).astype(np.uint16)
+        want = x.astype(np.uint64) + y
+    else:                     # mid-range fp16: every sum 0 or normal
+        x, y = ((rng.integers(10, 21, rows).astype(np.uint16) << 10 |
+                 rng.integers(0, 1 << 10, rows).astype(np.uint16)
+                 ).view(np.float16) for _ in range(2))
+        b = (x + y).view(np.uint16).copy()
+        b[(b & 0x7C00) == 0] &= 0x8000
+        want = b.view(np.float16)
+    assert op in ("add", "fp_add"), op
+    prep = pim.prepare(op, x, y)
+    ov = e["overrides"]
+    stock = kplan.BACKENDS["cuda"]
+    for f in kplan.TUNABLE_FIELDS:
+        assert getattr(prep.plan.backend, f) == ov.get(f, getattr(stock, f)), f
+    assert prep.plan.schedule == ov.get("schedule", kplan.DEFAULT_SCHEDULE)
+    if "chunk_rows" in ov:
+        assert prep.plan.chunk_rows == ov["chunk_rows"]
+    got = prep.run()
+    with pim.options(tuned=False):
+        dflt = pim.prepare(op, x, y).run()
+    assert got.dtype == want.dtype and got.view(np.uint8).tobytes() == \
+        want.view(np.uint8).tobytes(), e["family"]
+    assert got.view(np.uint8).tobytes() == dflt.view(np.uint8).tobytes()
+    plans[e["family"]] = {"schedule": prep.plan.schedule,
+                          **{f: getattr(prep.plan.backend, f)
+                             for f in ov if f != "schedule"}}
+x = np.arange(64, dtype=np.uint16)
+p = pim.prepare("mul", x, x)
+assert p.plan.schedule == kplan.DEFAULT_SCHEDULE and \
+    p.plan.backend == kplan.BACKENDS["cuda"]
+print(json.dumps({"installed": len([e for e in doc["entries"]
+                                     if e["overrides"]]), "plans": plans}))
+"""
+
+
 def fold_bound(outer: int, k: int, inner: int, lop_rate: float) -> tuple:
     """Least time of B6 on ``outer x k x inner`` words: the block read
     and the fold written once at the HBM rate, against one 32-bit XOR a
@@ -2310,6 +2565,8 @@ def main() -> None:
     fused_phase(gpu)
     folds = verified_phase(main["a"], main["b"], gpu)
     serving_phase(gpu)
+    tune_phase(gpu)
+    warm_start_phase(gpu)
     kernels = measure(progs, statics, chunk_rows, main["launches"], worst,
                       gpu) + measure_folds(chunk_rows, folds, worst, gpu)
     if args.turns:

@@ -31,33 +31,36 @@ def program_for(kind: str, op: str, width_or_fmt):
     width_or_fmt: bit width for int kinds, FORMATS name for fp kinds.
     """
     if kind == "int-serial":
-        return {
+        prog = {
             "add": bitserial.build_add,
             "sub": bitserial.build_sub,
             "mul": bitserial.build_mul,
             "div": bitserial.build_div,
         }[op](width_or_fmt)
-    if kind == "int-parallel":
-        return {
+    elif kind == "int-parallel":
+        prog = {
             "add": bitparallel.build_bp_add,
             "sub": bitparallel.build_bp_sub,
             "mul": bitparallel.build_bp_mul,
             "div": lambda n: bitparallel.build_bp_div(n, cpk=384),
         }[op](width_or_fmt)
-    if kind == "fp-serial":
-        return {
+    elif kind == "fp-serial":
+        prog = {
             "add": bitserial_fp.build_fp_add,
             "sub": bitserial_fp.build_fp_sub,
             "mul": bitserial_fp.build_fp_mul,
             "div": bitserial_fp.build_fp_div,
         }[op](FORMATS[width_or_fmt])
-    if kind == "fp-parallel":
-        return {
+    elif kind == "fp-parallel":
+        prog = {
             "add": bitparallel_fp.build_bp_fp_add,
             "mul": bitparallel_fp.build_bp_fp_mul,
             "div": bitparallel_fp.build_bp_fp_div,
         }[op](FORMATS[width_or_fmt])
-    raise ValueError(kind)
+    else:
+        raise ValueError(kind)
+    kops.note_provenance(prog, ("program_for", kind, op, width_or_fmt))
+    return prog
 
 
 @gates.memoize_build
@@ -126,7 +129,9 @@ def fused_program_for(kind: str, graph: tuple, fmt: str = None):
     if last[0] == "ext":        # bare leaf: route through an identity copy
         nodes.append((build_identity(last[2]), {"x": last}))
         last = ("node", len(nodes) - 1, "z", last[2])
-    return gates.compose(nodes, {"z": (last[1], last[2])})
+    prog = gates.compose(nodes, {"z": (last[1], last[2])})
+    kops.note_provenance(prog, ("fused_program_for", kind, graph, fmt))
+    return prog
 
 
 def fused_out_width(kind: str, graph: tuple, fmt: str = None) -> int:

@@ -112,8 +112,57 @@ _serial_model_memo: "weakref.WeakKeyDictionary" = \
     weakref.WeakKeyDictionary()
 
 #: Compiled-program LRU counters (``pim.cache.hits``/``misses``/
-#: ``evictions``/``levelized``) on the global telemetry registry.
+#: ``evictions``/``levelized``) on the global telemetry registry.  The
+#: disk tier (``runtime.artifact_cache``) adds ``disk_hits``/
+#: ``disk_misses``/``disk_writes``/``disk_errors``/``disk_evictions`` to
+#: the same group, and ``levelized`` and ``packed`` count *fresh*
+#: levelizations and stream packings -- what a warm-started replica
+#: drives to zero.
 _CACHE = telemetry.REGISTRY.group("pim.cache")
+
+# --------------------------------------------------------------------------
+# optional on-disk artifact tier
+# --------------------------------------------------------------------------
+#
+# When installed, the disk cache sits *below* the in-memory LRU: an
+# in-memory miss of a schedule, of a packed stream (B1, B3, B4) or of a
+# generated kernel's library (B2, and the fixed kernels' libraries in
+# ``pim_exec.build``) first tries the disk before levelizing, packing or
+# running nvcc, and every fresh artifact is written through.
+
+_artifacts = None       # Optional[runtime.artifact_cache.ArtifactCache]
+
+# Program build provenance -- how ``core.pim_numerics`` constructed each
+# program (the ``program_for``/``fused_program_for`` argument triple).
+# Written into on-disk schedule headers so ``ArtifactCache.warm()`` can
+# rebuild the program in a fresh process and verify its content hash.
+# Weak-keyed: provenance never pins a program alive.
+_provenance: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def set_artifact_cache(cache) -> None:
+    """Install (or, with None, remove) the process-wide on-disk artifact
+    cache consulted by the compiled-program machinery."""
+    global _artifacts
+    _artifacts = cache
+
+
+def artifact_cache():
+    """The installed on-disk artifact tier, or None."""
+    return _artifacts
+
+
+def note_provenance(program, tag: tuple) -> None:
+    """Record how ``program`` was built (a plain-data tag the artifact
+    cache persists and ``warm()`` replays)."""
+    try:
+        _provenance.setdefault(program, tag)
+    except TypeError:
+        pass
+
+
+def provenance_of(program):
+    return _provenance.get(program)
 
 # Pinned entries (cache key -> refcount) are exempt from eviction.
 _pinned: Dict[tuple, int] = {}
@@ -350,12 +399,28 @@ def schedule_from_arrays(d: dict) -> LevelSchedule:
     return s
 
 
+def _check_installable(program, alloc: str, s: LevelSchedule) -> None:
+    """Raise ``ValueError`` unless ``s`` is a schedule of ``program``'s
+    ports that passes the kernels' checks for ``alloc``."""
+    if set(s.ports) != set(program.ports):
+        raise ValueError("schedule ports disagree with the program")
+    if (s.alloc == "slots") != (alloc == "slots"):
+        raise ValueError(f"a {s.alloc} schedule is no {alloc} schedule")
+    (_check_slot_schedule if alloc == "slots" else _check_dense_schedule)(s)
+
+
 # --------------------------------------------------------------------------
 # per-(structure, plan) compilation artifacts
 # --------------------------------------------------------------------------
 
 def _alloc_of(kind: str) -> str:
     return "dense" if kind == "dense" else "slots"
+
+
+def _static_key(plan: ExecPlan, in_names, in_widths, out_widths) -> tuple:
+    """What ``_Compiled.static`` keys B2's kernel on."""
+    return ("kernel", tuple(in_names), tuple(in_widths), tuple(out_widths),
+            plan.layout.planes, plan.backend.words_per_cta)
 
 
 def _checked_device(device) -> str:
@@ -448,8 +513,11 @@ class _Compiled:
                 raise ValueError(f"gate cell index outside [0, {n_cells})")
             packed = None
             if torch.device(device).type == "cuda":
-                packed = pim_exec.pack_gates(ops, a, b, o,
-                                             n_cells=n_cells).to(device)
+                packed = self._stream(
+                    program, (), "gates", len(ops),
+                    n_cells + pim_exec.GATE_CONSTANTS,
+                    lambda: pim_exec.pack_gates(ops, a, b, o,
+                                                n_cells=n_cells)).to(device)
             g = self.gates[device] = tuple(
                 torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(device)
                 for x in (ops, a, b, o)) + (packed,)
@@ -457,19 +525,46 @@ class _Compiled:
 
     def get_schedule(self, program, plan: ExecPlan,
                      kind: Optional[str] = None) -> LevelSchedule:
+        """The ``kind`` schedule: from memory, else from the installed
+        artifact cache, else levelized (and written through)."""
         alloc = _alloc_of(plan.schedule if kind is None else kind)
         s = self.scheds.get(alloc)
         if s is None:
-            if alloc == "dense":
-                s = levelize(program, max_width=plan.backend.level_max_width)
-                _check_dense_schedule(s)
-            else:
-                s = levelize(program, alloc="slots",
-                             max_width=plan.backend.slot_width)
-                _check_slot_schedule(s)
-            _CACHE.add("levelized")
+            content = content_key(program)
+            if _artifacts is not None:
+                s = _artifacts.load_schedule(content, plan, alloc)
+                if s is not None:
+                    try:
+                        _check_installable(program, alloc, s)
+                    except ValueError:
+                        # key-collision / stale-entry guard: never trust
+                        # a disk schedule the program or kernels disagree
+                        # with
+                        _CACHE.add("disk_errors")
+                        s = None
+            if s is None:
+                if alloc == "dense":
+                    s = levelize(program,
+                                 max_width=plan.backend.level_max_width)
+                else:
+                    s = levelize(program, alloc="slots",
+                                 max_width=plan.backend.slot_width)
+                _check_installable(program, alloc, s)
+                _CACHE.add("levelized")
+                if _artifacts is not None:
+                    _artifacts.store_schedule(
+                        content, plan, alloc, s,
+                        provenance=provenance_of(program))
             self.scheds[alloc] = s
         return s
+
+    def install_schedule(self, program, alloc: str,
+                         s: LevelSchedule) -> None:
+        """Install a schedule loaded from disk (``ArtifactCache.warm``)
+        unless one is resident; raises ``ValueError`` where the program's
+        ports or the kernels' checks disagree with it."""
+        _check_installable(program, _alloc_of(alloc), s)
+        self.scheds.setdefault(_alloc_of(alloc), s)
 
     def get_sched_dev(self, program, plan: ExecPlan, kind: str, device: str):
         alloc = _alloc_of(kind)
@@ -495,9 +590,51 @@ class _Compiled:
             s = self.get_schedule(program, plan, kind)
             pack = pim_exec.pack_levels if key[0] == "dense" else \
                 pim_exec.pack_slots
-            self.packed[key] = pack(s.a, s.b, s.out,
-                                    n_cells=s.n_cells).to(device)
+            self.packed[key] = self._stream(
+                program, plan, key[0], s.a.size, s.n_cells,
+                lambda: pack(s.a, s.b, s.out, n_cells=s.n_cells)
+            ).to(device)
         return self.packed[key]
+
+    @staticmethod
+    def _stream(program, plan, alloc: str, n_gates: int, n_cells: int,
+                pack) -> "pim_exec.Packed":
+        """A packed stream on the CPU: from the installed artifact cache
+        where it holds one of ``n_gates`` gates over ``n_cells`` cells
+        (B4's constant cells included), else ``pack()`` (counted in
+        ``packed``, and written through).  B4's stream is keyed on the
+        compile key ``()``: it does not depend on the plan."""
+        content = content_key(program)
+        if _artifacts is not None:
+            p = _artifacts.load_packed(content, plan, alloc)
+            if p is not None:
+                try:
+                    pim_exec.check_packed(p, n_gates, n_cells)
+                    return p
+                except ValueError:
+                    _CACHE.add("disk_errors")
+        p = pack()
+        _CACHE.add("packed")
+        if _artifacts is not None:
+            _artifacts.store_packed(content, plan, alloc, p,
+                                    provenance=provenance_of(program))
+        return p
+
+    def install_packed(self, program, plan: ExecPlan, alloc: str,
+                       p: "pim_exec.Packed", device: str) -> bool:
+        """Install a packed stream loaded from disk on ``device``
+        (``ArtifactCache.warm``) unless one is resident; False where its
+        schedule is not resident or the stream disagrees with it."""
+        s = self.scheds.get(alloc)
+        if s is None:
+            return False
+        try:
+            pim_exec.check_packed(p, s.a.size, s.n_cells)
+        except ValueError:
+            _CACHE.add("disk_errors")
+            return False
+        self.packed.setdefault((alloc, device), p.to(device))
+        return True
 
     def get_in_idx(self, program, plan: ExecPlan, kind: str, device: str,
                    in_names):
@@ -576,21 +713,54 @@ class _Compiled:
     def get_static(self, program, plan: ExecPlan, in_names, in_widths,
                    out_widths) -> "pim_exec.StaticKernel":
         """B2: the generated static-slice kernel for this schedule, widths
-        and layout, compiled here -- at first resolve, so a warm-up keeps
-        ``nvcc`` out of every later call.  Memoized."""
-        key = ("kernel", tuple(in_names), in_widths, out_widths,
-               plan.layout.planes, plan.backend.words_per_cta)
+        and layout, built here (from the artifact cache's binary tier, or
+        by ``nvcc``) -- at first resolve, so a warm-up keeps ``nvcc`` out
+        of every later call.  Memoized."""
+        key = _static_key(plan, in_names, in_widths, out_widths)
         if key not in self.static:
-            s = self.get_schedule(program, plan, "slots")
-            k = pim_exec.StaticKernel(
-                s, in_widths, out_widths, output_names(s),
-                _stacked_cells([s.pack_cells(n) for n in in_names]),
-                planes=plan.layout.planes,
-                words_per_cta=plan.backend.words_per_cta,
-                seg_levels=plan.backend.seg_levels)
+            k = self._static_kernel(program, plan, in_names, in_widths,
+                                    out_widths)
             k.build()
             self.static[key] = k
         return self.static[key]
+
+    def _static_kernel(self, program, plan: ExecPlan, in_names, in_widths,
+                       out_widths) -> "pim_exec.StaticKernel":
+        """B2's kernel object, unbuilt; its ``tag`` is what the binary
+        tier records to rebuild it (``ArtifactCache.warm``)."""
+        s = self.get_schedule(program, plan, "slots")
+        tag = {"kind": "static", "content": content_key(program).hex(),
+               "compile_key": list(plan.compile_key),
+               "in_names": list(in_names),
+               "in_widths": [int(w) for w in in_widths],
+               "out_widths": [int(w) for w in out_widths],
+               "planes": plan.layout.planes,
+               "words_per_cta": plan.backend.words_per_cta}
+        return pim_exec.StaticKernel(
+            s, in_widths, out_widths, output_names(s),
+            _stacked_cells([s.pack_cells(n) for n in in_names]),
+            planes=plan.layout.planes,
+            words_per_cta=plan.backend.words_per_cta,
+            seg_levels=plan.backend.seg_levels, tag=tag)
+
+    def install_static(self, program, plan: ExecPlan, in_names, in_widths,
+                       out_widths, so_name: str, data: bytes) -> bool:
+        """Install B2's library from disk (``ArtifactCache.warm``): the
+        kernel's source is regenerated from the resident schedule, and the
+        bytes are written to the build directory only where its
+        content-addressed name is ``so_name``.  False otherwise."""
+        key = _static_key(plan, in_names, in_widths, out_widths)
+        if key in self.static:
+            return True
+        if "slots" not in self.scheds:
+            return False
+        k = self._static_kernel(program, plan, in_names, in_widths,
+                                out_widths)
+        if k.so.name != so_name:
+            return False
+        pim_exec.publish(data, k.so)
+        self.static[key] = k
+        return True
 
 
 def compiled(program, plan: Optional[ExecPlan] = None) -> _Compiled:

@@ -29,6 +29,10 @@ handed different streams.  Their CTAs are sized by
 Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface at first use (``build/repro_torch/`` at the
 checkout root, keyed on the source's hash) and bound with ``ctypes``.
+Where an artifact cache is installed (``kernels.ops.set_artifact_cache``)
+a library missing from the build directory is first taken from its binary
+tier, and every fresh build is written through to it; :data:`COMPILES`
+counts the ``nvcc`` runs.
 
 The wrappers take the plain versions' signatures (``kernels.slots`` and
 ``kernels.ref``).  On a CPU tensor they call the plain version; on a CUDA
@@ -40,6 +44,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import os
 import shutil
@@ -109,6 +114,10 @@ LAUNCHES = {f"{e}{sfx}": 0
 LAUNCHES["gate_serial"] = 0
 LAUNCHES["check_words"] = 0
 
+#: ``nvcc`` runs (one a source) and the seconds spent waiting on them in
+#: this process -- what a warm start from the artifact cache drives to 0.
+COMPILES = {"runs": 0, "seconds": 0.0}
+
 #: Dynamic shared memory one CTA may opt into on sm_90 (227 KB).
 SMEM_PER_CTA = 232448
 
@@ -170,6 +179,71 @@ def _so_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{_build_key(SOURCES[name].read_bytes())}.so"
 
 
+@functools.lru_cache(maxsize=None)
+def toolchain() -> tuple:
+    """What a built library depends on beyond its source, headers and
+    flags (its name): the ``nvcc --version`` release line, the CUDA
+    version torch was built for, and the first card's compute capability
+    (None where there is no ``nvcc`` or no card).  Part of every key of
+    the artifact cache's binary tier, so that a library built by another
+    toolchain, or for another card, is a miss."""
+    try:
+        out = subprocess.run([_nvcc(), "--version"], capture_output=True,
+                             text=True, timeout=60).stdout
+        release = next((line.strip() for line in out.splitlines()
+                        if "release" in line), out.strip() or None)
+    except (RuntimeError, OSError, subprocess.SubprocessError):
+        release = None
+    cap = None
+    if torch.cuda.is_available():
+        cap = "sm_%d%d" % torch.cuda.get_device_capability(0)
+    return (release, torch.version.cuda, cap)
+
+
+def _place(tmp: Path, so: Path) -> None:
+    """Publish the complete file ``tmp`` as ``so`` unless ``so`` exists:
+    a library a process may already have loaded is never replaced."""
+    try:
+        os.link(tmp, so)
+    except FileExistsError:
+        pass
+    except OSError:                  # a file system with no hard links
+        if not so.exists():
+            os.replace(tmp, so)
+            return
+    tmp.unlink()
+
+
+def publish(data: bytes, so: Path) -> None:
+    """Write a library's bytes from the artifact cache as ``so`` in the
+    build directory: through a temporary file, synced, never over an
+    existing file."""
+    if so.exists():
+        return
+    so.parent.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    with open(tmp, "wb") as f:
+        f.write(data)
+        f.flush()
+        os.fsync(f.fileno())
+    _place(tmp, so)
+
+
+def _artifact_cache():
+    from .ops import artifact_cache
+    return artifact_cache()
+
+
+def _take_cached(cache, chain: tuple, so: Path) -> bool:
+    """Write the library ``so`` from the artifact cache's binary tier;
+    False where the cache holds none for the toolchain ``chain``."""
+    data = cache.load_binary(so.name, chain)
+    if data is None:
+        return False
+    publish(data, so)
+    return True
+
+
 def _compile(jobs: Dict[str, tuple]) -> Dict[str, tuple]:
     """Run one ``nvcc`` per job (name -> (source, library path)), all
     started together; returns name -> (compiler report, seconds from the
@@ -179,6 +253,7 @@ def _compile(jobs: Dict[str, tuple]) -> Dict[str, tuple]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     t0 = time.perf_counter()
+    COMPILES["runs"] += len(jobs)
     for n, (src, so) in jobs.items():
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
         log = so.with_suffix(f".{os.getpid()}.log")
@@ -193,6 +268,7 @@ def _compile(jobs: Dict[str, tuple]) -> Dict[str, tuple]:
             if n not in done and proc.poll() is not None:
                 done[n] = time.perf_counter() - t0
         time.sleep(0.05)
+    COMPILES["seconds"] += time.perf_counter() - t0
     out, failed = {}, []
     for n, (so, tmp, log, proc) in procs.items():
         out[n] = (log.read_text(), done[n])
@@ -200,7 +276,7 @@ def _compile(jobs: Dict[str, tuple]) -> Dict[str, tuple]:
         if proc.returncode:
             failed.append(n)
         else:
-            os.replace(tmp, so)
+            _place(tmp, so)
     if failed:
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n" +
                            "\n".join(out[n][0] for n in failed))
@@ -213,19 +289,37 @@ def build(names: Optional[Sequence[str]] = None,
     ``static`` kernels that are not built yet, one ``nvcc`` per source,
     all started together; returns each fresh build's (compiler report,
     seconds), keyed by kernel name or static library name.  The report is
-    ``-Xptxas -v``'s: registers, shared memory, spills."""
+    ``-Xptxas -v``'s: registers, shared memory, spills.
+
+    With an artifact cache installed, a library it holds for this
+    :func:`toolchain` is written to the build directory instead of
+    compiled, and every fresh build is stored in it (a missing, stale or
+    corrupt entry is compiled, never run as the plain version)."""
     names = list(SOURCES if names is None else names)
     todo = {n: (SOURCES[n], _so_path(n)) for n in names
             if not _so_path(n).exists()}
     fresh = {k.so.name: k for k in static if not k.built}
+    cache = _artifact_cache() if todo or fresh else None
+    chain = toolchain() if cache is not None else None
+    if cache is not None:
+        todo = {n: v for n, v in todo.items()
+                if not _take_cached(cache, chain, v[1])}
+        fresh = {n: k for n, k in fresh.items()
+                 if not _take_cached(cache, chain, k.so)}
     if not todo and not fresh:
         return {}
     _nvcc()                          # raise before writing any source
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tags = {n: {"kind": "fixed", "name": n} for n in todo}
     for n, k in fresh.items():
         k.cu.write_text(k.source)
         todo[n] = (k.cu, k.so)
-    return _compile(todo)
+        tags[n] = getattr(k, "tag", None)
+    out = _compile(todo)
+    if cache is not None:
+        for n, (_, so) in todo.items():
+            cache.store_binary(so.name, chain, so.read_bytes(), tags[n])
+    return out
 
 
 def _load(so: Path) -> ctypes.CDLL:
@@ -408,6 +502,33 @@ def _pack(a, b, o, lens) -> Packed:
     tiles = torch.from_numpy(rec.view(np.int32).reshape(n_tiles,
                                                         2 * TILE_RECORDS))
     return Packed(tiles, n_windows, len(a), width)
+
+
+@functools.lru_cache(maxsize=None)
+def packed_format() -> str:
+    """The record format of the packed streams: the tile and window sizes
+    and the hash of ``csrc/ring.cuh``, which reads them.  Part of every
+    key of the artifact cache's packed tier, so a change to the layout
+    the kernels read is a miss."""
+    ring = hashlib.sha256((CSRC / "ring.cuh").read_bytes()).hexdigest()
+    return (f"tile{TILE_RECORDS}-win{WINDOW}-gwin{GATE_WINDOW}-"
+            f"const{GATE_CONSTANTS}-ring{ring[:16]}")
+
+
+def check_packed(p: Packed, n_gates: int, n_cells: int) -> None:
+    """Raise ``ValueError`` unless ``p`` (tiles on the CPU) is a stream of
+    ``n_gates`` gates whose records name cells below ``n_cells`` laid out
+    as :func:`_pack` lays them: the kernels read the records unchecked."""
+    if p.width not in (2, 4, 6, 8) or p.n_gates != n_gates or \
+            p.n_windows > n_gates or p.tiles.dim() != 2 or \
+            p.tiles.shape[1] != 2 * TILE_RECORDS or \
+            p.n_tiles != -(-p.n_windows //
+                           ((TILE_RECORDS - WINDOW) // p.width)):
+        raise ValueError("packed stream disagrees with its schedule")
+    rec = p.tiles.numpy().view(np.uint16).reshape(-1, 4)
+    if rec.size and int(rec[:, :3].max()) >= n_cells:
+        raise ValueError(f"packed stream names a cell outside "
+                         f"[0, {n_cells})")
 
 
 def _cells_fit(n_cells: int, constants: int = 0) -> None:
@@ -920,13 +1041,17 @@ class StaticKernel:
     :meth:`build` (:func:`build` builds several at once).
     ``words_per_cta`` sets the CTA width (default
     :func:`static_words_per_cta`); ``seg_levels`` is the plain chain's
-    segment size; ``split`` goes to :func:`static_source`."""
+    segment size; ``split`` goes to :func:`static_source`.  ``tag`` is
+    what the artifact cache's binary tier records beside the library so
+    that a later process can rebuild this object
+    (``kernels.ops._Compiled._static_kernel``)."""
 
     def __init__(self, sched, in_widths, out_widths, out_names, in_cells, *,
                  planes: int = 1, words_per_cta: Optional[int] = None,
                  seg_levels: int = SLOT_SEG_LEVELS,
-                 split: Optional[int] = None):
+                 split: Optional[int] = None, tag: Optional[dict] = None):
         self.sched = sched
+        self.tag = tag
         self.in_widths = tuple(int(w) for w in in_widths)
         self.out_widths = tuple(int(w) for w in out_widths)
         self.out_names = list(out_names)

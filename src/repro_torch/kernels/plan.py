@@ -348,16 +348,20 @@ DEFAULT_PLAN = ExecPlan()
 # tuned defaults
 # --------------------------------------------------------------------------
 #
-# Winners of a tunables sweep per (program family, layout, backend) are
-# registered here; ``apply_tuned`` overlays them onto a plan at ufunc
-# resolution time -- but only onto fields still at their hand defaults, so
-# an explicit user choice (a custom Backend, chunk_rows=) always wins.
+# The autotuner (``runtime.tune``) sweeps Backend tunables and the
+# schedule choice per (program family, layout, backend) on the current
+# device target and registers winners here; ``apply_tuned`` overlays them
+# onto a plan at ufunc resolution time -- but only onto fields still at
+# their hand defaults, so an explicit user choice (schedule=, a custom
+# Backend, chunk_rows=) always wins.
 
 #: (family, layout_name, backend_name) -> override dict.  Families are
-#: "op:param" strings ("add:16", "fp_mul:fp16").
+#: "op:param" strings ("add:16", "fp_mul:fp16"); override keys: schedule
+#: and the fields of :data:`TUNABLE_FIELDS`.
 _tuned: dict = {}
 
-#: Backend fields a tuned override may set.
+#: Backend fields a tuned override may set: the reference's, and the
+#: cuda kernels' CTA width.
 TUNABLE_FIELDS = ("slot_width", "seg_levels", "level_max_width",
                   "chunk_rows", "words_per_cta")
 
@@ -365,10 +369,14 @@ TUNABLE_FIELDS = ("slot_width", "seg_levels", "level_max_width",
 def register_tuned(family: str, layout: str, backend: str,
                    overrides: dict) -> None:
     """Record tuned defaults for one (family, layout, backend) slot.
-    Unknown keys are rejected loudly."""
-    bad = set(overrides) - set(TUNABLE_FIELDS)
+    Unknown keys and schedules are rejected loudly -- a corrupt tuned.json
+    should fail install, not silently mistune."""
+    bad = set(overrides) - set(TUNABLE_FIELDS) - {"schedule"}
     if bad:
         raise ValueError(f"unknown tuned override keys {sorted(bad)}")
+    if "schedule" in overrides and overrides["schedule"] not in SCHEDULES:
+        raise ValueError(f"unknown tuned schedule "
+                         f"{overrides['schedule']!r}")
     _tuned[(family, layout, backend)] = dict(overrides)
 
 
@@ -376,11 +384,17 @@ def clear_tuned() -> None:
     _tuned.clear()
 
 
+def tuned_overrides(family: str, layout: str, backend: str
+                    ) -> Optional[dict]:
+    return _tuned.get((family, layout, backend))
+
+
 def apply_tuned(plan: ExecPlan, family: Optional[str]) -> ExecPlan:
     """Overlay registered tuned defaults for ``family`` onto ``plan``; each
-    override lands only where the plan still holds the stock
-    ``BACKENDS`` value (and, for ``chunk_rows``, an unset or default plan
-    chunk), so explicit choices are never overridden."""
+    override lands only where the plan still holds the hand default (the
+    stock ``BACKENDS`` value, ``DEFAULT_SCHEDULE``, and for
+    ``chunk_rows`` an unset or default plan chunk), so explicit choices
+    are never overridden."""
     if family is None or not _tuned:
         return plan
     ov = _tuned.get((family, plan.layout.name, plan.backend.name))
@@ -396,6 +410,8 @@ def apply_tuned(plan: ExecPlan, family: Optional[str]) -> ExecPlan:
     changes = {}
     if bk_changes:
         changes["backend"] = dataclasses.replace(plan.backend, **bk_changes)
+    if "schedule" in ov and plan.schedule == DEFAULT_SCHEDULE:
+        changes["schedule"] = ov["schedule"]
     if "chunk_rows" in ov and plan.chunk_rows in (None, DEFAULT_CHUNK_ROWS):
         changes["chunk_rows"] = int(ov["chunk_rows"])
     return dataclasses.replace(plan, **changes) if changes else plan

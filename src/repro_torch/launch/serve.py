@@ -23,9 +23,10 @@ at end of stream.
 
 Every mode runs on the CUDA device unless ``--pim-device cpu`` asks for
 the plain PyTorch version on the CPU; with no GPU the default raises
-before the first line is read.  The LM decode service of the reference
-(ROADMAP A13) and the warm start from an artifact cache (``--pim-cache-dir``,
-ROADMAP A11) raise ``NotImplementedError`` naming their item.
+before the first line is read.  ``--pim-cache-dir`` warm-starts a replica
+from the persistent artifact cache that a fleet of replicas shares
+(``runtime/artifact_cache.py``).  The LM decode service of the reference
+(ROADMAP A13) raises ``NotImplementedError`` naming its item.
 """
 
 from __future__ import annotations
@@ -41,6 +42,9 @@ import numpy as np
 from .. import pim_ufunc as pim
 from ..core.floatfmt import FORMATS
 from ..kernels import ops as kops
+from ..kernels import pim_exec
+from ..kernels import ref as kref
+from ..kernels import slots as kslots
 from ..kernels.plan import LAYOUTS, SCHEDULES
 from ..runtime import pim_batch, telemetry
 from ..runtime.fault_tolerance import Heartbeat, StragglerMonitor
@@ -225,6 +229,17 @@ def serve_pim_stdin(inp=None, outp=None) -> int:
     return served
 
 
+def _kernel_section() -> dict:
+    """The summary's port-only section: the kernel launches and the plain
+    versions' calls of this process (nonzero entries), and its ``nvcc``
+    runs and the seconds spent on them."""
+    return {"launches": {k: v for k, v in pim_exec.LAUNCHES.items() if v},
+            "plain": {k: v for counts in (kslots.CALLS, kref.CALLS)
+                      for k, v in counts.items() if v},
+            "nvcc_runs": pim_exec.COMPILES["runs"],
+            "nvcc_s": round(pim_exec.COMPILES["seconds"], 3)}
+
+
 def serve_pim_batched(inp=None, outp=None, *, window_ms: float = 2.0,
                       max_batch_rows: int = 1 << 16, pin_cap: int = 32,
                       max_queue_rows=None, deadline_ms=None,
@@ -293,14 +308,29 @@ def serve_pim_batched(inp=None, outp=None, *, window_ms: float = 2.0,
     machine-parseable ``{"type": "summary", ...}`` JSON stderr line next
     to the historical human one.
 
-    ``cache_dir`` (the reference's warm start from a persistent artifact
-    cache) is ROADMAP A11: any value raises ``NotImplementedError`` before
-    the first line is read, as does a configured plan on a CUDA device
-    when there is none (``RuntimeError``).
+    Warm starts: ``cache_dir`` installs the persistent compiled-artifact
+    cache (``runtime.artifact_cache``) for the lifetime of the process,
+    preloads every provenance-bearing schedule, packed stream and kernel
+    library from disk onto the configured device before the first
+    request (a ``{"type": "warm_start", ...}`` stderr line reports what
+    loaded and how long it took; ``executables`` counts the libraries),
+    and installs any ``tuned.json`` the autotuner persisted beside it.  A
+    replica restarted against a populated cache directory then serves its
+    hot programs with no levelize, no packing and no ``nvcc`` -- the
+    summary's ``cache.levelized`` and ``cache.packed`` stay 0, and so
+    does ``kernels.nvcc_runs``.  A configured plan on a CUDA device when
+    there is none raises ``RuntimeError`` before the first line is read.
     """
-    if cache_dir:
-        raise pim._not_ported("the artifact cache (cache_dir=)", "A11")
     _serving_devices()
+    if cache_dir:
+        t_warm = time.perf_counter()
+        pim.configure(cache_dir=str(cache_dir))
+        pim._ensure_artifact_cache()        # install + tuned.json now
+        counts = kops.artifact_cache().warm()
+        print(json.dumps(
+            {"type": "warm_start", "dir": str(cache_dir), **counts,
+             "us": round((time.perf_counter() - t_warm) * 1e6, 1)},
+            sort_keys=True), file=sys.stderr, flush=True)
     inp = sys.stdin if inp is None else inp
     outp = sys.stdout if outp is None else outp
     q = pim_batch.BatchQueue(window_ms=window_ms,
@@ -373,9 +403,11 @@ def serve_pim_batched(inp=None, outp=None, *, window_ms: float = 2.0,
         return {"hits": hits, "misses": misses,
                 "evictions": int(reg.counter("pim.cache.evictions")),
                 "hit_rate": round(hits / total, 4) if total else 0.0,
-                # disk tier (DESIGN.md §16, ROADMAP A11): these stay 0
-                # until the artifact cache is ported
+                # disk tier (DESIGN.md §16): artifact loads/stores plus
+                # the fresh levelize and packing counts a warm start
+                # drives to zero
                 "levelized": int(reg.counter("pim.cache.levelized")),
+                "packed": int(reg.counter("pim.cache.packed")),
                 "disk_hits": int(reg.counter("pim.cache.disk_hits")),
                 "disk_misses": int(reg.counter("pim.cache.disk_misses")),
                 "disk_writes": int(reg.counter("pim.cache.disk_writes")),
@@ -516,7 +548,8 @@ def serve_pim_batched(inp=None, outp=None, *, window_ms: float = 2.0,
             {"type": "summary", "served": served, "pinned": pinned,
              **st.as_dict(), "rows_per_s": _rps(),
              "latency": _hist_section(), "cache": _cache_section(),
-             "media": media}, sort_keys=True), file=sys.stderr, flush=True)
+             "kernels": _kernel_section(), "media": media},
+            sort_keys=True), file=sys.stderr, flush=True)
     _write_metrics_file()
     return {"served": served, "batches": st.batches, "groups": st.groups,
             "rows": st.rows, "errors": st.errors, "pinned": pinned,
@@ -655,8 +688,9 @@ def main(argv=None):
                          "and at shutdown (--pim-serve)")
     ap.add_argument("--pim-cache-dir", metavar="DIR", default=None,
                     help="persistent compiled-artifact cache directory "
-                         "(--pim-serve): not ported yet (ROADMAP A11), "
-                         "raises")
+                         "(--pim-serve): warm-start from it (schedules, "
+                         "packed streams, kernel libraries, tuned.json) "
+                         "and write fresh artifacts through to it")
     ap.add_argument("--pim-trace-file", metavar="PATH", default=None,
                     help="enable pipeline trace spans and write them as "
                          "Chrome-trace/Perfetto JSON at shutdown "

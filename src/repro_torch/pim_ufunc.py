@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -72,11 +73,13 @@ class Config:
     machine's, 1: none).  faults: a ``runtime.faults.FaultModel`` to
     inject; verify: a ``VerifyPolicy`` (or True for the default one) --
     verified execution's detect -> retry -> remap loop; the numpy oracle
-    drops both.  cache_dir mirrors the reference's configuration; only
-    its default runs in this package, and any other value raises
-    ``NotImplementedError`` naming the ROADMAP item that brings it.
-    tuned: apply registered tuned Backend defaults
-    (``kernels.plan.register_tuned``) per program family.
+    drops both.  cache_dir: a directory for the on-disk artifact cache
+    (``runtime.artifact_cache``; None disables it): setting it installs
+    the cache process-wide on the next ufunc resolution and installs any
+    tuned.json the autotuner left beside it.  tuned: apply the
+    autotuner's registered Backend and schedule defaults
+    (``kernels.plan.register_tuned``) per program family; explicit
+    per-call choices always win.
     """
     backend: str = kplan.DEFAULT_BACKEND
     device: str = kplan.DEFAULT_DEVICE
@@ -123,6 +126,36 @@ def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
+_installed_cache_dir = None
+
+
+def _ensure_artifact_cache(cache_dir=None) -> None:
+    """Install (or drop) the process-wide on-disk artifact cache to match
+    ``cache_dir`` (default ``config.cache_dir``), installing any
+    tuned.json the autotuner persisted beside it.  Idempotent per
+    directory; runs at every ufunc resolution so a
+    ``configure(cache_dir=...)`` takes effect on the next call."""
+    global _installed_cache_dir
+    cd = config.cache_dir if cache_dir is None else str(cache_dir)
+    if cd == _installed_cache_dir:
+        return
+    if cd is None:
+        kops.set_artifact_cache(None)
+        _installed_cache_dir = None
+        return
+    from .runtime.artifact_cache import ArtifactCache
+    cache = ArtifactCache(cd)
+    kops.set_artifact_cache(cache)
+    tuned_path = cache.tuned_path()
+    if os.path.exists(tuned_path):
+        from .runtime import tune
+        try:
+            tune.install(tuned_path)
+        except (OSError, ValueError, KeyError, TypeError):
+            pass        # a corrupt tuned.json never blocks execution
+    _installed_cache_dir = cd
+
+
 def _resolve(kw, family: Optional[str] = None):
     """Normalize ufunc keywords + module defaults into one ExecPlan;
     returns ``(plan, parallel)``.  ``family`` ("add:16", "fp_mul:fp16") keys
@@ -132,13 +165,14 @@ def _resolve(kw, family: Optional[str] = None):
     the devices, one shard each.  An explicit ``plan=`` is exclusive with
     the convenience keywords, ``faults=`` and ``verify=`` among them, and
     takes none of the configured defaults; the numpy backend, the
-    fault-free oracle, drops faults and verify."""
+    fault-free oracle, drops faults and verify.  ``cache_dir=`` installs
+    the artifact cache as ``configure(cache_dir=)`` does
+    (:func:`_ensure_artifact_cache`)."""
     def opt(name, default):
         v = kw.pop(name, None)
         return default if v is None else v
 
-    if opt("cache_dir", config.cache_dir) is not None:
-        raise _not_ported("the artifact cache (cache_dir=)", "A11")
+    _ensure_artifact_cache(kw.pop("cache_dir", None))
     parallel = opt("parallel", config.parallel)
     if "plan" in kw:
         plan = kw.pop("plan")

@@ -4,11 +4,12 @@ has not ported.
 * No module of ``src/repro_torch`` and not ``chip_smoke.py`` imports JAX or
   anything of the JAX package ``repro``.
 * With no GPU, a default call raises instead of running on the CPU.
-* Every option that is not ported raises ``NotImplementedError`` naming the
-  ROADMAP item that brings it; the options and entry points ported since
-  run through the port and agree with ``repro`` on the CPU.
+* What is not ported raises ``NotImplementedError`` naming the ROADMAP
+  item that brings it; the options and entry points ported since (the
+  artifact cache's ``cache_dir=`` and ``--pim-cache-dir`` among them) run
+  through the port and agree with ``repro`` on the CPU.
 * The port's ``kernels.ops`` has every public name of ``repro``'s but the
-  JAX-only ones and those of the artifact cache (ROADMAP A11).
+  JAX-only ones.
 """
 
 import ast
@@ -64,6 +65,7 @@ def test_the_scan_sees_the_whole_package():
     assert {"kernels/ref.py"} <= names
     assert {"runtime/pim_batch.py", "runtime/fault_tolerance.py",
             "launch/serve.py"} <= names
+    assert {"runtime/artifact_cache.py", "runtime/tune.py"} <= names
     for src in ("slot_scan.cu", "level_gather.cu", "gate_serial.cu",
                 "check_words.cu", "pim_state.cuh", "ring.cuh"):
         assert (PKG / "csrc" / src).exists(), src
@@ -90,10 +92,24 @@ def test_cuda_backend_refuses_the_cpu():
 @pytest.mark.parametrize("kw,item", [
     ({"cache_dir": "artifacts"}, "A11"),
 ])
-def test_unported_options_raise(kw, item):
+def test_unported_options_raise(kw, item, tmp_path):
+    """The options that raised for want of their ROADMAP item run since
+    it was ported: ``cache_dir=`` (A11) installs the artifact cache, whose
+    schedule entries are the reference's, and the result is
+    ``repro``'s."""
+    from repro import pim_ufunc as rpim
+    from repro_torch.kernels import ops as tops
     x = np.uint8([1, 2])
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        pim.add(x, x, device="cpu", backend="ref", **kw)
+    kw = {k: str(tmp_path / v) for k, v in kw.items()}
+    tops.clear_compiled_cache()
+    try:
+        got = pim.add(x, x, device="cpu", backend="ref", **kw)
+        assert tops.artifact_cache().root == kw["cache_dir"], item
+    finally:
+        pim._ensure_artifact_cache()
+    assert np.array_equal(got, rpim.add(x, x))
+    assert [n for n in (tmp_path / "artifacts").iterdir()
+            if n.name.startswith("sched-")]
 
 
 def test_serve_without_a_mode_raises_the_lm_item():
@@ -104,11 +120,31 @@ def test_serve_without_a_mode_raises_the_lm_item():
         serve.main([])
 
 
-def test_serve_cache_dir_raises_the_artifact_cache_item():
+def test_serve_cache_dir_raises_the_artifact_cache_item(tmp_path, capsys,
+                                                        monkeypatch):
+    """``--pim-cache-dir`` raised ROADMAP A11's ``NotImplementedError``
+    until the artifact cache was ported; now it warm-starts the server
+    from the directory (a ``warm_start`` line with the reference's keys
+    and the port's ``streams``) and writes fresh artifacts through."""
+    import io
+    import json
+    from repro_torch.kernels import ops as tops
     from repro_torch.launch import serve
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+    tops.clear_compiled_cache()
+    monkeypatch.setattr("sys.stdin", io.StringIO(
+        '{"op":"add","dtype":"uint8","x":[1,2],"y":[3,4]}\n'))
+    cache_dir = tmp_path / "artifacts"
+    try:
         serve.main(["--pim-serve", "--pim-device", "cpu",
-                    "--pim-cache-dir", "artifacts"])
+                    "--pim-cache-dir", str(cache_dir)])
+    finally:
+        pim._ensure_artifact_cache()
+    out, err = capsys.readouterr()
+    assert json.loads(out)["result"] == [4, 6]
+    (warm,) = [json.loads(l) for l in err.splitlines()
+               if '"warm_start"' in l]
+    assert {"dir", "schedules", "executables", "skipped", "us"} <= set(warm)
+    assert [n for n in cache_dir.iterdir() if n.name.startswith("sched-")]
 
 
 @pytest.mark.parametrize("mode", [["--pim-serve"], ["--pim-stdin"],
@@ -255,10 +291,8 @@ def test_numpy_backend_drops_and_refuses_faults_like_reference():
 
 
 #: Public names of ``repro.kernels.ops`` the port does not carry: the JAX
-#: and Pallas ones, and the artifact cache's (ROADMAP A11).
+#: and Pallas ones.
 _JAX_ONLY = {"Mesh", "P", "shard_map", "TILE_W", "make_slots_static"}
-_A11 = {"artifact_cache", "set_artifact_cache", "note_provenance",
-        "provenance_of"}
 
 
 def test_ops_has_the_reference_public_names():
@@ -268,8 +302,10 @@ def test_ops_has_the_reference_public_names():
     public = {n for n, v in vars(rops).items()
               if not n.startswith("_") and not inspect.ismodule(v)}
     missing = {n for n in public - set(vars(tops))
-               if not n.startswith("pim_exec_")} - _JAX_ONLY - _A11
+               if not n.startswith("pim_exec_")} - _JAX_ONLY
     assert not missing, sorted(missing)
+    assert {"artifact_cache", "set_artifact_cache", "note_provenance",
+            "provenance_of"} <= set(vars(tops))
 
 
 @pytest.mark.parametrize("kw", [{"shards": 2}, {"mesh": ("cpu", "cpu")}],

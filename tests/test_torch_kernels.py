@@ -1017,3 +1017,92 @@ def test_a_tripped_family_sheds_on_the_card(cuda, monkeypatch):
     assert pim_exec.LAUNCHES["check_words"] == 0
     assert not any(slots.CALLS.values()) and not any(ref.CALLS.values())
     assert rt.stats.shed_requests == 1 and rt.stats.breaker_trips == 1
+
+
+def _static_add16(rows: int = 4096):
+    """uint16 add under ``slots-static`` (B2) on the card, checked against
+    numpy; returns the launches and plain calls of the run."""
+    rng = np.random.default_rng(21)
+    x = rng.integers(0, 1 << 16, rows).astype(np.uint16)
+    y = rng.integers(0, 1 << 16, rows).astype(np.uint16)
+    pim_exec.reset_counts()
+    got = pim.add(x, y, schedule="slots-static")
+    assert np.array_equal(got, x.astype(np.uint64) + y)
+    plain = {k: v for c in (slots.CALLS, ref.CALLS) for k, v in c.items()
+             if v}
+    return dict(pim_exec.LAUNCHES), plain
+
+
+@pytest.fixture
+def binary_tier(cuda, tmp_path, monkeypatch):
+    """An artifact cache installed on the card, and a function that points
+    the kernels' build directory at a fresh empty directory."""
+    from repro_torch.runtime.artifact_cache import ArtifactCache
+    c = ArtifactCache(tmp_path / "cache")
+    ops.set_artifact_cache(c)
+    dirs = iter(tmp_path / f"build{i}" for i in range(8))
+
+    def fresh_build_dir():
+        monkeypatch.setattr(pim_exec, "BUILD_DIR", next(dirs))
+        ops.clear_compiled_cache()
+        return pim_exec.BUILD_DIR
+    try:
+        yield c, fresh_build_dir
+    finally:
+        ops.set_artifact_cache(None)
+        ops.clear_compiled_cache()
+
+
+def _disk(name: str) -> int:
+    from repro_torch.runtime import telemetry
+    return int(telemetry.REGISTRY.counter(f"pim.cache.{name}"))
+
+
+@pytest.mark.cuda
+def test_static_kernel_loads_from_the_binary_tier(binary_tier):
+    """B2's library, built once with the cache installed, comes back from
+    the binary tier into an empty build directory: no ``nvcc`` runs, the
+    kernel launches (no plain version) and the result is bit-exact."""
+    cache, fresh_build_dir = binary_tier
+    fresh_build_dir()
+    runs0 = pim_exec.COMPILES["runs"]
+    _static_add16()
+    assert pim_exec.COMPILES["runs"] > runs0
+    assert any(h["kind"] == "bin" and (h["tag"] or {}).get("kind") ==
+               "static" for h in cache.entries())
+    build = fresh_build_dir()
+    runs1, hits1 = pim_exec.COMPILES["runs"], _disk("disk_hits")
+    launches, plain = _static_add16()
+    assert pim_exec.COMPILES["runs"] == runs1
+    assert _disk("disk_hits") > hits1
+    assert launches["slots_static_fused"] >= 1 and not plain
+    assert [p.name for p in build.iterdir() if p.suffix == ".so"]
+
+
+@pytest.mark.cuda
+def test_a_corrupted_binary_is_rebuilt_and_counted(binary_tier):
+    """A flipped byte in B2's cached library fails its digest: the load
+    counts ``disk_errors``, ``nvcc`` rebuilds it (never the plain version)
+    and the rebuild is written through, so the next empty build
+    directory loads it again."""
+    cache, fresh_build_dir = binary_tier
+    fresh_build_dir()
+    _static_add16()
+    (path,) = [e.path for e in cache._files()
+               if e.name.startswith("bin-") and
+               (cache._read(e.path)[0]["tag"] or {}).get("kind") == "static"]
+    with open(path, "r+b") as f:
+        f.seek(-100, 2)
+        b = f.read(1)
+        f.seek(-100, 2)
+        f.write(bytes([b[0] ^ 0xFF]))
+    fresh_build_dir()
+    runs0, err0 = pim_exec.COMPILES["runs"], _disk("disk_errors")
+    launches, plain = _static_add16()
+    assert _disk("disk_errors") == err0 + 1
+    assert pim_exec.COMPILES["runs"] == runs0 + 1
+    assert launches["slots_static_fused"] >= 1 and not plain
+    fresh_build_dir()
+    runs1 = pim_exec.COMPILES["runs"]
+    _static_add16()
+    assert pim_exec.COMPILES["runs"] == runs1
