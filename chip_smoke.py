@@ -93,6 +93,22 @@ Phases, each of which raises (exit code 1) on failure:
    levelizes, packs and runs ``nvcc``, the warm one none of them, with
    disk hits, no disk error, and B1, B2 and B3 launched and no plain
    version; time to the first answer, walls and bytes on disk by tier;
+
+   lm: LM decode serving (:func:`lm_phase`; no kernel of its own, the
+   LM reaches no TPU kernel): ``qwen3-8b`` at full width (8,190,735,360
+   parameters) built on the card from seed 0; ``serve.main`` at the
+   reference's defaults (batch 4, prompt 32, gen 16), its tokens checked
+   and its steps timed with CUDA events beside their bound, then the same
+   loop three more times and the CLI in a fresh process for the spread
+   of the median step; the served
+   tokens teacher-forced through ``decode_step`` against one ``forward``
+   (max |dlogit| under 0.2, the reference's bound), in bf16 and again in
+   float32 weights and caches; the reduced model's prefill and 4 decode
+   steps on the card against the CPU on one set of weights (0.05);
+   batch 32 with a 512-token prompt and 64 generated tokens; a 4 x 1024
+   prefill (two 512-query chunks) against ``forward``; a
+   ``torch.profiler`` trace of 3 decode steps (busy share, launches a
+   step, the top 5 device ops);
 10. time each kernel entry at one chunk of 1 Mi rows beside its plain
    version, one PyTorch library call computing the same function, and its
    bound, with its launch attributes (CTAs an SM, registers, local bytes),
@@ -110,6 +126,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import io
 import json
 import os
 import shutil
@@ -666,8 +683,14 @@ def device_timeline(fn) -> tuple:
         nbytes = sum(e.get("args", {}).get("bytes", 0) for e in evs)
         return us / 1e3, nbytes, (nbytes / us / 1e3 if us else 0.0)
 
+    by_name = {}
+    for e in kernels:
+        us, k = by_name.get(e["name"], (0.0, 0))
+        by_name[e["name"]] = (us + e["dur"], k + 1)
     stats = {"busy_ms": busy / 1e3, "busy_share": busy / 1e6 / wall,
              "kernels": len(kernels),
+             "top": sorted(((n, us, k) for n, (us, k) in by_name.items()),
+                           key=lambda r: -r[1]),
              "kernel_ms": sum(e["dur"] for e in kernels) / 1e3,
              "h2d": rate(h2d), "d2h": rate(d2h), "h2d_count": len(h2d),
              "d2h_count": len(d2h),
@@ -1387,7 +1410,6 @@ def _stream_phase(gpu: str) -> dict:
     """The JSON-lines server in process (``serve_pim_batched`` on an
     in-memory stream): every answer checked in input order, the stats,
     and the trace file's spans.  Returns the launches."""
-    import io
     from repro_torch.launch import serve
     rows = STREAM_ROWS
     lines, wants = _stream_lines(STREAM_REQUESTS, rows)
@@ -1610,6 +1632,19 @@ def _warm_traffic(rows: int = WARM_ROWS, seed: int = SEED + 21):
     return [json.dumps(r) for r, _ in reqs], [w for _, w in reqs]
 
 
+def first_line_then_rest(proc, timeout: float) -> tuple:
+    """The first line ``proc`` writes to its stdout, the ``perf_counter``
+    time it came, and the rest of its stdout at its exit.  The pipe must
+    be unbuffered bytes (``bufsize=0``): ``communicate`` reads the pipe's
+    descriptor, and a buffered ``readline`` would have read past the
+    first line what ``communicate`` then never sees."""
+    if not isinstance(proc.stdout, io.RawIOBase):
+        raise ValueError("first_line_then_rest needs a bufsize=0 byte pipe")
+    first = proc.stdout.readline().decode()
+    t_first = time.perf_counter()
+    return first, t_first, proc.communicate(timeout=timeout)[0].decode()
+
+
 def _replica(tree: Path, cache: Path, lines_file: Path, label: str) -> dict:
     """One ``python -m repro_torch.launch.serve --pim-serve
     --pim-cache-dir`` replica run from ``tree`` (its own build
@@ -1624,11 +1659,10 @@ def _replica(tree: Path, cache: Path, lines_file: Path, label: str) -> dict:
         proc = subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.serve", "--pim-serve",
              "--pim-cache-dir", str(cache)], cwd=tree, env=env, stdin=inp,
-            stdout=subprocess.PIPE, stderr=err, text=True)
+            stdout=subprocess.PIPE, stderr=err, bufsize=0)
         try:
-            first = proc.stdout.readline()
-            t_first = time.perf_counter() - t0
-            rest, _ = proc.communicate(timeout=600)
+            first, t_first, rest = first_line_then_rest(proc, 600)
+            t_first -= t0
         finally:
             if proc.poll() is None:
                 proc.kill()
@@ -1641,7 +1675,14 @@ def _replica(tree: Path, cache: Path, lines_file: Path, label: str) -> dict:
     jl = [json.loads(l) for l in stderr.splitlines() if l.startswith("{")]
     (warm,) = [l for l in jl if l.get("type") == "warm_start"]
     (summary,) = [l for l in jl if l.get("type") == "summary"]
-    answers = [json.loads(l) for l in (first + rest).splitlines()]
+    answers = []
+    for i, line in enumerate((first + rest).splitlines()):
+        try:
+            answers.append(json.loads(line))
+        except json.JSONDecodeError:
+            raise AssertionError(
+                f"warm-start {label}: line {i} of its stdout is not JSON: "
+                f"{line[:500]!r}; stderr ends {stderr[-1500:]!r}") from None
     return {"first_s": t_first, "wall_s": wall, "answers": answers,
             "warm": warm, "summary": summary}
 
@@ -1814,6 +1855,319 @@ assert p.plan.schedule == kplan.DEFAULT_SCHEDULE and \
 print(json.dumps({"installed": len([e for e in doc["entries"]
                                      if e["overrides"]]), "plans": plans}))
 """
+
+
+# --------------------------------------------------------------------------
+# LM decode serving (ROADMAP A13): qwen3-8b at full width
+# --------------------------------------------------------------------------
+
+LM_ARCH = "qwen3-8b"
+#: Its parameters, from ``jax.eval_shape`` over the reference's
+#: ``init_model``.
+LM_PARAMS = 8_190_735_360
+#: The reference's serving defaults: batch, prompt and generated tokens.
+LM_SERVE = (4, 32, 16)
+#: The larger serving run and the prefill that takes the chunked path.
+LM_BIG = (32, 512, 64)
+LM_PREFILL = (4, 1024)
+#: The reference's bound on decode against forward (tests/test_archs.py).
+DECODE_TOL = 0.2
+#: Card against CPU on the reduced model, one set of weights: a bfloat16
+#: logit of magnitude up to 4 rounds to 2**-6; the card's and the CPU's
+#: matmuls sum in other orders, so a few ulps (the reference's
+#: prefill-against-forward bound).
+CARD_CPU_TOL = 0.05
+LM_DECODES = 4
+PROFILE_STEPS = 3
+#: Further runs of the serving defaults' loop, for the spread of its
+#: median step: on the phase's model, and the CLI in a fresh process.
+LM_REPEATS = 3
+
+
+def _decode_vs_forward(cfg, model, toks, cache_dtype) -> tuple:
+    """Teacher-force ``toks`` [B, T] through ``decode_step``, then one
+    ``forward`` over them: the max |logit difference| at each position
+    and the share of positions (rows x T) whose argmax agrees."""
+    from repro_torch.models import model as M
+    b, t = toks.shape
+    caches = M.init_caches(cfg, b, t, device=toks.device, dtype=cache_dtype)
+    dec = []
+    with torch.no_grad():
+        for i in range(t):
+            lg, caches = M.decode_step(cfg, model, caches, toks[:, i], i)
+            dec.append(lg.float())
+        full = M.forward(cfg, model, {"tokens": toks}, remat=False)[0]
+    dec = torch.stack(dec, 1)
+    full = full.float()
+    err = (dec - full).abs().amax(dim=(0, 2)).cpu().numpy()
+    agree = float((dec.argmax(-1) == full.argmax(-1)).float().mean())
+    return err, agree
+
+
+def _prefill_then_decode(cfg, model, toks, n_dec: int) -> list:
+    """``prefill`` over all but the last ``n_dec`` tokens, its caches
+    grown by ``n_dec`` positions, then ``n_dec`` decode steps: the logits
+    of each, on the host."""
+    from repro_torch.models import model as M
+    s = toks.shape[1] - n_dec
+    logits, caches = M.prefill(cfg, model, {"tokens": toks[:, :s]})
+    caches = [c if "pos" in c else      # a local ring keeps its size
+              {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, n_dec))
+               for k, v in c.items()} for c in caches]
+    out = [logits.float().cpu()]
+    for t in range(s, s + n_dec):
+        logits, caches = M.decode_step(cfg, model, caches, toks[:, t], t)
+        out.append(logits.float().cpu())
+    return out
+
+
+def decode_bound_ms(model, cfg, batch: int, pos: int) -> float:
+    """Least time of one decode step at ``batch`` rows and position
+    ``pos``: every weight but the embedding read once, the ``batch``
+    embedding rows, the keys and values of positions 0..pos read and the
+    new ones written, at the HBM rate."""
+    weights = sum(p.numel() * p.element_size()
+                  for n, p in model.named_parameters() if n != "embed")
+    emb = batch * cfg.d_model * model["embed"].element_size()
+    kv = cfg.n_layers * 2 * batch * cfg.n_kv_heads * cfg.hd * 2 * (pos + 2)
+    return (weights + emb + kv) / HBM_BYTES_PER_S * 1e3
+
+
+def _serve_line(text: str) -> dict:
+    """The numbers of ``serve_llm``'s ``decode steps`` line."""
+    import re
+    m = re.search(r"decode steps on \S+: (\d+), first ([\d.]+) ms, median "
+                  r"of the rest ([\d.]+) ms, wall ([\d.]+) ms", text)
+    if m is None:
+        raise AssertionError(f"lm serve: no decode-steps line in {text!r}")
+    n, first, median, wall = m.groups()
+    return {"steps": int(n), "first_ms": float(first),
+            "median_ms": float(median), "wall_ms": float(wall)}
+
+
+def lm_phase(gpu: str) -> None:
+    """LM decode serving of ``qwen3-8b`` at full width on the card (see
+    the module docstring); raises on any failed check."""
+    import contextlib
+    import copy
+    import gc
+    import threading
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    cfg = registry.get(LM_ARCH)
+    dev = "cuda"
+    flags = (f"allow_tf32 {torch.backends.cuda.matmul.allow_tf32}, "
+             f"bf16 reduced-precision reduction "
+             f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = M.LM(cfg, device=dev,
+                 generator=torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = sum(p.numel() for p in model.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"lm build: {gpu}; {cfg.name} at full width ({cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}, heads {cfg.n_heads}/"
+          f"{cfg.n_kv_heads}, head_dim {cfg.hd}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab}): {n} parameters, {nbytes} B on {dev}, init "
+          f"{init_s:.3f} s, max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated()} B; {flags}", flush=True)
+    if n != LM_PARAMS:
+        raise AssertionError(f"lm build: {n} parameters, want {LM_PARAMS}")
+
+    # serving through the entry point, the reference's defaults
+    b, p, g = LM_SERVE
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        gen = serve.main(["--arch", LM_ARCH, "--batch", str(b),
+                          "--prompt-len", str(p), "--gen", str(g),
+                          "--seed", str(SEED)])
+    main_s = time.perf_counter() - t0
+    st = _serve_line(buf.getvalue())
+    prompt = torch.randint(0, cfg.vocab, (b, p), dtype=torch.int32,
+                           device=dev, generator=torch.Generator(
+                               device=dev).manual_seed(SEED)).cpu().numpy()
+    bound = float(np.median([decode_bound_ms(model, cfg, b, t)
+                             for t in range(1, p + g - 1)]))
+    print(f"lm serve: {gpu}; serve.main --arch {LM_ARCH} --batch {b} "
+          f"--prompt-len {p} --gen {g}: tokens {gen.shape}, "
+          f"{st['steps']} steps, wall {st['wall_ms']:.3f} ms = "
+          f"{b * (p + g) / st['wall_ms'] * 1e3:.3f} tok/s (all "
+          f"{b * (p + g)} tokens) = {b * g / st['wall_ms'] * 1e3:.3f} "
+          f"generated tok/s; first step {st['first_ms']:.3f} ms, median "
+          f"step {st['median_ms']:.3f} ms (CUDA events) against its bound "
+          f"{bound:.6f} ms ({st['median_ms'] / bound:.3f}x); serve.main "
+          f"with the model's init {main_s:.3f} s", flush=True)
+    if gen.shape != (b, p + g) or gen.min() < 0 or gen.max() >= cfg.vocab \
+            or not np.array_equal(gen[:, :p], prompt):
+        raise AssertionError(f"lm serve: tokens {gen.shape} in "
+                             f"[{gen.min()}, {gen.max()}], prompt kept "
+                             f"{np.array_equal(gen[:, :p], prompt)}")
+
+    # the spread of the median step: the loop again in this process (with
+    # the cyclic collector's runs during it), and the CLI in a fresh one
+    reps, collections = [], []
+    for _ in range(LM_REPEATS):
+        ms, runs = [], []
+        cb = lambda phase, info: runs.append(info["generation"]) \
+            if phase == "start" else None
+        gc.callbacks.append(cb)
+        try:
+            serve.generate(cfg, model, torch.from_numpy(prompt).to(dev), g,
+                           step_ms=ms)
+        finally:
+            gc.callbacks.remove(cb)
+        reps.append(round(float(np.median(ms[1:])), 3))
+        collections.append(len(runs))
+    torch.cuda.empty_cache()            # room for the CLI's own model
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(Path(__file__).resolve().parent / "src")
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", LM_ARCH,
+         "--batch", str(b), "--prompt-len", str(p), "--gen", str(g),
+         "--seed", str(SEED)], env=env, capture_output=True, text=True,
+        timeout=600)
+    if cli.returncode:
+        raise AssertionError(f"lm serve CLI: exit {cli.returncode}: "
+                             f"{cli.stderr[-2000:]}")
+    fresh = _serve_line(cli.stdout)
+    print(f"lm serve spread: {gpu}; the loop {LM_REPEATS} more times in "
+          f"this process: median step {reps} ms (cyclic gc runs during "
+          f"each {collections}, threads alive {threading.active_count()}); "
+          f"the CLI in a fresh process: median step "
+          f"{fresh['median_ms']:.3f} ms, first {fresh['first_ms']:.3f} ms, "
+          f"wall {fresh['wall_ms']:.3f} ms", flush=True)
+
+    # decode against forward on the served tokens
+    toks = torch.from_numpy(gen).to(dev)
+    err, agree = _decode_vs_forward(cfg, model, toks, torch.bfloat16)
+    print(f"lm decode-vs-forward: {gpu}; bf16, {toks.shape[0]}x"
+          f"{toks.shape[1]} tokens: max |dlogit| {float(err.max()):.6f} "
+          f"(bound {DECODE_TOL}), argmax agrees at {agree:.6f} of the "
+          f"positions; per position {np.round(err, 4).tolist()}", flush=True)
+    if not float(err.max()) < DECODE_TOL:
+        raise AssertionError(f"lm decode-vs-forward: {float(err.max())} "
+                             f">= {DECODE_TOL}")
+
+    # the card against the CPU, reduced, one set of weights
+    rcfg = cfg.reduced()
+    cpu = M.LM(rcfg, device="cpu",
+               generator=torch.Generator().manual_seed(SEED))
+    card = copy.deepcopy(cpu).to(dev)
+    rt = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, rcfg.vocab, (2, 16 + LM_DECODES)))
+    want = _prefill_then_decode(rcfg, cpu, rt, LM_DECODES)
+    got = _prefill_then_decode(rcfg, card, rt.to(dev), LM_DECODES)
+    errs = [float((a - w).abs().max()) for a, w in zip(got, want)]
+    print(f"lm card-vs-cpu: {gpu}; {rcfg.name} reduced (d_model "
+          f"{rcfg.d_model}, {rcfg.n_layers} layers), prefill of 16 then "
+          f"{LM_DECODES} decode steps: max |dlogit| "
+          f"{[round(e, 6) for e in errs]} (bound {CARD_CPU_TOL})",
+          flush=True)
+    if not max(errs) < CARD_CPU_TOL:
+        raise AssertionError(f"lm card-vs-cpu: {errs}")
+
+    # the larger serving run, and a prefill on the chunked path
+    b2, p2, g2 = LM_BIG
+    prompt = torch.randint(0, cfg.vocab, (b2, p2), dtype=torch.int32,
+                           device=dev, generator=torch.Generator(
+                               device=dev).manual_seed(SEED + 1))
+    step_ms = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    big = serve.generate(cfg, model, prompt, g2, step_ms=step_ms).cpu()
+    wall = time.perf_counter() - t0
+    kv = cfg.n_layers * 2 * b2 * (p2 + g2) * cfg.n_kv_heads * cfg.hd * 2
+    bound = float(np.median([decode_bound_ms(model, cfg, b2, t)
+                             for t in range(1, p2 + g2 - 1)]))
+    med = float(np.median(step_ms[1:]))
+    print(f"lm serve big: {gpu}; batch {b2}, prompt {p2}, gen {g2} "
+          f"(serve.generate, KV cache {kv} B): tokens {tuple(big.shape)}, "
+          f"wall {wall * 1e3:.3f} ms = {b2 * (p2 + g2) / wall:.3f} tok/s "
+          f"(all tokens) = {b2 * g2 / wall:.3f} generated tok/s; first step "
+          f"{step_ms[0]:.3f} ms, median step {med:.3f} ms against its "
+          f"bound {bound:.6f} ms ({med / bound:.3f}x); max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated()} B", flush=True)
+    if tuple(big.shape) != (b2, p2 + g2) or int(big.min()) < 0 or \
+            int(big.max()) >= cfg.vocab:
+        raise AssertionError(f"lm serve big: {tuple(big.shape)}")
+    del big
+    bp, sp = LM_PREFILL
+    ptoks = torch.from_numpy(np.random.default_rng(SEED + 2).integers(
+        0, cfg.vocab, (bp, sp))).to(dev)
+    ms = []
+    with torch.no_grad():
+        for _ in range(2):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            logits, caches = M.prefill(cfg, model, {"tokens": ptoks})
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+        full = M.forward(cfg, model, {"tokens": ptoks})[0][:, -1]
+    perr = float((logits.float() - full.float()).abs().max())
+    ok = (logits.shape == (bp, cfg.vocab) and len(caches) == cfg.n_layers
+          and caches[0]["k"].shape == (bp, sp, cfg.n_kv_heads, cfg.hd)
+          and bool(torch.isfinite(logits.float()).all()))
+    layer_w = sum(t.numel() for name, t in model.named_parameters()
+                  if name not in ("embed", "lm_head"))
+    flop = (2 * layer_w * bp * sp + 2 * cfg.d_model * cfg.vocab * bp
+            + cfg.n_layers * 4 * bp * sp * (sp + 1) // 2 * cfg.n_heads
+            * cfg.hd)
+    print(f"lm prefill: {gpu}; {bp}x{sp} tokens ({sp // 512} chunks of "
+          f"512 queries): {ms[0]:.3f} ms first, {ms[1]:.3f} ms second = "
+          f"{bp * sp / ms[1] * 1e3:.3f} tok/s; operations bound "
+          f"{flop / 989e12 * 1e3:.6f} ms (bf16 989 TFLOP/s); last logits "
+          f"against forward max |d| {perr:.6f} (bound {CARD_CPU_TOL})",
+          flush=True)
+    if not ok or not perr < CARD_CPU_TOL:
+        raise AssertionError(f"lm prefill: shapes ok {ok}, {perr}")
+    del logits, caches, full
+
+    # the decode step's profile at the serving batch
+    caches = M.init_caches(cfg, b, p + g, device=dev)
+    tok = toks[:, p]
+
+    def steps():
+        for t in range(p, p + PROFILE_STEPS):
+            M.decode_step(cfg, model, caches, tok, t)
+
+    steps()
+    torch.cuda.synchronize()
+    _, wall, st = device_timeline(steps)
+    if st is None:
+        print(f"lm profile: {gpu}; {PROFILE_STEPS} decode steps, wall "
+              f"{wall * 1e3:.3f} ms; the profiler shows no device time "
+              "(not measured)", flush=True)
+    else:
+        top = "; ".join(f"{name[:60]} {us / 1e3:.3f} ms x{k}"
+                        for name, us, k in st["top"][:5])
+        print(f"lm profile: {gpu}; {PROFILE_STEPS} decode steps at batch "
+              f"{b}: wall {wall * 1e3:.3f} ms under the profiler, device "
+              f"busy {st['busy_ms']:.3f} ms = {st['busy_share']:.6f}; "
+              f"{st['kernels'] / PROFILE_STEPS:.1f} kernels a step "
+              f"({st['kernels'] / PROFILE_STEPS / cfg.n_layers:.1f} a "
+              f"layer), {st['kernel_ms'] / PROFILE_STEPS:.3f} kernel ms a "
+              f"step; top 5: {top}", flush=True)
+    del caches
+
+    # the same check in float32 weights and caches: bfloat16 rounding or
+    # a fault?
+    model.float()
+    err32, agree32 = _decode_vs_forward(cfg, model, toks, torch.float32)
+    print(f"lm decode-vs-forward: {gpu}; f32 weights and caches ({flags}): "
+          f"max |dlogit| {float(err32.max()):.6f}, argmax agrees at "
+          f"{agree32:.6f}; per position {np.round(err32, 5).tolist()}",
+          flush=True)
+    if not float(err32.max()) < DECODE_TOL:
+        raise AssertionError(f"lm decode-vs-forward f32: {err32.max()}")
+    del model
+    torch.cuda.empty_cache()
 
 
 def fold_bound(outer: int, k: int, inner: int, lop_rate: float) -> tuple:
@@ -2567,6 +2921,7 @@ def main() -> None:
     serving_phase(gpu)
     tune_phase(gpu)
     warm_start_phase(gpu)
+    lm_phase(gpu)
     kernels = measure(progs, statics, chunk_rows, main["launches"], worst,
                       gpu) + measure_folds(chunk_rows, folds, worst, gpu)
     if args.turns:

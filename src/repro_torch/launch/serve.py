@@ -25,8 +25,19 @@ Every mode runs on the CUDA device unless ``--pim-device cpu`` asks for
 the plain PyTorch version on the CPU; with no GPU the default raises
 before the first line is read.  ``--pim-cache-dir`` warm-starts a replica
 from the persistent artifact cache that a fleet of replicas shares
-(``runtime/artifact_cache.py``).  The LM decode service of the reference
-(ROADMAP A13) raises ``NotImplementedError`` naming its item.
+(``runtime/artifact_cache.py``).
+
+With no ``--pim*`` mode it serves the reference's LM decode loop: a model
+of ``--arch`` with random weights from ``--seed``, a random prompt of
+``--prompt-len`` tokens for each of ``--batch`` rows teacher-forced
+through decode steps, then ``--gen`` greedy tokens (:func:`serve_llm`):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b
+
+on the CUDA device, or ``--reduced --device cpu`` on the CPU.  The
+dense-attention family runs; the other families (MoE, MLA, RG-LRU, RWKV6,
+the vision and audio frontends) raise ``NotImplementedError`` naming
+ROADMAP A14.
 """
 
 from __future__ import annotations
@@ -38,17 +49,21 @@ import threading
 import time
 
 import numpy as np
+import torch
 
 from .. import pim_ufunc as pim
+from ..configs import registry
 from ..core.floatfmt import FORMATS
 from ..kernels import ops as kops
 from ..kernels import pim_exec
 from ..kernels import ref as kref
 from ..kernels import slots as kslots
 from ..kernels.plan import LAYOUTS, SCHEDULES
+from ..models import model as M
 from ..runtime import pim_batch, telemetry
 from ..runtime.fault_tolerance import Heartbeat, StragglerMonitor
 from ..runtime.faults import FaultModel, Scrubber, drain_media_health
+from .steps import make_decode_step
 
 _PIM_INT_OPS = ("add", "sub", "mul", "div")
 _PIM_FP_OPS = ("fp_add", "fp_sub", "fp_mul", "fp_div")
@@ -623,13 +638,99 @@ def serve_pim_synthetic(args) -> dict:
             "n_devices": n_dev}
 
 
+# ---------------------------------------------------------------- LLM decode
+
+def generate(cfg, model, tokens, gen: int, *, step_ms=None):
+    """The reference's decode loop: teacher-force the prompt ``tokens``
+    [B, P] through decode steps, then ``gen`` greedy steps.  Returns the
+    [B, P + gen] int32 tokens on the model's device.  Nothing waits for
+    the device inside the loop.  With a list ``step_ms``, each step's
+    milliseconds are appended to it (CUDA events on a CUDA device)."""
+    b, p = tokens.shape
+    max_seq = p + gen
+    tokens = tokens.to(torch.int32)
+    caches = M.init_caches(cfg, b, max_seq, device=tokens.device)
+    step = make_decode_step(cfg)
+    on_cuda = tokens.device.type == "cuda"
+    marks = []
+
+    def mark():
+        if step_ms is None:
+            return
+        if on_cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append(ev)
+        else:
+            marks.append(time.perf_counter())
+
+    cur = tokens[:, 0]
+    out = [cur]
+    mark()
+    for t in range(max_seq - 1):
+        nxt, _, caches = step(model, caches, {"token": cur, "pos": t})
+        cur = tokens[:, t + 1] if t + 1 < p else nxt
+        out.append(cur)
+        mark()
+    out = torch.stack(out, 1)
+    if step_ms is not None:
+        if on_cuda:
+            marks[-1].synchronize()
+            step_ms += [a.elapsed_time(z) for a, z in zip(marks, marks[1:])]
+        else:
+            step_ms += [(z - a) * 1e3 for a, z in zip(marks, marks[1:])]
+    return out
+
+
 def serve_llm(args):
-    """The reference's LM decode service: not ported (ROADMAP A13)."""
-    raise pim._not_ported("LM decode serving (serve_llm)", "A13")
+    """LM decode serving (the reference's ``serve_llm``): random weights
+    and prompt from ``--seed`` on ``--device``, the prompt teacher-forced,
+    then ``--gen`` greedy tokens.  Prints the reference's ``generated``
+    line and the decode steps' times; returns the [B, prompt + gen]
+    tokens as numpy."""
+    cfg = registry.get(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    if cfg.encoder_only:
+        raise AssertionError("encoder-only archs have no decode")
+    if args.batch < 1 or args.prompt_len < 1 or args.gen < 0:
+        raise ValueError(f"--batch {args.batch}, --prompt-len "
+                         f"{args.prompt_len}, --gen {args.gen}: need a row, "
+                         "a prompt token and no negative count")
+    device = kops._checked_device(args.device)
+    b, max_seq = args.batch, args.prompt_len + args.gen
+    weights = torch.Generator(device=device).manual_seed(args.seed)
+    model = M.init_model(cfg, weights, device=device)
+    prompt = torch.Generator(device=device).manual_seed(args.seed)
+    toks = torch.randint(0, cfg.vocab, (b, args.prompt_len),
+                         generator=prompt, device=device, dtype=torch.int32)
+    step_ms = []
+    t0 = time.perf_counter()
+    gen = generate(cfg, model, toks, args.gen, step_ms=step_ms).cpu().numpy()
+    dt = time.perf_counter() - t0
+    print(f"generated {b}x{max_seq} tokens in {dt:.2f}s "
+          f"({b * max_seq / dt:.1f} tok/s)")
+    if step_ms:
+        print(f"decode steps on {device}: {len(step_ms)}, first "
+              f"{step_ms[0]:.3f} ms, median of the rest "
+              f"{float(np.median(step_ms[1:] or step_ms)):.3f} ms, wall "
+              f"{dt * 1e3:.3f} ms")
+    print("sample row:", gen[0].tolist())
+    return gen
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-8b",
+                    choices=sorted(registry.ARCHS))
+    ap.add_argument("--reduced", action="store_true",
+                    help="the tiny same-family config (ModelConfig.reduced)")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="where LM decode serving runs (no --pim* mode): "
+                         "cuda (raises without one) or cpu")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--pim", metavar="OP", choices=_PIM_INT_OPS + _PIM_FP_OPS,
                     help="serve the PIM ufunc API with synthetic load")

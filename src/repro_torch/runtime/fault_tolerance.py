@@ -12,7 +12,7 @@ The counterpart of ``repro.runtime.fault_tolerance``:
   evict).  Single-process here, same API.
 
 The training loop that imports these two classes back in the reference
-belongs to the LM scaffold (ROADMAP A13).
+is LM training (ROADMAP A15).
 """
 
 from __future__ import annotations

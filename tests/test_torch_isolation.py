@@ -66,6 +66,10 @@ def test_the_scan_sees_the_whole_package():
     assert {"runtime/pim_batch.py", "runtime/fault_tolerance.py",
             "launch/serve.py"} <= names
     assert {"runtime/artifact_cache.py", "runtime/tune.py"} <= names
+    assert {"models/config.py", "models/layers.py", "models/model.py",
+            "models/convert.py", "configs/registry.py", "configs/qwen3_8b.py",
+            "launch/steps.py"} <= names
+    assert len([n for n in names if n.startswith("configs/")]) == 12
     for src in ("slot_scan.cu", "level_gather.cu", "gate_serial.cu",
                 "check_words.cu", "pim_state.cuh", "ring.cuh"):
         assert (PKG / "csrc" / src).exists(), src
@@ -112,11 +116,12 @@ def test_unported_options_raise(kw, item, tmp_path):
             if n.name.startswith("sched-")]
 
 
-def test_serve_without_a_mode_raises_the_lm_item():
-    """The LM decode service of the reference's ``launch.serve`` is not
-    ported: a call with no ``--pim*`` mode names its item."""
+def test_lm_serving_raises_without_a_gpu(monkeypatch):
+    """A call with no ``--pim*`` mode serves the LM (ROADMAP A13), on the
+    card by default: with no GPU it raises before it builds the model."""
     from repro_torch.launch import serve
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main([])
 
 

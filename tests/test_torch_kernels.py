@@ -1106,3 +1106,59 @@ def test_a_corrupted_binary_is_rebuilt_and_counted(binary_tier):
     runs1 = pim_exec.COMPILES["runs"]
     _static_add16()
     assert pim_exec.COMPILES["runs"] == runs1
+
+
+# --------------------------------------------------------------------------
+# the LM (ROADMAP A13) on the card against the CPU
+# --------------------------------------------------------------------------
+
+#: A bfloat16 logit of magnitude up to 4 rounds to 2**-6; the card's and
+#: the CPU's matmuls sum in other orders, so a few ulps.
+LM_CARD_CPU_TOL = 0.05
+
+
+@pytest.fixture
+def lm_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: holds the card against the CPU")
+    return "cuda"
+
+
+def _lm_prefill_then_decode(cfg, model, toks, n_dec):
+    from repro_torch.models import model as M
+    s = toks.shape[1] - n_dec
+    logits, caches = M.prefill(cfg, model, {"tokens": toks[:, :s]})
+    caches = [c if "pos" in c else      # a local ring keeps its size
+              {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, n_dec))
+               for k, v in c.items()} for c in caches]
+    out = [logits.float().cpu()]
+    for t in range(s, s + n_dec):
+        logits, caches = M.decode_step(cfg, model, caches, toks[:, t], t)
+        out.append(logits.float().cpu())
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group,window", [(("attn",), 0),
+                                          (("attn", "local"), 4)],
+                         ids=["attn", "local"])
+def test_lm_on_the_card_matches_the_cpu(lm_cuda, group, window):
+    """The reduced qwen3-8b (and its variant with a local layer of window
+    4, run past it), one set of weights on both devices: prefill of 8
+    tokens, then 4 decode steps; logits within ``LM_CARD_CPU_TOL``."""
+    import copy
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    cfg = ARCHS["qwen3-8b"].reduced(group=group, window=window)
+    cpu = M.LM(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    card = copy.deepcopy(cpu).to(lm_cuda)
+    toks = torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab, (2, 12)))
+    want = _lm_prefill_then_decode(cfg, cpu, toks, 4)
+    got = _lm_prefill_then_decode(cfg, card, toks.to(lm_cuda), 4)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) < LM_CARD_CPU_TOL
+    gen = serve.generate(cfg, card, toks[:, :6].to(lm_cuda), 6)
+    assert gen.device.type == "cuda" and tuple(gen.shape) == (2, 12)
+    assert torch.equal(gen[:, :6].cpu(), toks[:, :6].to(torch.int32))
