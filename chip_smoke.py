@@ -109,6 +109,29 @@ Phases, each of which raises (exit code 1) on failure:
    prefill (two 512-query chunks) against ``forward``; a
    ``torch.profiler`` trace of 3 decode steps (busy share, launches a
    step, the top 5 device ops);
+
+   lm families: the other layer families (:func:`lm_families_phase`,
+   ROADMAP A14; no kernel of their own, they reach no TPU kernel), one
+   model at a time at full width, built on the card from seed 0 with
+   the parameter counts of :data:`FAMILIES`: ``recurrentgemma-2b`` and
+   ``rwkv6-1.6b`` whole, ``qwen3-moe-235b-a22b`` and
+   ``deepseek-v2-236b`` cut to 4 layers and ``llama-3.2-vision-90b`` to
+   10 (two groups; its cross gates set to 0.5, the reference's are 0),
+   served at the reference's defaults (``serve.main`` for the whole
+   models, ``serve.generate`` on the cut ones, with image embeddings for
+   the vision model), each step beside its bound, the MoE models'
+   dropped and C9-zeroed routing pairs; a ``torch.profiler`` trace of 3
+   decode steps; the served tokens through ``decode_step`` against one
+   ``forward`` in bf16 and in float32 (0.2; the MoE models at
+   capacity_factor 100; the bf16 run of the MoE models and rwkv6
+   printed only, :data:`F32_GATED`); the reduced model on the card
+   against the CPU (0.05 bf16, 1e-3 for the MoE models in float32); for
+   the two recurrent models a prefill of 2560 tokens and 4 decode steps
+   against a 3072-token ``forward``, in bf16 and in float32 (0.2, gated
+   as decode against forward); for the
+   encoder-only ``hubert-xlarge`` the encoder-only refusal of
+   ``serve.main``, a timed ``forward`` over frames [4, 1024, 512] and
+   prefill's last logits against it (0.05);
 10. time each kernel entry at one chunk of 1 Mi rows beside its plain
    version, one PyTorch library call computing the same function, and its
    bound, with its launch attributes (CTAs an SM, registers, local bytes),
@@ -1884,53 +1907,120 @@ PROFILE_STEPS = 3
 LM_REPEATS = 3
 
 
-def _decode_vs_forward(cfg, model, toks, cache_dtype) -> tuple:
+def _decode_vs_forward(cfg, model, toks, cache_dtype, vision=None) -> tuple:
     """Teacher-force ``toks`` [B, T] through ``decode_step``, then one
-    ``forward`` over them: the max |logit difference| at each position
-    and the share of positions (rows x T) whose argmax agrees."""
+    ``forward`` over them (``vision`` into both where given): the max
+    |logit difference| at each position, the share of positions (rows x
+    T) whose argmax agrees and forward's largest |logit|."""
     from repro_torch.models import model as M
     b, t = toks.shape
     caches = M.init_caches(cfg, b, t, device=toks.device, dtype=cache_dtype)
+    batch = {"tokens": toks}
+    if vision is not None:
+        batch["vision"] = vision
     dec = []
     with torch.no_grad():
         for i in range(t):
-            lg, caches = M.decode_step(cfg, model, caches, toks[:, i], i)
+            lg, caches = M.decode_step(cfg, model, caches, toks[:, i], i,
+                                       vision=vision)
             dec.append(lg.float())
-        full = M.forward(cfg, model, {"tokens": toks}, remat=False)[0]
+        full = M.forward(cfg, model, batch, remat=False)[0]
     dec = torch.stack(dec, 1)
     full = full.float()
     err = (dec - full).abs().amax(dim=(0, 2)).cpu().numpy()
     agree = float((dec.argmax(-1) == full.argmax(-1)).float().mean())
-    return err, agree
+    return err, agree, float(full.abs().max())
 
 
-def _prefill_then_decode(cfg, model, toks, n_dec: int) -> list:
+def grow_caches(caches, n: int) -> list:
+    """Prefill's caches with ``n`` more positions on every sequence axis
+    (full attention's keys and values, MLA's latents); a local ring, a
+    recurrent state and a cross layer's empty cache keep their size."""
+    from repro_torch.models import model as M
+    return [c if M.seq_len(c) is None else
+            {k: torch.nn.functional.pad(v, (0, 0) * (v.dim() - 2) + (0, n))
+             for k, v in c.items()} for c in caches]
+
+
+def _prefill_then_decode(cfg, model, toks, n_dec: int, vision=None) -> list:
     """``prefill`` over all but the last ``n_dec`` tokens, its caches
-    grown by ``n_dec`` positions, then ``n_dec`` decode steps: the logits
-    of each, on the host."""
+    grown by ``n_dec`` positions, then ``n_dec`` decode steps (``vision``
+    into each where given): the logits of each, on the host."""
     from repro_torch.models import model as M
     s = toks.shape[1] - n_dec
-    logits, caches = M.prefill(cfg, model, {"tokens": toks[:, :s]})
-    caches = [c if "pos" in c else      # a local ring keeps its size
-              {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, n_dec))
-               for k, v in c.items()} for c in caches]
-    out = [logits.float().cpu()]
-    for t in range(s, s + n_dec):
-        logits, caches = M.decode_step(cfg, model, caches, toks[:, t], t)
-        out.append(logits.float().cpu())
+    batch = {"tokens": toks[:, :s]}
+    if vision is not None:
+        batch["vision"] = vision
+    with torch.no_grad():
+        logits, caches = M.prefill(cfg, model, batch)
+        caches = grow_caches(caches, n_dec)
+        out = [logits.float().cpu()]
+        for t in range(s, s + n_dec):
+            logits, caches = M.decode_step(cfg, model, caches, toks[:, t], t,
+                                           vision=vision)
+            out.append(logits.float().cpu())
     return out
 
 
+#: bf16 dense peak of the H100 SXM (NVIDIA's data sheet, 700 W).
+BF16_FLOPS = 989e12
+
+
+def cache_bytes(cfg, kind: str, batch: int, pos: int) -> int:
+    """The bytes one layer's decode step at position ``pos`` must move in
+    its cache (bfloat16, float32 states): the keys and values (or MLA's
+    latents) of positions 0..pos read and the new ones written; a local
+    ring's valid slots and its positions read and one slot written; a
+    recurrent or RWKV state read and written; nothing for a cross
+    layer."""
+    kv = 2 * cfg.n_kv_heads * cfg.hd * 2           # one position's k and v
+    if kind in ("attn", "moe", "moe_dense"):
+        if cfg.mla is not None:
+            kv = (cfg.mla.kv_lora + cfg.mla.rope_head_dim) * 2
+        return batch * kv * (pos + 2)
+    if kind == "local":
+        return batch * (kv * (min(pos + 1, cfg.window) + 1)
+                        + cfg.window * 4)
+    if kind == "recurrent":
+        dr = cfg.d_rnn or cfg.d_model
+        return 2 * batch * (dr * 4 + 3 * dr * 2)
+    if kind == "rwkv":
+        hd = cfg.d_model // cfg.n_heads
+        return 2 * batch * (cfg.n_heads * hd * hd * 4 + 2 * cfg.d_model * 2)
+    if kind == "cross":
+        return 0
+    raise ValueError(kind)
+
+
+def decode_bound(model, cfg, batch: int, pos: int) -> tuple:
+    """The least time (ms) of one decode step at ``batch`` rows and
+    position ``pos``, as (bytes, operations): every weight but the
+    embedding read once, the ``batch`` embedding rows and each layer's
+    :func:`cache_bytes` at the HBM rate; the weights' multiply-adds (two
+    operations each a row) at the bf16 peak.  A vision model also reads
+    its image embeddings and runs, every step, their frontend matmul and
+    each cross layer's key and value projections and attention over
+    them."""
+    from repro_torch.models import model as M
+    w = {n: p for n, p in model.named_parameters() if n != "embed"}
+    nbytes = sum(p.numel() * p.element_size() for p in w.values())
+    nbytes += batch * cfg.d_model * model["embed"].element_size()
+    nbytes += sum(cache_bytes(cfg, kind, batch, pos)
+                  for kind in M.layer_kinds(cfg))
+    ops = 2 * batch * sum(p.numel() for p in w.values())
+    if cfg.frontend == "vision":
+        sv, kvd = cfg.vision_seq, cfg.n_kv_heads * cfg.hd
+        nbytes += batch * sv * cfg.frontend_dim * 4
+        n_cross = M.layer_kinds(cfg).count("cross")
+        ops += 2 * batch * sv * cfg.frontend_dim * cfg.d_model
+        ops += n_cross * (2 * 2 * batch * sv * cfg.d_model * kvd
+                          + 2 * 2 * batch * cfg.n_heads * sv * cfg.hd)
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_FLOPS * 1e3
+
+
 def decode_bound_ms(model, cfg, batch: int, pos: int) -> float:
-    """Least time of one decode step at ``batch`` rows and position
-    ``pos``: every weight but the embedding read once, the ``batch``
-    embedding rows, the keys and values of positions 0..pos read and the
-    new ones written, at the HBM rate."""
-    weights = sum(p.numel() * p.element_size()
-                  for n, p in model.named_parameters() if n != "embed")
-    emb = batch * cfg.d_model * model["embed"].element_size()
-    kv = cfg.n_layers * 2 * batch * cfg.n_kv_heads * cfg.hd * 2 * (pos + 2)
-    return (weights + emb + kv) / HBM_BYTES_PER_S * 1e3
+    """The larger of :func:`decode_bound`'s two times."""
+    return max(decode_bound(model, cfg, batch, pos))
 
 
 def _serve_line(text: str) -> dict:
@@ -2044,7 +2134,7 @@ def lm_phase(gpu: str) -> None:
 
     # decode against forward on the served tokens
     toks = torch.from_numpy(gen).to(dev)
-    err, agree = _decode_vs_forward(cfg, model, toks, torch.bfloat16)
+    err, agree, _ = _decode_vs_forward(cfg, model, toks, torch.bfloat16)
     print(f"lm decode-vs-forward: {gpu}; bf16, {toks.shape[0]}x"
           f"{toks.shape[1]} tokens: max |dlogit| {float(err.max()):.6f} "
           f"(bound {DECODE_TOL}), argmax agrees at {agree:.6f} of the "
@@ -2159,7 +2249,8 @@ def lm_phase(gpu: str) -> None:
     # the same check in float32 weights and caches: bfloat16 rounding or
     # a fault?
     model.float()
-    err32, agree32 = _decode_vs_forward(cfg, model, toks, torch.float32)
+    err32, agree32, _ = _decode_vs_forward(cfg, model, toks,
+                                           torch.float32)
     print(f"lm decode-vs-forward: {gpu}; f32 weights and caches ({flags}): "
           f"max |dlogit| {float(err32.max()):.6f}, argmax agrees at "
           f"{agree32:.6f}; per position {np.round(err32, 5).tolist()}",
@@ -2168,6 +2259,428 @@ def lm_phase(gpu: str) -> None:
         raise AssertionError(f"lm decode-vs-forward f32: {err32.max()}")
     del model
     torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------------
+# The other LM families (ROADMAP A14) at full width
+# --------------------------------------------------------------------------
+
+#: Each family: its arch, the layers run (None: all; the rest are cut
+#: from the end, only where one 80 GB card forces it: the bf16 weights of
+#: the cut models stay under 27 GB, so their float32 check fits) and its
+#: parameters at that depth, from ``jax.eval_shape`` over the reference's
+#: ``init_model`` (``tests/test_torch_lm_families.py`` holds them).
+FAMILIES = (
+    ("recurrentgemma-2b", None, 3_549_795_840),
+    ("rwkv6-1.6b", None, 1_583_892_480),
+    ("hubert-xlarge", None, 1_260_360_960),
+    ("qwen3-moe-235b-a22b", 4, 11_195_683_840),
+    ("deepseek-v2-236b", 4, 13_302_912_000),
+    ("llama-3.2-vision-90b", 10, 10_720_813_058),
+)
+#: hubert's forward: frames [batch, frames, frontend_dim].
+HUBERT_FRAMES = (4, 1024)
+#: The long check of the two recurrent families: batch, prefill length,
+#: decode steps, and the forward they are held against (multiples of 512
+#: and 64, so neither the attention's nor the WKV's chunking refuses it).
+LONG = (2, 2560, 4, 3072)
+#: The MoE models' decode-against-forward check runs at the reference's
+#: own capacity for it (``tests/test_archs.py``): nothing dropped.
+CHECK_CAPACITY = 100.0
+#: Card against CPU for the MoE models, in float32 weights: a few float32
+#: ulps of logits of order 1, summed in other orders.
+MOE_CARD_CPU_TOL = 1e-3
+#: Families whose bfloat16 decode-against-forward and long check are
+#: printed, not gated; their float32 runs are the gate.  A MoE top-k
+#: choice flips on a bf16 rounding between an M = 4 and an M = 192 GEMM,
+#: and a flipped expert moves a logit by more than any bound.  rwkv6's
+#: WKV state sums the outer products of one-ulp-different keys and
+#: values along the sequence (a decay of about 0.993 a step) through 24
+#: layers, so its bf16 decode drifts from forward position by position;
+#: the reference's own bf16 decode drifts past 0.2 as well
+#: (``tests/test_torch_lm_families.py``,
+#: ``test_rwkv_bf16_decode_drifts_in_the_reference_too``).
+F32_GATED = ("qwen3-moe-235b-a22b", "deepseek-v2-236b", "rwkv6-1.6b")
+#: The vision model's cross gates after init (the reference's are 0, so
+#: its cross layers would add nothing).
+VISION_GATE = 0.5
+
+
+def family_config(name: str, layers):
+    """The registry's config of ``name``, cut to ``layers`` layers."""
+    from repro_torch.configs import registry
+    cfg = registry.get(name)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def _open_gates(model) -> None:
+    for p in model["layers"]:
+        if "attn" in p and "gate" in p["attn"]:
+            p["attn"]["gate"].fill_(VISION_GATE)
+
+
+def _moe_routing(cfg, model, toks, vision) -> dict:
+    """Teacher-force ``toks`` through ``decode_step`` (the served run's
+    computation) with each MoE layer's routing counted: (token, expert)
+    pairs routed, pairs the capacity drops, and kept pairs zeroed by the
+    reference's scatter (ROADMAP C9: one an expert over capacity)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    tot = torch.zeros(3, dtype=torch.long, device=toks.device)
+    apply_moe = L.apply_moe
+
+    def counted(cfg_, p, x):
+        m = cfg_.moe
+        t = x.shape[0] * x.shape[1]
+        probs = torch.softmax(x.reshape(1, t, -1).float() @ p["router"], -1)
+        idx = torch.topk(probs, m.top_k, dim=-1).indices.reshape(-1)
+        counts = torch.bincount(idx, minlength=m.n_experts)
+        cap = int(np.ceil(t * m.top_k / m.n_experts * m.capacity_factor))
+        tot.add_(torch.stack([counts.sum(), (counts - cap).clamp(min=0).sum(),
+                              (counts > cap).sum()]))
+        return apply_moe(cfg_, p, x)
+
+    b, t = toks.shape
+    caches = M.init_caches(cfg, b, t, device=toks.device)
+    L.apply_moe = counted
+    try:
+        with torch.no_grad():
+            for i in range(t - 1):
+                _, caches = M.decode_step(cfg, model, caches, toks[:, i], i,
+                                          vision=vision)
+    finally:
+        L.apply_moe = apply_moe
+    pairs, dropped, zeroed = tot.tolist()
+    return {"pairs": pairs, "dropped": dropped, "zeroed": zeroed}
+
+
+def _family_profile(cfg, model, fn, n: int, label: str, gpu: str) -> None:
+    fn()
+    torch.cuda.synchronize()
+    _, wall, st = device_timeline(fn)
+    if st is None:
+        print(f"lm family profile: {gpu}; {label}: wall {wall * 1e3:.3f} ms;"
+              " the profiler shows no device time (not measured)",
+              flush=True)
+        return
+    top = "; ".join(f"{name[:60]} {us / 1e3:.3f} ms x{k}"
+                    for name, us, k in st["top"][:5])
+    print(f"lm family profile: {gpu}; {label}: wall {wall * 1e3:.3f} ms "
+          f"under the profiler, device busy {st['busy_ms']:.3f} ms = "
+          f"{st['busy_share']:.6f}; {st['kernels'] / n:.1f} kernels a step "
+          f"({st['kernels'] / n / cfg.n_layers:.1f} a layer), "
+          f"{st['kernel_ms'] / n:.3f} kernel ms a step; top 5: {top}",
+          flush=True)
+
+
+def _check(ok: bool, what: str) -> None:
+    if not ok:
+        raise AssertionError(what)
+
+
+def _hubert_serving(cfg, model, gpu: str) -> tuple:
+    """hubert has no decode: ``serve.main`` refuses it as the reference
+    does; ``forward`` over the frames, timed, its logits checked."""
+    import contextlib
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            serve.main(["--arch", cfg.name, "--seed", str(SEED)])
+    except AssertionError as e:
+        _check("encoder-only" in str(e), f"hubert serve: {e}")
+    else:
+        raise AssertionError("hubert serve: served an encoder-only model")
+    b, s = HUBERT_FRAMES
+    frames = torch.randn((b, s, cfg.frontend_dim), device="cuda",
+                         generator=torch.Generator(device="cuda"
+                                                   ).manual_seed(SEED))
+    ms = []
+    with torch.no_grad():
+        for _ in range(2):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            logits, aux = M.forward(cfg, model, {"frames": frames})
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+    layer_w = sum(t.numel() for n, t in model.named_parameters()
+                  if n not in ("embed", "lm_head"))
+    flop = (2 * layer_w * b * s + 2 * cfg.d_model * cfg.vocab * b * s
+            + cfg.n_layers * 4 * b * s * s * cfg.n_heads * cfg.hd)
+    ok = tuple(logits.shape) == (b, s, cfg.vocab) and \
+        bool(torch.isfinite(logits.float()).all())
+    print(f"lm family serve: {gpu}; {cfg.name}: serve.main refuses it "
+          f"(encoder-only, as the reference asserts); forward over frames "
+          f"[{b}, {s}, {cfg.frontend_dim}]: logits {tuple(logits.shape)}, "
+          f"finite {ok}; {ms[0]:.3f} ms first, {ms[1]:.3f} ms second = "
+          f"{b * s / ms[1] * 1e3:.3f} frames/s against an operations bound "
+          f"of {flop / BF16_FLOPS * 1e3:.6f} ms", flush=True)
+    _check(ok, f"hubert forward: logits {tuple(logits.shape)}")
+    return frames
+
+
+def _serve_family(cfg, model, layers, gpu: str) -> tuple:
+    """The reference's serving defaults: ``serve.main`` for a model at its
+    full depth (it builds its own), ``serve.generate`` on this model for a
+    cut one.  Returns (tokens [B, P + G] on the card, vision or None)."""
+    import contextlib
+    from repro_torch.launch import serve
+    b, p, g = LM_SERVE
+    dev = "cuda"
+    prompt = torch.randint(0, cfg.vocab, (b, p), dtype=torch.int32,
+                           device=dev, generator=torch.Generator(
+                               device=dev).manual_seed(SEED))
+    vision = None
+    if cfg.frontend == "vision":
+        vision = torch.randn((b, cfg.vision_seq, cfg.frontend_dim),
+                             device=dev, generator=torch.Generator(
+                                 device=dev).manual_seed(SEED))
+    if layers is None:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            gen = serve.main(["--arch", cfg.name, "--batch", str(b),
+                              "--prompt-len", str(p), "--gen", str(g),
+                              "--seed", str(SEED)])
+        st = _serve_line(buf.getvalue())
+        how = f"serve.main --arch {cfg.name}"
+        first, med, wall = st["first_ms"], st["median_ms"], st["wall_ms"]
+        toks = torch.from_numpy(gen).to(dev)
+    else:
+        ms = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = serve.generate(cfg, model, prompt, g, vision=vision,
+                              step_ms=ms)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        how = (f"serve.generate, {cfg.n_layers} layers"
+               + (f", vision {list(vision.shape)} f32" if vision is not None
+                  else ""))
+        first, med = ms[0], float(np.median(ms[1:]))
+    tb, to = zip(*[decode_bound(model, cfg, b, t)
+                   for t in range(1, p + g - 1)])
+    bound_b, bound_o = float(np.median(tb)), float(np.median(to))
+    bound = max(bound_b, bound_o)
+    by = "bytes" if bound_b >= bound_o else "operations"
+    print(f"lm family serve: {gpu}; {cfg.name} ({how}) at batch {b}, "
+          f"prompt {p}, gen {g}: tokens {tuple(toks.shape)}, wall "
+          f"{wall:.3f} ms = {b * (p + g) / wall * 1e3:.3f} tok/s (all "
+          f"{b * (p + g)} tokens) = {b * g / wall * 1e3:.3f} generated "
+          f"tok/s; first step {first:.3f} ms, median step {med:.3f} ms "
+          f"(CUDA events) against its bound {bound:.6f} ms ({by}; bytes "
+          f"{bound_b:.6f}, operations {bound_o:.6f}; {med / bound:.3f}x)",
+          flush=True)
+    _check(tuple(toks.shape) == (b, p + g) and int(toks.min()) >= 0
+           and int(toks.max()) < cfg.vocab
+           and torch.equal(toks[:, :p].to(torch.int32), prompt),
+           f"lm family serve {cfg.name}: tokens {tuple(toks.shape)}")
+    return toks, vision
+
+
+def _card_against_cpu(name: str, gpu: str) -> None:
+    """The family's reduced config, one set of weights on both devices:
+    prefill of 16 then 4 decode steps (hubert: ``forward``), in bf16
+    (the MoE models in float32 weights, where routing cannot flip on a
+    rounding)."""
+    import copy
+    from repro_torch.configs import registry
+    from repro_torch.models import model as M
+    rcfg = registry.get(name).reduced()
+    cpu = M.LM(rcfg, device="cpu",
+               generator=torch.Generator().manual_seed(SEED))
+    _open_gates(cpu)
+    moe = rcfg.moe is not None
+    if moe:
+        cpu.float()
+    tol = MOE_CARD_CPU_TOL if moe else CARD_CPU_TOL
+    card = copy.deepcopy(cpu).to("cuda")
+    rng = np.random.default_rng(SEED)
+    rt = torch.from_numpy(rng.integers(0, rcfg.vocab, (2, 16 + LM_DECODES)))
+    vis = None
+    if rcfg.frontend != "none":
+        n = rcfg.vision_seq if rcfg.frontend == "vision" else 16
+        vis = torch.from_numpy(rng.standard_normal(
+            (2, n, rcfg.frontend_dim)).astype(np.float32))
+    if rcfg.encoder_only:
+        with torch.no_grad():
+            want = [M.forward(rcfg, cpu, {"frames": vis})[0].float()]
+            got = [M.forward(rcfg, card, {"frames": vis.cuda()})[0]
+                   .float().cpu()]
+        what = "forward over 16 frames"
+    else:
+        want = _prefill_then_decode(rcfg, cpu, rt, LM_DECODES, vis)
+        got = _prefill_then_decode(rcfg, card, rt.cuda(), LM_DECODES,
+                                   None if vis is None else vis.cuda())
+        what = f"prefill of 16 then {LM_DECODES} decode steps"
+    errs = [float((a - w).abs().max()) for a, w in zip(got, want)]
+    print(f"lm family card-vs-cpu: {gpu}; {name} reduced (d_model "
+          f"{rcfg.d_model}, {rcfg.n_layers} layers, "
+          f"{'f32' if moe else 'bf16'} weights), {what}: max |dlogit| "
+          f"{[round(e, 6) for e in errs]} (bound {tol})", flush=True)
+    _check(max(errs) < tol, f"lm family card-vs-cpu {name}: {errs}")
+
+
+def _long_check(cfg, model, gpu: str, gate: bool) -> None:
+    """Prefill of 2560 tokens, then 4 decode steps, against one forward
+    over 3072 at positions 2559 to 2563, in the model's dtype: the local
+    ring past its window, the chunked WKV state handed to decode.  Raises
+    past the bound where ``gate``."""
+    from repro_torch.models import model as M
+    b, s, n_dec, t = LONG
+    toks = torch.from_numpy(np.random.default_rng(SEED + 3).integers(
+        0, cfg.vocab, (b, t))).cuda()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = _prefill_then_decode(cfg, model, toks[:, :s + n_dec], n_dec)
+    dec_s = time.perf_counter() - t0
+    with torch.no_grad():
+        full = M.forward(cfg, model, {"tokens": toks})[0]
+        want = full[:, s - 1: s + n_dec].float().cpu()
+    del full
+    errs = [float((g - want[:, i]).abs().max()) for i, g in enumerate(got)]
+    dt = "f32" if model["embed"].dtype == torch.float32 else "bf16"
+    print(f"lm family long: {gpu}; {cfg.name}, {dt}: batch {b}, prefill "
+          f"{s} then {n_dec} decode steps ({dec_s:.3f} s) against forward "
+          f"over {t} at positions {s - 1} to {s + n_dec - 1}: max |dlogit| "
+          f"{[round(e, 6) for e in errs]} (bound {DECODE_TOL}"
+          f"{'' if gate else ', printed: the f32 run is the gate'})",
+          flush=True)
+    _check(not gate or max(errs) < DECODE_TOL,
+           f"lm family long {cfg.name} {dt}: {errs}")
+
+
+def _family(name: str, layers, want_n: int, gpu: str) -> None:
+    from repro_torch.models import model as M
+    cfg = family_config(name, layers)
+    dev = "cuda"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = M.LM(cfg, device=dev,
+                 generator=torch.Generator(device=dev).manual_seed(SEED))
+    if cfg.frontend == "vision":
+        _open_gates(model)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = sum(p.numel() for p in model.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    cut = "all" if layers is None else "cut from the end"
+    gates = f", cross gates set to {VISION_GATE}" \
+        if cfg.frontend == "vision" else ""
+    print(f"lm family build: {gpu}; {name} at full width ({cfg.n_layers} "
+          f"layers, {cut}; d_model {cfg.d_model}, kinds "
+          f"{'+'.join(dict.fromkeys(M.layer_kinds(cfg)))}"
+          f"{gates}"
+          f"): {n} parameters, {nbytes} B on {dev}, init {init_s:.3f} s, "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated()} B",
+          flush=True)
+    _check(n == want_n, f"lm family build {name}: {n} parameters, want "
+           f"{want_n}")
+    b, p, g = LM_SERVE
+
+    if cfg.encoder_only:
+        frames = _hubert_serving(cfg, model, gpu)
+        with torch.no_grad():
+            last, _ = M.prefill(cfg, model, {"frames": frames})
+            full = M.forward(cfg, model, {"frames": frames})[0][:, -1]
+        err = float((last.float() - full.float()).abs().max())
+        print(f"lm family prefill-vs-forward: {gpu}; {name}: last logits "
+              f"max |d| {err:.6f} (bound {CARD_CPU_TOL})", flush=True)
+        _check(err < CARD_CPU_TOL, f"hubert prefill-vs-forward: {err}")
+        del last, full
+        _card_against_cpu(name, gpu)
+
+        def fwd():
+            with torch.no_grad():
+                M.forward(cfg, model, {"frames": frames})
+
+        _family_profile(cfg, model, fwd, 1, f"{name}, one forward over "
+                        f"frames {list(frames.shape)}", gpu)
+        del model
+        torch.cuda.empty_cache()
+        return
+
+    toks, vision = _serve_family(cfg, model, layers, gpu)
+    if cfg.moe is not None:
+        r = _moe_routing(cfg, model, toks, vision)
+        m = cfg.moe
+        slots = int(np.ceil(b * m.top_k / m.n_experts * m.capacity_factor))
+        print(f"lm family moe: {gpu}; {name} at batch {b} (capacity "
+              f"{slots} a step): {r['pairs']} routed (token, expert) pairs in "
+              f"{p + g - 1} steps, {r['dropped']} dropped by the capacity "
+              f"= {r['dropped'] / r['pairs']:.6f}, and {r['zeroed']} kept "
+              f"pairs zeroed by the reference's scatter (C9) = "
+              f"{r['zeroed'] / r['pairs']:.6f}", flush=True)
+
+    caches = M.init_caches(cfg, b, p + g, device=dev)
+    tok = toks[:, p]
+
+    def steps():
+        with torch.no_grad():
+            for t in range(p, p + PROFILE_STEPS):
+                M.decode_step(cfg, model, caches, tok, t, vision=vision)
+
+    _family_profile(cfg, model, steps, PROFILE_STEPS, f"{name}, "
+                    f"{PROFILE_STEPS} decode steps at batch {b}", gpu)
+    del caches
+
+    check_cfg = cfg if cfg.moe is None else dataclasses.replace(
+        cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=CHECK_CAPACITY))
+    cap = "" if cfg.moe is None else f", capacity_factor {CHECK_CAPACITY:g}"
+    err16, agree, top = _decode_vs_forward(check_cfg, model, toks,
+                                           torch.bfloat16, vision)
+    gate = name not in F32_GATED
+    print(f"lm family decode-vs-forward: {gpu}; {name}{cap}, bf16, "
+          f"{toks.shape[0]}x{toks.shape[1]} tokens: max |dlogit| "
+          f"{float(err16.max()):.6f} (bound {DECODE_TOL}"
+          f"{'' if gate else ', printed: the f32 run is the gate'}), "
+          f"argmax agrees at {agree:.6f}, max |logit| {top:.3f}; per "
+          f"position {[round(float(e), 3) for e in err16]}", flush=True)
+    _card_against_cpu(name, gpu)
+    long = cfg.moe is None and cfg.frontend == "none"
+    if long:
+        _long_check(cfg, model, gpu, gate)
+    model.float()
+    err, agree, top = _decode_vs_forward(check_cfg, model, toks,
+                                         torch.float32, vision)
+    print(f"lm family decode-vs-forward: {gpu}; {name}{cap}, f32 weights "
+          f"and caches: max |dlogit| {float(err.max()):.6f} (bound "
+          f"{DECODE_TOL}), argmax agrees at {agree:.6f}, max |logit| "
+          f"{top:.3f}; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated()} B", flush=True)
+    if long:
+        _long_check(cfg, model, gpu, True)
+    del model, toks, vision
+    torch.cuda.empty_cache()
+    _check(float(err.max()) < DECODE_TOL,
+           f"lm family decode-vs-forward f32 {name}: {float(err.max())}")
+    _check(not gate or float(err16.max()) < DECODE_TOL,
+           f"lm family decode-vs-forward {name}: {float(err16.max())}")
+
+
+def lm_families_phase(gpu: str) -> None:
+    """The other LM families (ROADMAP A14) at full width on the card, one
+    model at a time (see the module docstring); raises on any failed
+    check."""
+    import gc
+    t0 = time.perf_counter()
+    failed = []
+    for name, layers, want_n in FAMILIES:
+        try:
+            _family(name, layers, want_n, gpu)
+        except AssertionError as e:      # the next family still runs
+            print(f"lm family FAILED: {gpu}; {name}: {e}", flush=True)
+            failed.append(f"{name}: {e}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"lm families: {gpu}; {len(FAMILIES)} families in "
+          f"{time.perf_counter() - t0:.3f} s, {len(failed)} failed",
+          flush=True)
+    if failed:
+        raise AssertionError(f"lm families: {failed}")
 
 
 def fold_bound(outer: int, k: int, inner: int, lop_rate: float) -> tuple:
@@ -2922,6 +3435,7 @@ def main() -> None:
     tune_phase(gpu)
     warm_start_phase(gpu)
     lm_phase(gpu)
+    lm_families_phase(gpu)
     kernels = measure(progs, statics, chunk_rows, main["launches"], worst,
                       gpu) + measure_folds(chunk_rows, folds, worst, gpu)
     if args.turns:

@@ -34,10 +34,9 @@ through decode steps, then ``--gen`` greedy tokens (:func:`serve_llm`):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b
 
-on the CUDA device, or ``--reduced --device cpu`` on the CPU.  The
-dense-attention family runs; the other families (MoE, MLA, RG-LRU, RWKV6,
-the vision and audio frontends) raise ``NotImplementedError`` naming
-ROADMAP A14.
+on the CUDA device, or ``--reduced --device cpu`` on the CPU, for every
+``--arch`` but the encoder-only ``hubert-xlarge``, which has no decode (a
+vision model gets random image embeddings from the same seed).
 """
 
 from __future__ import annotations
@@ -640,16 +639,20 @@ def serve_pim_synthetic(args) -> dict:
 
 # ---------------------------------------------------------------- LLM decode
 
-def generate(cfg, model, tokens, gen: int, *, step_ms=None):
+def generate(cfg, model, tokens, gen: int, *, vision=None, step_ms=None):
     """The reference's decode loop: teacher-force the prompt ``tokens``
-    [B, P] through decode steps, then ``gen`` greedy steps.  Returns the
-    [B, P + gen] int32 tokens on the model's device.  Nothing waits for
-    the device inside the loop.  With a list ``step_ms``, each step's
-    milliseconds are appended to it (CUDA events on a CUDA device)."""
+    [B, P] through decode steps, then ``gen`` greedy steps; ``vision``
+    [B, Sv, Df] (a vision model's image embeddings) goes into every
+    step.  The caches are in the weights' dtype.  Returns the
+    [B, P + gen] int32 tokens on the model's device.
+    Nothing waits for the device inside the loop.  With a list
+    ``step_ms``, each step's milliseconds are appended to it (CUDA events
+    on a CUDA device)."""
     b, p = tokens.shape
     max_seq = p + gen
     tokens = tokens.to(torch.int32)
-    caches = M.init_caches(cfg, b, max_seq, device=tokens.device)
+    caches = M.init_caches(cfg, b, max_seq, device=tokens.device,
+                           dtype=model["embed"].dtype)
     step = make_decode_step(cfg)
     on_cuda = tokens.device.type == "cuda"
     marks = []
@@ -668,7 +671,10 @@ def generate(cfg, model, tokens, gen: int, *, step_ms=None):
     out = [cur]
     mark()
     for t in range(max_seq - 1):
-        nxt, _, caches = step(model, caches, {"token": cur, "pos": t})
+        batch = {"token": cur, "pos": t}
+        if vision is not None:
+            batch["vision"] = vision
+        nxt, _, caches = step(model, caches, batch)
         cur = tokens[:, t + 1] if t + 1 < p else nxt
         out.append(cur)
         mark()
@@ -684,8 +690,10 @@ def generate(cfg, model, tokens, gen: int, *, step_ms=None):
 
 def serve_llm(args):
     """LM decode serving (the reference's ``serve_llm``): random weights
-    and prompt from ``--seed`` on ``--device``, the prompt teacher-forced,
-    then ``--gen`` greedy tokens.  Prints the reference's ``generated``
+    and prompt from ``--seed`` on ``--device`` (and a vision model's
+    image embeddings [B, vision_seq, frontend_dim], standard normal), the
+    prompt teacher-forced, then ``--gen`` greedy tokens.  Prints the
+    reference's ``generated``
     line and the decode steps' times; returns the [B, prompt + gen]
     tokens as numpy."""
     cfg = registry.get(args.arch)
@@ -704,9 +712,15 @@ def serve_llm(args):
     prompt = torch.Generator(device=device).manual_seed(args.seed)
     toks = torch.randint(0, cfg.vocab, (b, args.prompt_len),
                          generator=prompt, device=device, dtype=torch.int32)
+    vision = None
+    if cfg.frontend == "vision":
+        vision = torch.randn(
+            (b, cfg.vision_seq, cfg.frontend_dim), device=device,
+            generator=torch.Generator(device=device).manual_seed(args.seed))
     step_ms = []
     t0 = time.perf_counter()
-    gen = generate(cfg, model, toks, args.gen, step_ms=step_ms).cpu().numpy()
+    gen = generate(cfg, model, toks, args.gen, vision=vision,
+                   step_ms=step_ms).cpu().numpy()
     dt = time.perf_counter() - t0
     print(f"generated {b}x{max_seq} tokens in {dt:.2f}s "
           f"({b * max_seq / dt:.1f} tok/s)")

@@ -1,3 +1,3 @@
 """The LM of ``repro.models`` on PyTorch tensors: its configuration, the
-dense-attention layers, model assembly and the conversion of the
+layers of every family, model assembly and the conversion of the
 reference's parameters (:mod:`.convert`)."""

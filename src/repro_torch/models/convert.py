@@ -1,7 +1,8 @@
 """The reference's parameters as the port's :class:`~.model.LM`.
 
 ``repro.models.model.init_model`` returns a pytree: ``embed``, ``norm_f``,
-``lm_head``, a ``prefix`` list of layer dicts and a ``groups`` list (one
+``lm_head``, ``frontend``, a ``prefix`` list of layer dicts and a
+``groups`` list (one
 dict a kind of ``cfg.group``) whose leaves carry a leading ``n_groups``
 axis, put there by ``jax.vmap``.  :func:`from_reference` takes that tree
 as numpy arrays (``jax.tree.map(np.asarray, params)``), unstacks the
@@ -34,14 +35,14 @@ def _leaves(tree, path=()) -> Iterator[Tuple[tuple, np.ndarray]]:
 
 
 def to_tensor(a: np.ndarray) -> torch.Tensor:
-    """A float32 or bfloat16 numpy array as a CPU tensor of the same bits
-    (``torch.from_numpy`` refuses ``ml_dtypes.bfloat16``: its bits go
-    through ``uint16``)."""
-    a = np.ascontiguousarray(a)
+    """A float32 or bfloat16 numpy array (or scalar) as a CPU tensor of the
+    same bits and shape, a 0-d one included (``torch.from_numpy`` refuses
+    ``ml_dtypes.bfloat16``: its bits go through ``uint16``)."""
+    a = np.array(a, order="C")          # a copy; 0-d stays 0-d
     if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
     if a.dtype == np.float32:
-        return torch.from_numpy(a.copy())
+        return torch.from_numpy(a)
     raise TypeError(f"no port dtype for a {a.dtype} parameter")
 
 

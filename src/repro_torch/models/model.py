@@ -1,19 +1,18 @@
 """Model assembly on PyTorch: parameters, forward, prefill, decode step.
 
-The port of ``repro.models.model`` for the dense-attention family: layers
-of the kinds ``attn`` and ``local``, a ``prefix`` then ``n_groups``
-repetitions of ``cfg.group``.  The reference stacks each group's
-parameters on a leading axis and scans over it; here the layers are one
-flat list in the order the scan visits them (:func:`layer_kinds`), and a
-group's parameters are its layers' own tensors.  The decode caches follow
-the same list.
+The port of ``repro.models.model`` for every layer kind (``attn``,
+``local``, ``cross``, ``moe``, ``moe_dense``, ``recurrent``, ``rwkv``),
+MLA attention and the audio and vision frontends: a ``prefix`` then
+``n_groups`` repetitions of ``cfg.group``.  The reference stacks each
+group's parameters on a leading axis and scans over it; here the layers
+are one flat list in the order the scan visits them (:func:`layer_kinds`),
+and a group's parameters are its layers' own tensors.  The decode caches
+follow the same list.
 
 :class:`LM` holds the parameters on an explicit device, drawn from an
 explicit ``torch.Generator`` (weights made on the card stay on the card);
 :func:`repro_torch.models.convert.from_reference` fills one from the
-reference's parameters instead.  The other layer kinds (``moe``,
-``moe_dense``, ``recurrent``, ``rwkv``, ``cross``), an ``mla`` config and a
-``frontend`` raise ``NotImplementedError`` naming ROADMAP A14.
+reference's parameters instead.
 """
 
 from __future__ import annotations
@@ -24,27 +23,11 @@ import torch
 from torch import nn
 
 from ..kernels.ops import _checked_device
-from ..pim_ufunc import _not_ported
 from . import layers as L
 from .config import ModelConfig
 
 set_activation_sharder = L.set_activation_sharder
 _shard = L._shard
-
-#: The layer kinds this slice ports.
-DENSE_KINDS = ("attn", "local")
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise ROADMAP A14's ``NotImplementedError`` for what is not
-    ported: a layer kind outside :data:`DENSE_KINDS`, MLA, a frontend."""
-    if cfg.mla is not None:
-        raise _not_ported(f"{cfg.name}: MLA attention", "A14")
-    if cfg.frontend != "none":
-        raise _not_ported(f"{cfg.name}: the {cfg.frontend} frontend", "A14")
-    for kind in dict.fromkeys(cfg.prefix + cfg.group):
-        if kind not in DENSE_KINDS:
-            raise _not_ported(f"{cfg.name}: the {kind!r} layer", "A14")
 
 
 def layer_kinds(cfg: ModelConfig) -> List[str]:
@@ -56,26 +39,50 @@ def layer_kinds(cfg: ModelConfig) -> List[str]:
 # init
 # --------------------------------------------------------------------------
 
+def _init_attn(cfg: ModelConfig, gen, *, device) -> L.Params:
+    """The attention of a ``moe`` or ``moe_dense`` layer."""
+    if cfg.mla is not None:
+        return L.init_mla(cfg, gen, device=device)
+    return L.init_attention(cfg, gen, device=device)
+
+
 def init_layer(cfg: ModelConfig, kind: str, gen, *, device) -> L.Params:
-    if kind not in DENSE_KINDS:
-        raise _not_ported(f"the {kind!r} layer", "A14")
     d = cfg.d_model
     zeros = lambda: torch.zeros((d,), dtype=torch.float32, device=device)
-    return L.Params({"ln1": zeros(), "ln2": zeros(),
-                     "attn": L.init_attention(cfg, gen, device=device),
-                     "ffn": L.init_ffn(gen, d, cfg.d_ff, device=device)})
+    p: Dict[str, Any] = {"ln1": zeros(), "ln2": zeros()}
+    if kind in ("attn", "local", "cross"):
+        if cfg.mla is not None and kind == "attn":
+            p["attn"] = L.init_mla(cfg, gen, device=device)
+        else:
+            p["attn"] = L.init_attention(cfg, gen, cross=(kind == "cross"),
+                                         device=device)
+        p["ffn"] = L.init_ffn(gen, d, cfg.d_ff, device=device)
+    elif kind == "moe":
+        p["attn"] = _init_attn(cfg, gen, device=device)
+        p["moe"] = L.init_moe(cfg, gen, device=device)
+    elif kind == "moe_dense":
+        p["attn"] = _init_attn(cfg, gen, device=device)
+        p["ffn"] = L.init_ffn(gen, d, cfg.moe.d_ff_dense, device=device)
+    elif kind == "recurrent":
+        p["rnn"] = L.init_rglru(cfg, gen, device=device)
+        p["ffn"] = L.init_ffn(gen, d, cfg.d_ff, device=device)
+    elif kind == "rwkv":
+        p["tmix"] = L.init_rwkv(cfg, gen, device=device)
+    else:
+        raise ValueError(kind)
+    return L.Params(p)
 
 
 class LM(L.Params):
     """The parameters of one model on ``device`` (``"cuda"`` unless the
     caller asks for another; ``"meta"`` allocates nothing), drawn from
     ``generator``, a ``torch.Generator`` on that device: ``embed`` [V, d]
-    and ``norm_f`` [d], ``lm_head`` [d, V] unless tied, and ``layers``, one
+    and ``norm_f`` [d], ``lm_head`` [d, V] unless tied, ``frontend``
+    [frontend_dim, d] with a frontend, and ``layers``, one
     :class:`~repro_torch.models.layers.Params` a layer."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda",
                  generator: Optional[torch.Generator] = None):
-        check_ported(cfg)
         device = _checked_device(device)
         if generator is None and torch.device(device).type != "meta":
             raise ValueError("LM needs a torch.Generator on its device")
@@ -87,6 +94,9 @@ class LM(L.Params):
         if not cfg.tie_embeddings:
             items["lm_head"] = L._dense_init(generator, (d, cfg.vocab),
                                              device=device)
+        if cfg.frontend != "none":
+            items["frontend"] = L._dense_init(
+                generator, (cfg.frontend_dim, d), device=device)
         items["layers"] = nn.ModuleList(
             init_layer(cfg, kind, generator, device=device)
             for kind in layer_kinds(cfg))
@@ -105,17 +115,67 @@ def init_model(cfg: ModelConfig, generator: torch.Generator, *,
 
 def apply_layer(cfg: ModelConfig, kind: str, p, x, *, pos, cache=None,
                 cross_kv=None):
-    """One pre-norm block: attention, then the feed-forward, each added to
-    the residual.  Returns (x, new_cache, aux); aux is 0 for dense
-    layers."""
-    if kind not in DENSE_KINDS:
-        raise _not_ported(f"the {kind!r} layer", "A14")
+    """One pre-norm block: the mixer (attention, MLA, RG-LRU or the RWKV
+    time mix), then the feed-forward (dense, MoE or the RWKV channel mix),
+    each added to the residual.  Returns (x, new_cache, aux); aux is the
+    MoE's load-balance loss, 0 for other layers."""
+    aux = 0.0
+    if kind == "rwkv":
+        h, tc = L.apply_rwkv_timemix(
+            cfg, p["tmix"], L.rms_norm(x, p["ln1"], cfg.norm_eps),
+            cache=cache)
+        x = x + h
+        h, cc = L.apply_rwkv_channelmix(
+            cfg, p["tmix"], L.rms_norm(x, p["ln2"], cfg.norm_eps),
+            cache=cache)
+        x = x + h
+        new_cache = None if cache is None else {**tc, **cc}
+        return x, new_cache, aux
+
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-    h, new_cache = L.apply_attention(cfg, p["attn"], h, pos=pos, kind=kind,
-                                     cache=cache, cross_kv=cross_kv)
+    if kind == "recurrent":
+        h, new_cache = L.apply_rglru(cfg, p["rnn"], h, cache=cache)
+    elif cfg.mla is not None and kind in ("attn", "moe", "moe_dense"):
+        h, new_cache = L.apply_mla(cfg, p["attn"], h, pos=pos, cache=cache)
+    else:
+        akind = {"moe": "attn", "moe_dense": "attn"}.get(kind, kind)
+        h, new_cache = L.apply_attention(cfg, p["attn"], h, pos=pos,
+                                         kind=akind, cache=cache,
+                                         cross_kv=cross_kv)
     x = x + h
-    h = L.apply_ffn(p["ffn"], L.rms_norm(x, p["ln2"], cfg.norm_eps))
-    return x + h, new_cache, 0.0
+    h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    if kind == "moe":
+        h, aux = L.apply_moe(cfg, p["moe"], h)
+    else:
+        h = L.apply_ffn(p["ffn"], h)
+    return x + h, new_cache, aux
+
+
+def _cross_kv(cfg: ModelConfig, p_attn, xv):
+    b, sv, _ = xv.shape
+    k = (xv @ p_attn["wk"]).reshape(b, sv, cfg.n_kv_heads, cfg.hd)
+    v = (xv @ p_attn["wv"]).reshape(b, sv, cfg.n_kv_heads, cfg.hd)
+    return k, v
+
+
+def _frontend(params, feats):
+    """Precomputed frame or patch embeddings, cast to bfloat16, times the
+    frontend weight: in float32 when the weights are, as jnp promotes
+    (``torch.matmul`` refuses mixed dtypes)."""
+    w = params["frontend"]
+    dt = torch.promote_types(torch.bfloat16, w.dtype)
+    return feats.to(torch.bfloat16).to(dt) @ w.to(dt)
+
+
+def _embed(cfg: ModelConfig, params, batch):
+    """The input embeddings and the vision states (or None)."""
+    if cfg.frontend == "audio":
+        x = _frontend(params, batch["frames"])
+    else:
+        x = params["embed"][batch["tokens"].long()]
+    xv = _frontend(params, batch["vision"]) if cfg.frontend == "vision" \
+        else None
+    return _shard("act", x), xv
 
 
 def _logits(cfg: ModelConfig, params, x):
@@ -130,29 +190,33 @@ def _logits(cfg: ModelConfig, params, x):
 
 def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
             remat: bool = True):
-    """Returns (logits [B,S,V], aux_loss_mean).  ``batch["tokens"]``:
-    [B,S].  ``remat`` is accepted and has no effect: nothing is kept for a
-    backward pass."""
-    check_ported(cfg)
-    x = _shard("act", params["embed"][batch["tokens"].long()])
+    """Returns (logits [B,S,V], the layers' mean aux loss).  ``batch``:
+    ``tokens`` [B,S] (or ``frames`` [B,S,Df] for audio), ``vision``
+    [B,Sv,Df] for vision.  ``remat`` is accepted and has no effect:
+    nothing is kept for a backward pass."""
+    x, xv = _embed(cfg, params, batch)
     b, s, _ = x.shape
     pos = torch.arange(s, device=x.device).expand(b, s)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, p in zip(layer_kinds(cfg), params["layers"]):
-        x, _, _ = apply_layer(cfg, kind, p, x, pos=pos)
-    # dense layers have no auxiliary loss
-    return _logits(cfg, params, x), torch.zeros((), device=x.device)
+        ckv = _cross_kv(cfg, p["attn"], xv) if kind == "cross" else None
+        x, _, aux = apply_layer(cfg, kind, p, x, pos=pos, cross_kv=ckv)
+        if kind == "moe":
+            aux_total = aux_total + aux
+    return _logits(cfg, params, x), aux_total / max(cfg.n_layers, 1)
 
 
 def prefill(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
     """Inference prefill: the full-sequence forward that also emits each
     layer's decode cache; returns (last-position logits [B,V], caches)."""
-    check_ported(cfg)
-    x = _shard("act", params["embed"][batch["tokens"].long()])
+    x, xv = _embed(cfg, params, batch)
     b, s, _ = x.shape
     pos = torch.arange(s, device=x.device).expand(b, s)
     caches = []
     for kind, p in zip(layer_kinds(cfg), params["layers"]):
-        x, nc, _ = apply_layer(cfg, kind, p, x, pos=pos, cache="collect")
+        ckv = _cross_kv(cfg, p["attn"], xv) if kind == "cross" else None
+        x, nc, _ = apply_layer(cfg, kind, p, x, pos=pos, cache="collect",
+                               cross_kv=ckv)
         caches.append(nc)
     return _logits(cfg, params, x[:, -1:])[:, 0], caches
 
@@ -163,50 +227,84 @@ def prefill(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
 
 def init_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int, *,
                device="cuda", dtype=torch.bfloat16) -> dict:
-    """One layer's empty decode cache: keys and values of ``max_seq``
-    positions (``attn``) or a ``window`` ring with its positions
-    (``local``), in ``dtype`` (the reference's bfloat16)."""
+    """One layer's empty decode cache, in ``dtype`` where the reference's
+    is bfloat16 (float32 states stay float32): keys and values of
+    ``max_seq`` positions (``attn``, ``moe``, ``moe_dense``) or MLA's
+    latent and rope key of as many, a ``window`` ring with its positions
+    (``local``), nothing (``cross``), the RG-LRU state and last 3 conv
+    inputs (``recurrent``), the WKV state and the mixes' last inputs
+    (``rwkv``)."""
     hd, kv = cfg.hd, cfg.n_kv_heads
-    if kind == "attn":
-        return {"k": torch.zeros((batch, max_seq, kv, hd), dtype=dtype,
-                                 device=device),
-                "v": torch.zeros((batch, max_seq, kv, hd), dtype=dtype,
-                                 device=device)}
+    new = lambda shape, dt=dtype: torch.zeros(shape, dtype=dt, device=device)
+    if kind in ("attn", "moe", "moe_dense"):
+        if cfg.mla is not None:
+            m = cfg.mla
+            return {"c": new((batch, max_seq, m.kv_lora)),
+                    "r": new((batch, max_seq, m.rope_head_dim))}
+        return {"k": new((batch, max_seq, kv, hd)),
+                "v": new((batch, max_seq, kv, hd))}
     if kind == "local":
         w = cfg.window
-        return {"k": torch.zeros((batch, w, kv, hd), dtype=dtype,
-                                 device=device),
-                "v": torch.zeros((batch, w, kv, hd), dtype=dtype,
-                                 device=device),
+        return {"k": new((batch, w, kv, hd)), "v": new((batch, w, kv, hd)),
                 "pos": torch.full((batch, w), -10 ** 9, dtype=torch.int32,
                                   device=device)}
-    raise _not_ported(f"the {kind!r} layer's decode cache", "A14")
+    if kind == "cross":
+        return {}
+    if kind == "recurrent":
+        dr = cfg.d_rnn or cfg.d_model
+        return {"h": new((batch, dr), torch.float32),
+                "conv": new((batch, 3, dr))}
+    if kind == "rwkv":
+        h = cfg.n_heads
+        hd2 = cfg.d_model // h
+        return {"s": new((batch, h, hd2, hd2), torch.float32),
+                "xa": new((batch, cfg.d_model)),
+                "xc": new((batch, cfg.d_model))}
+    raise ValueError(kind)
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_seq: int, *,
                 device="cuda", dtype=torch.bfloat16) -> List[dict]:
-    check_ported(cfg)
     return [init_cache(cfg, kind, batch, max_seq, device=device, dtype=dtype)
             for kind in layer_kinds(cfg)]
+
+
+def seq_len(cache: dict) -> Optional[int]:
+    """The positions a cache holds along its sequence axis: full
+    attention's keys or MLA's latents; None for a ring, a recurrent
+    state or a cross layer's empty cache."""
+    if "pos" in cache:
+        return None
+    for key in ("k", "c"):
+        if key in cache:
+            return cache[key].shape[1]
+    return None
 
 
 def decode_step(cfg: ModelConfig, params, caches: List[dict], token,
                 pos_idx: int, vision=None):
     """One decode step.  token [B], ``pos_idx`` the position (an int on
-    the host: the step waits for nothing on the device); returns (logits
-    [B,V], caches), the caches written in place."""
-    check_ported(cfg)
-    for kind, c in zip(layer_kinds(cfg), caches):
-        n = c["k"].shape[1]
-        if kind == "attn" and not 0 <= pos_idx < n:
+    the host: the step waits for nothing on the device), ``vision``
+    [B,Sv,Df] for a vision model; returns (logits [B,V], caches), the
+    caches written in place.  A cross layer recomputes its keys and
+    values from ``vision`` every step, as the reference does."""
+    for c in caches:
+        n = seq_len(c)
+        if n is not None and not 0 <= pos_idx < n:
             raise ValueError(f"position {pos_idx} is outside the "
                              f"{n}-position cache")
     b = token.shape[0]
     x = params["embed"][token.long()][:, None]
     pos = torch.full((b, 1), int(pos_idx), dtype=torch.long,
                      device=x.device)
+    xv = _frontend(params, vision) if cfg.frontend == "vision" else None
     new = []
     for kind, p, c in zip(layer_kinds(cfg), params["layers"], caches):
-        x, nc, _ = apply_layer(cfg, kind, p, x, pos=pos, cache=c)
+        if kind == "cross":
+            x, _, _ = apply_layer(cfg, kind, p, x, pos=pos,
+                                  cross_kv=_cross_kv(cfg, p["attn"], xv))
+            nc = c
+        else:
+            x, nc, _ = apply_layer(cfg, kind, p, x, pos=pos, cache=c)
         new.append(nc)
     return _logits(cfg, params, x)[:, 0], new

@@ -122,10 +122,6 @@ def options(**kw):
             setattr(config, k, v)
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
-
-
 _installed_cache_dir = None
 
 

@@ -1124,16 +1124,23 @@ def lm_cuda():
     return "cuda"
 
 
-def _lm_prefill_then_decode(cfg, model, toks, n_dec):
+def _lm_prefill_then_decode(cfg, model, toks, n_dec, vision=None):
     from repro_torch.models import model as M
     s = toks.shape[1] - n_dec
-    logits, caches = M.prefill(cfg, model, {"tokens": toks[:, :s]})
-    caches = [c if "pos" in c else      # a local ring keeps its size
-              {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, n_dec))
+    batch = {"tokens": toks[:, :s]}
+    if vision is not None:
+        batch["vision"] = vision
+    logits, caches = M.prefill(cfg, model, batch)
+    # only a sequence axis grows: a local ring, a recurrent state and a
+    # cross layer's empty cache keep their size
+    caches = [c if M.seq_len(c) is None else
+              {k: torch.nn.functional.pad(v, (0, 0) * (v.dim() - 2)
+                                          + (0, n_dec))
                for k, v in c.items()} for c in caches]
     out = [logits.float().cpu()]
     for t in range(s, s + n_dec):
-        logits, caches = M.decode_step(cfg, model, caches, toks[:, t], t)
+        logits, caches = M.decode_step(cfg, model, caches, toks[:, t], t,
+                                       vision=vision)
         out.append(logits.float().cpu())
     return out
 
@@ -1162,3 +1169,53 @@ def test_lm_on_the_card_matches_the_cpu(lm_cuda, group, window):
     gen = serve.generate(cfg, card, toks[:, :6].to(lm_cuda), 6)
     assert gen.device.type == "cuda" and tuple(gen.shape) == (2, 12)
     assert torch.equal(gen[:, :6].cpu(), toks[:, :6].to(torch.int32))
+
+
+#: Card against CPU for the MoE models, in float32 weights (a top-k choice
+#: can flip on a bfloat16 rounding): a few float32 ulps of logits of
+#: order 1, summed in other orders.
+LM_MOE_CARD_CPU_TOL = 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["recurrentgemma-2b", "qwen3-moe-235b-a22b",
+                                  "deepseek-v2-236b", "rwkv6-1.6b",
+                                  "llama-3.2-vision-90b", "hubert-xlarge"])
+def test_lm_families_on_the_card_match_the_cpu(lm_cuda, name):
+    """Each other family reduced, one set of weights on both devices (the
+    vision model's cross gates set to 0.5, so that its cross layers
+    count): prefill of 16 tokens, then 4 decode steps (hubert, which has
+    no decode: ``forward`` over 16 frames); logits within
+    ``LM_CARD_CPU_TOL`` in bfloat16, ``LM_MOE_CARD_CPU_TOL`` for the MoE
+    models in float32."""
+    import copy
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import model as M
+    cfg = ARCHS[name].reduced()
+    cpu = M.LM(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    for p in cpu["layers"]:
+        if "attn" in p and "gate" in p["attn"]:
+            p["attn"]["gate"].fill_(0.5)
+    tol = LM_CARD_CPU_TOL
+    if cfg.moe is not None:
+        cpu.float()
+        tol = LM_MOE_CARD_CPU_TOL
+    card = copy.deepcopy(cpu).to(lm_cuda)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 20)))
+    feats = None
+    if cfg.frontend != "none":
+        n = cfg.vision_seq if cfg.frontend == "vision" else 16
+        feats = torch.from_numpy(rng.standard_normal(
+            (2, n, cfg.frontend_dim)).astype(np.float32))
+    if cfg.encoder_only:
+        want = [M.forward(cfg, cpu, {"frames": feats})[0].float()]
+        got = [M.forward(cfg, card, {"frames": feats.to(lm_cuda)})[0]
+               .float().cpu()]
+    else:
+        want = _lm_prefill_then_decode(cfg, cpu, toks, 4, feats)
+        got = _lm_prefill_then_decode(
+            cfg, card, toks.to(lm_cuda), 4,
+            None if feats is None else feats.to(lm_cuda))
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) < tol

@@ -50,8 +50,17 @@ DENSE = ["qwen3-8b", "qwen2.5-32b", "qwen1.5-32b", "mistral-nemo-12b"]
 LOCAL = ("qwen3-8b", {"group": ("attn", "local"), "window": 4})
 CASES = [(n, {}) for n in DENSE] + [LOCAL]
 CASE_IDS = DENSE + ["qwen3-8b-local"]
-NOT_DENSE = ["recurrentgemma-2b", "qwen3-moe-235b-a22b", "deepseek-v2-236b",
-             "rwkv6-1.6b", "llama-3.2-vision-90b", "hubert-xlarge"]
+FAMILIES = ["recurrentgemma-2b", "qwen3-moe-235b-a22b", "deepseek-v2-236b",
+            "rwkv6-1.6b", "llama-3.2-vision-90b", "hubert-xlarge"]
+#: Every architecture's parameters at full width, from ``jax.eval_shape``
+#: over the reference's ``init_model``.
+FULL_PARAMS = {
+    "qwen3-8b": 8_190_735_360, "qwen1.5-32b": 35_197_096_960,
+    "qwen2.5-32b": 32_763_876_352, "mistral-nemo-12b": 12_247_782_400,
+    "recurrentgemma-2b": 3_549_795_840,
+    "qwen3-moe-235b-a22b": 235_093_634_560,
+    "deepseek-v2-236b": 235_741_434_880, "hubert-xlarge": 1_260_360_960,
+    "rwkv6-1.6b": 1_583_892_480, "llama-3.2-vision-90b": 87_729_709_076}
 
 
 def _cfgs(name, overrides=None):
@@ -136,10 +145,12 @@ def test_configs_are_the_reference_copies(name):
     assert dataclasses.asdict(r.reduced()) == dataclasses.asdict(t.reduced())
 
 
-@pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
+@pytest.mark.parametrize("case", CASES + [(n, {}) for n in FAMILIES],
+                         ids=CASE_IDS + FAMILIES)
 def test_from_reference_round_trip(case):
     """Every leaf lands bit for bit in exactly one port tensor (bfloat16
-    compared as uint16), and the counts agree."""
+    compared as uint16), 0-d ones (a cross layer's gate, one a group)
+    keeping their shape, and the counts agree."""
     name, over = case
     rcfg, cfg = _cfgs(name, over)
     tree = jax.tree.map(np.asarray,
@@ -149,7 +160,7 @@ def test_from_reference_round_trip(case):
     n_leaves = n_elems = 0
     for path, arr in convert._leaves(tree):
         for pname, idx in convert.port_names(cfg, path):
-            want = np.ascontiguousarray(arr[idx])
+            want = np.array(np.asarray(arr)[idx], order="C")
             t = got[pname]
             if want.dtype.name == "bfloat16":
                 assert t.dtype == torch.bfloat16
@@ -179,26 +190,33 @@ def test_from_reference_raises_on_a_leaf_left_over():
         convert.from_reference(cfg, tree, device="cpu")
 
 
-@pytest.mark.parametrize("name", DENSE)
-def test_full_width_shapes_on_meta(name):
-    """At full width the port's parameters have the shapes and dtypes of
-    ``jax.eval_shape(init_model)``'s unstacked leaves; nothing is
-    allocated."""
+def meta_matches_reference(rcfg, cfg) -> int:
+    """Assert that the port's parameters of ``cfg`` on ``meta`` have the
+    shapes and dtypes of ``jax.eval_shape(init_model)``'s unstacked
+    leaves for ``rcfg``; return their count."""
     shapes = jax.eval_shape(
-        lambda: RM.init_model(RARCHS[name], jax.random.PRNGKey(0)))
-    lm = M.LM(ARCHS[name], device="meta")
+        lambda: RM.init_model(rcfg, jax.random.PRNGKey(0)))
+    lm = M.LM(cfg, device="meta")
     got = {n: (tuple(t.shape), t.dtype) for n, t in lm.named_parameters()}
     want = {}
     for path, s in convert._leaves(shapes):
-        for pname, idx in convert.port_names(ARCHS[name], path):
+        for pname, idx in convert.port_names(cfg, path):
             want[pname] = (tuple(s.shape[len(idx):]),
                            {"bfloat16": torch.bfloat16,
                             "float32": torch.float32}[s.dtype.name])
     assert got == want
     n = sum(int(np.prod(s.shape)) for s in jax.tree.leaves(shapes))
     assert sum(t.numel() for t in lm.parameters()) == n
-    if name == "qwen3-8b":
-        assert n == 8_190_735_360
+    return n
+
+
+@pytest.mark.parametrize("name", list(FULL_PARAMS))
+def test_full_width_shapes_on_meta(name):
+    """At full width the port's parameters have the shapes and dtypes of
+    ``jax.eval_shape(init_model)``'s unstacked leaves, and their count is
+    :data:`FULL_PARAMS`'s; nothing is allocated."""
+    assert meta_matches_reference(RARCHS[name], ARCHS[name]) == \
+        FULL_PARAMS[name]
 
 
 # --------------------------------------------------------------------------
@@ -479,19 +497,13 @@ def test_serve_main_with_one_token_and_no_step(capsys):
     assert "decode steps" not in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("name", NOT_DENSE)
+@pytest.mark.parametrize("name", ["hubert-xlarge"])
 def test_other_families_raise_a14(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        M.LM(ARCHS[name].reduced(), device="meta")
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        M.forward(ARCHS[name].reduced(), {}, {"tokens": None})
-    argv = ["--arch", name, "--reduced", "--device", "cpu"]
-    if ARCHS[name].encoder_only:
-        with pytest.raises(AssertionError, match="encoder-only"):
-            serve.main(argv)
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-            serve.main(argv)
+    """Every family is ported (``test_torch_lm_families.py``); what still
+    raises is the reference's own refusal: an encoder-only model has no
+    decode to serve."""
+    with pytest.raises(AssertionError, match="encoder-only"):
+        serve.main(["--arch", name, "--reduced", "--device", "cpu"])
 
 
 def test_steps_grid_is_the_reference_grid():

@@ -49,3 +49,55 @@ def test_a_buffered_pipe_is_refused(smoke):
             smoke.first_line_then_rest(proc, 60)
     finally:
         proc.communicate(timeout=60)
+
+
+def test_decode_bound_counts_each_cache_kind(smoke):
+    """A dense model's bound is the weights, the embedding rows and the
+    keys and values read and written (the formula of ``lm_phase``); a
+    fixed-size state (RG-LRU, RWKV) is read and written once, whatever
+    the position, and a local ring stops growing at its window."""
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import model as M
+    cfg = ARCHS["qwen3-8b"].reduced()
+    lm = M.LM(cfg, device="meta")
+    w = sum(p.numel() * 2 if p.dtype == torch.bfloat16 else p.numel() * 4
+            for n, p in lm.named_parameters() if n != "embed")
+    b, pos = 4, 9
+    kv = cfg.n_layers * 2 * b * cfg.n_kv_heads * cfg.hd * 2 * (pos + 2)
+    t_bytes, t_ops = smoke.decode_bound(lm, cfg, b, pos)
+    assert t_bytes == (w + b * cfg.d_model * 2 + kv) / \
+        smoke.HBM_BYTES_PER_S * 1e3
+    assert smoke.decode_bound_ms(lm, cfg, b, pos) == max(t_bytes, t_ops)
+    for name, kind in (("recurrentgemma-2b", "recurrent"),
+                       ("rwkv6-1.6b", "rwkv")):
+        cfg = ARCHS[name].reduced()
+        c = M.init_cache(cfg, kind, b, 8, device="meta")
+        held = sum(t.numel() * t.element_size() for t in c.values())
+        assert smoke.cache_bytes(cfg, kind, b, 3) == \
+            smoke.cache_bytes(cfg, kind, b, 300) == 2 * held
+    cfg = ARCHS["recurrentgemma-2b"].reduced()
+    assert smoke.cache_bytes(cfg, "local", b, cfg.window + 5) == \
+        smoke.cache_bytes(cfg, "local", b, cfg.window - 1) > \
+        smoke.cache_bytes(cfg, "local", b, 0)
+    assert smoke.cache_bytes(cfg, "cross", b, 5) == 0
+
+
+def test_grow_caches_grows_only_a_sequence_axis(smoke):
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import model as M
+    for name in ("recurrentgemma-2b", "deepseek-v2-236b", "rwkv6-1.6b",
+                 "llama-3.2-vision-90b"):
+        cfg = ARCHS[name].reduced()
+        caches = M.init_caches(cfg, 2, 6, device="cpu")
+        grown = smoke.grow_caches(caches, 3)
+        for c, g in zip(caches, grown):
+            n = M.seq_len(c)
+            assert M.seq_len(g) == (None if n is None else n + 3)
+            for k in c:
+                want = list(c[k].shape)
+                if n is not None:
+                    want[1] += 3
+                assert list(g[k].shape) == want
+                assert torch.equal(g[k][:, :c[k].shape[1]], c[k])
