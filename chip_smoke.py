@@ -132,6 +132,25 @@ Phases, each of which raises (exit code 1) on failure:
    encoder-only ``hubert-xlarge`` the encoder-only refusal of
    ``serve.main``, a timed ``forward`` over frames [4, 1024, 512] and
    prefill's last logits against it (0.05);
+
+   train: LM training (:func:`train_phase`, ROADMAP A15; no kernel of
+   its own, it reaches no TPU kernel): ``qwen3-8b`` at full width cut to
+   :data:`TRAIN_LAYERS` layers (the most whose state and activations fit
+   under 0.9 of the card), weights from seed 0 on the card, 10 steps of
+   ``make_train_step`` through ``train_loop`` at the reference CLI's
+   defaults (batch 8, seq 256, accum 1, lr 3e-4) on ``DataIterator``'s
+   batches: each step's CUDA-event ms, loss, grad norm and lr, tokens/s,
+   the peak memory and the step's operations and bytes bounds (gates:
+   finite, the last loss below the first, the peak under 0.9 of the
+   card); ``save_async`` of the weights (the host copy and the write);
+   2 steps at accum 4 in the scan and the fused form; one
+   ``adamw.update`` alone beside its bytes bound; a ``torch.profiler``
+   trace of 2 steps; one float32 step of reduced ``qwen3-8b`` and
+   ``qwen3-moe-235b-a22b`` on the card against the CPU (1e-4 relative);
+   the resume check (4 straight steps against 2, ``save``, a new loop
+   and 2 more: every weight bit-equal); ``python -m
+   repro_torch.launch.train`` as a subprocess, run, resumed at its
+   checkpoint and run on to 30 steps;
 10. time each kernel entry at one chunk of 1 Mi rows beside its plain
    version, one PyTorch library call computing the same function, and its
    bound, with its launch attributes (CTAs an SM, registers, local bytes),
@@ -2683,6 +2702,443 @@ def lm_families_phase(gpu: str) -> None:
         raise AssertionError(f"lm families: {failed}")
 
 
+# --------------------------------------------------------------------------
+# LM training (ROADMAP A15): qwen3-8b at full width, depth cut
+# --------------------------------------------------------------------------
+
+TRAIN_ARCH = "qwen3-8b"
+#: qwen3-8b's layers trained on one 80 GB card.  Every parameter holds 16
+#: B of state (bf16 weight and gradient, the float32 accumulator, two
+#: float32 moments): 131 GB for all 36 layers.  A layer has 192,946,432
+#: parameters (3.09 GB of state), the embedding and the head
+#: 1,244,659,712.  17 layers are 4,524,753,152 parameters, 72.4 GB of
+#: state: the most whose measured peak (``train_phase``'s gate) stays
+#: under :data:`TRAIN_MEM_SHARE` of the card (PERF.md §4).
+TRAIN_LAYERS = 17
+#: The reference CLI's defaults: batch 8, seq 256, accum 1, lr 3e-4,
+#: warmup ``max(steps // 20, 1)``.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 8, 256, 3e-4
+TRAIN_STEPS = 10
+#: Steps of each accumulation form (scan, fused) at this depth.
+TRAIN_ACCUM, TRAIN_ACCUM_STEPS = 4, 2
+TRAIN_PROFILE_STEPS = 2
+TRAIN_MEM_SHARE = 0.9
+#: Bytes a parameter of the optimizer's work moves at least, as the
+#: reference's step is built: the bf16 gradient written and read (4), the
+#: float32 accumulator written, then read by the norm and the update (12),
+#: both moments read and written (16), the bf16 weight read by the
+#: forward and read and written by the update (6).
+TRAIN_OPT_BYTES = 38
+#: Bytes a weight of one ``adamw.update`` moves at least: the float32
+#: gradient read, both moments read and written, the bf16 weight read
+#: and written.
+TRAIN_UPDATE_BYTES = 24
+BF16_FLOPS = 989e12
+#: Card against CPU, one train step of a reduced model in float32 from one
+#: set of weights and one batch: the loss, the grad norm and both moments
+#: relative to their (leaf's) largest magnitude; the updated weights the
+#: same where the gradient's sign is sure (above ``TRAIN_SIGN_FLOOR`` of
+#: its leaf's largest: AdamW's first update is ``lr * sign(g)``, and a
+#: gradient within the summation noise of 0 may take either sign).
+TRAIN_CARD_CPU_TOL = 1e-4
+TRAIN_SIGN_FLOOR = 1e-3
+TRAIN_CHECK_ARCHS = ("qwen3-8b", "qwen3-moe-235b-a22b")
+#: The CLI on the card: the reduced model, 20 steps at batch 8 and seq
+#: 128, then the same on its directory (resumes at 20, nothing to do) and
+#: with 30 steps.  The reference's loop writes no checkpoint at its end,
+#: so ``--ckpt-every 19`` makes its last step (19, tagged 20) one.
+TRAIN_CLI = ["--arch", "qwen3-8b", "--reduced", "--batch", "8", "--seq",
+             "128", "--ckpt-every", "19"]
+
+
+def train_bound_ms(n_params: int, n_embed: int, tokens: int) -> tuple:
+    """A train step's least time: (operations, bytes) ms.  Operations: 6 x
+    N x tokens at the card's bf16 rate, N the parameters but the
+    embedding (the forward's 2 N a token, the backward's 4 N; remat's
+    second forward is not counted); bytes: :data:`TRAIN_OPT_BYTES` a
+    parameter at the memory rate."""
+    ops = 6 * (n_params - n_embed) * tokens / BF16_FLOPS * 1e3
+    return ops, TRAIN_OPT_BYTES * n_params / HBM_BYTES_PER_S * 1e3
+
+
+def _train_batch(batch: dict, accum: int, device) -> dict:
+    return {k: torch.from_numpy(v).to(device).reshape(
+                (accum, v.shape[0] // accum) + v.shape[1:])
+            for k, v in batch.items()}
+
+
+def train_card_against_cpu(name: str, device="cuda") -> dict:
+    """One train step of ``name``'s reduced config in float32 on the CPU
+    and on ``device`` from the same weights and batch; returns the worst
+    relative errors (``loss``, ``grad_norm``, ``m``, ``v``, ``params``)
+    and how many updated weights differ where the sign is not sure
+    (``flips``)."""
+    import copy
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    cfg = registry.get(name).reduced()
+    cpu = M.LM(cfg, device="cpu",
+               generator=torch.Generator().manual_seed(SEED)).float()
+    card = copy.deepcopy(cpu).to(device)
+    batch = batch_at(DataConfig(vocab=cfg.vocab, seq_len=32,
+                                global_batch=4, seed=SEED), 0)
+    opt_cfg = adamw.AdamWConfig(lr=TRAIN_LR, total_steps=10,
+                                warmup_steps=1)
+    step = make_train_step(cfg, 1, opt_cfg)
+    outs = [step(lm, adamw.init(lm), _train_batch(batch, 1, lm["embed"]
+                                                  .device))
+            for lm in (cpu, card)]
+    (_, want_o, want), (_, got_o, got) = outs
+    rel = lambda a, b: abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+    errs = {"loss": rel(got["loss"], want["loss"]),
+            "grad_norm": rel(got["grad_norm"], want["grad_norm"]),
+            "m": 0.0, "v": 0.0, "params": 0.0, "flips": 0}
+    named = lambda t: dict(t.named_parameters())
+    m_cpu = named(want_o["m"])
+    for key, (tree_c, tree_g) in {
+            "m": (want_o["m"], got_o["m"]), "v": (want_o["v"], got_o["v"]),
+            "params": (cpu, card)}.items():
+        got_t = named(tree_g)
+        for n, w in named(tree_c).items():
+            g = got_t[n].detach().cpu()
+            w = w.detach()
+            err = (g - w).abs()
+            top = float(w.abs().max())
+            if key == "params":
+                mw = m_cpu[n].abs()
+                sure = mw > TRAIN_SIGN_FLOOR * float(mw.max())
+                errs["flips"] += int((err[~sure] > TRAIN_CARD_CPU_TOL
+                                      * top).sum())
+                err = err[sure]
+            if err.numel():
+                errs[key] = max(errs[key], float(err.max()) / max(top, 1e-30))
+    return errs
+
+
+def _mini_train(ckpt_dir: str, total: int, device):
+    """``tests/test_system.py``'s ``_mini_setup`` on ``device``: reduced
+    qwen3-8b at vocab 64 from seed 1, lr 1e-3, warmup 2, batch 4 of 32
+    tokens; returns (step_fn, state, data config, manager)."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    cfg = registry.get("qwen3-8b").reduced(vocab=64)
+    params = M.init_model(cfg, torch.Generator(device=device).manual_seed(1),
+                          device=device)
+    step = make_train_step(cfg, 1, adamw.AdamWConfig(
+        lr=1e-3, total_steps=total, warmup_steps=2))
+
+    def step_fn(state, batch):
+        p, o, metrics = step(state["params"], state["opt"],
+                             _train_batch(batch, 1, device))
+        return {"params": p, "opt": o}, metrics
+
+    return step_fn, {"params": params, "opt": adamw.init(params)}, \
+        DataConfig(vocab=64, seq_len=32, global_batch=4, seed=0), \
+        CheckpointManager(ckpt_dir, keep=2)
+
+
+def train_resume_check(work: Path, device="cuda", steps: int = 4) -> bool:
+    """``steps`` straight steps against half of them, ``save``, a new loop
+    on a fresh model and the other half: whether every weight of the two
+    ends is bit-equal."""
+    from repro_torch.data.pipeline import DataIterator
+    from repro_torch.runtime.train_loop import train_loop
+    quiet = dict(ckpt_every=0, log_every=0, log_fn=lambda *_: None)
+    step_fn, state, dcfg, ckpt = _mini_train(str(work / "a"), steps, device)
+    a = train_loop(step_fn=step_fn, state=state, data_iter=DataIterator(dcfg),
+                   ckpt=ckpt, total_steps=steps, **quiet)["state"]["params"]
+    half = steps // 2
+    step_fn, state, dcfg, ckpt = _mini_train(str(work / "b"), steps, device)
+    mid = train_loop(step_fn=step_fn, state=state,
+                     data_iter=DataIterator(dcfg), ckpt=ckpt,
+                     total_steps=half, **quiet)["state"]
+    ckpt.save(half, mid)
+    step_fn, fresh, dcfg, ckpt = _mini_train(str(work / "b"), steps, device)
+    b = train_loop(step_fn=step_fn, state=fresh,
+                   data_iter=DataIterator(dcfg), ckpt=ckpt, total_steps=steps,
+                   **quiet)["state"]["params"]
+    return all(torch.equal(x, y) for x, y in zip(a.parameters(),
+                                                 b.parameters()))
+
+
+def _train_cli(work: Path, gpu: str) -> None:
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(root / "src") + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    cmd = [sys.executable, "-m", "repro_torch.launch.train"] + TRAIN_CLI + \
+        ["--ckpt-dir", str(work / "cli")]
+    runs = []
+    # (steps, the resume line, whether a step runs and logs a loss)
+    for steps, want, trains in ((20, None, True),
+                                (20, "[resume] restored step 20", False),
+                                (30, "[resume] restored step 20", True)):
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd + ["--steps", str(steps)], cwd=root,
+                              env=env, capture_output=True, text=True,
+                              timeout=300)
+        s = time.perf_counter() - t0
+        final = [l for l in proc.stdout.splitlines()
+                 if l.startswith("final:")]
+        _check(proc.returncode == 0 and len(final) == 1 and
+               (want is None or want in proc.stdout) and
+               ("'loss'" in final[0]) == trains,
+               f"train CLI --steps {steps}: exit {proc.returncode}, "
+               f"{proc.stdout[-800:]}{proc.stderr[-1500:]}")
+        runs.append(f"--steps {steps}: exit 0 in {s:.3f} s"
+                    f"{', ' + want if want else ''}, {final[0]}")
+    print(f"train CLI: {gpu}; python -m repro_torch.launch.train "
+          f"{' '.join(TRAIN_CLI)}: " + "; ".join(runs), flush=True)
+
+
+def train_depth_probe(gpu: str, depths=(15, 16, 17, 18)) -> dict:
+    """The peak ``max_memory_allocated`` of two train steps of ``qwen3-8b``
+    at full width cut to each of ``depths`` layers, in turn, as the phase
+    builds and steps it (what :data:`TRAIN_LAYERS` was chosen by; not part
+    of the smoke's run).  Run alone on the card:
+
+        python3 -c "import chip_smoke as c; c.train_depth_probe(c.smi('name,power.limit'))"
+    """
+    import gc
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    card = torch.cuda.get_device_properties(0).total_memory
+    out = {}
+    for layers in depths:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = dataclasses.replace(registry.get(TRAIN_ARCH), n_layers=layers)
+        model = M.init_model(
+            cfg, torch.Generator(device="cuda").manual_seed(SEED),
+            device="cuda")
+        opt = adamw.init(model)
+        step = make_train_step(cfg, 1, adamw.AdamWConfig(
+            lr=TRAIN_LR, total_steps=TRAIN_STEPS, warmup_steps=1))
+        dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                          global_batch=TRAIN_BATCH, seed=SEED)
+        try:
+            for i in range(2):
+                _, opt, _ = step(model, opt,
+                                 _train_batch(batch_at(dcfg, i), 1, "cuda"))
+            torch.cuda.synchronize()
+            out[layers] = torch.cuda.max_memory_allocated()
+            what = f"peak {out[layers]} B = {out[layers] / card:.4f}"
+        except torch.cuda.OutOfMemoryError:      # the probe's answer
+            out[layers] = None
+            what = "out of memory"
+        print(f"train depth probe: {gpu}; {layers} layers: {what} of the "
+              f"card's {card} B", flush=True)
+        del model, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_phase(gpu: str) -> None:
+    """LM training (ROADMAP A15) on the card (see the module docstring);
+    raises on any failed check."""
+    import gc
+    import tempfile
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataConfig, DataIterator
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.train_loop import train_loop
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    dev = "cuda"
+    cfg = dataclasses.replace(registry.get(TRAIN_ARCH),
+                              n_layers=TRAIN_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    model = M.init_model(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         device=dev)
+    n = sum(p.numel() for p in model.parameters())
+    n_embed = model["embed"].numel()
+    opt_cfg = adamw.AdamWConfig(lr=TRAIN_LR, total_steps=TRAIN_STEPS,
+                                warmup_steps=max(TRAIN_STEPS // 20, 1))
+    step = make_train_step(cfg, 1, opt_cfg)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH, seed=SEED)
+    marks, metrics = [], []
+
+    def step_fn(state, batch):
+        a, z = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        mb = _train_batch(batch, 1, dev)
+        a.record()
+        p, o, m = step(state["params"], state["opt"], mb)
+        z.record()
+        marks.append((a, z))
+        metrics.append(m)
+        return {"params": p, "opt": o}, m
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as work:
+        work = Path(work)
+        ckpt = CheckpointManager(str(work / "full"), keep=2)
+        t0 = time.perf_counter()
+        out = train_loop(step_fn=step_fn,
+                         state={"params": model, "opt": adamw.init(model)},
+                         data_iter=DataIterator(dcfg), ckpt=ckpt,
+                         total_steps=TRAIN_STEPS, ckpt_every=0, log_every=0,
+                         log_fn=print)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        card = torch.cuda.get_device_properties(0).total_memory
+        ms = [a.elapsed_time(z) for a, z in marks]
+        loss = [float(m["loss"]) for m in metrics]
+        gn = [float(m["grad_norm"]) for m in metrics]
+        lr = [float(m["lr"]) for m in metrics]
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        med = float(np.median(ms[1:]))
+        ops_ms, bytes_ms = train_bound_ms(n, n_embed, tokens)
+        print(f"train build: {gpu}; {cfg.name} at full width, {TRAIN_LAYERS} "
+              f"of 36 layers (d_model {cfg.d_model}, heads {cfg.n_heads}/"
+              f"{cfg.n_kv_heads}, head_dim {cfg.hd}, d_ff {cfg.d_ff}, vocab "
+              f"{cfg.vocab}): {n} parameters ({n_embed} in the embedding), "
+              f"max_memory_allocated {peak} B = {peak / card:.4f} of the "
+              f"card's {card} B", flush=True)
+        print(f"train steps: {gpu}; train_loop, {TRAIN_STEPS} steps at batch "
+              f"{TRAIN_BATCH} x seq {TRAIN_SEQ}, accum 1, lr {TRAIN_LR}, "
+              f"remat: first step {ms[0]:.3f} ms, median of the rest "
+              f"{med:.3f} ms (CUDA events) = {tokens / med * 1e3:.1f} "
+              f"tokens/s; wall {wall:.3f} s; bound: operations "
+              f"{ops_ms:.3f} ms (6 x {n - n_embed} x {tokens} at 989 "
+              f"TFLOP/s), bytes {bytes_ms:.3f} ms ({TRAIN_OPT_BYTES} B x {n} "
+              f"at 3.35 TB/s); median / bound {med / max(ops_ms, bytes_ms):.3f}"
+              f"x; step ms {[round(x, 3) for x in ms]}", flush=True)
+        print(f"train loss: {gpu}; {[round(x, 6) for x in loss]}; grad_norm "
+              f"{[round(x, 6) for x in gn]}; lr {[float(f'{x:.6g}') for x in lr]}",
+              flush=True)
+        _check(all(np.isfinite(loss)) and all(np.isfinite(gn)),
+               f"train: a loss or grad norm is not finite: {loss} {gn}")
+        _check(loss[-1] < loss[0], f"train: the loss did not fall: {loss}")
+        _check(peak < TRAIN_MEM_SHARE * card,
+               f"train: peak {peak} B over {TRAIN_MEM_SHARE} of {card} B")
+
+        # the async checkpoint of the weights: the host copy the next step
+        # waits for, then the write in the writer thread
+        t0 = time.perf_counter()
+        ckpt.save_async(TRAIN_STEPS, {"params": model})
+        copy_s = time.perf_counter() - t0
+        ckpt.wait()
+        total_s = time.perf_counter() - t0
+        step_dir = work / "full" / f"step_{TRAIN_STEPS:08d}"
+        nbytes = sum(p.stat().st_size for p in step_dir.iterdir())
+        print(f"train checkpoint: {gpu}; save_async of the {n} bf16 weights: "
+              f"returns after {copy_s:.3f} s (the copy to the host), written "
+              f"after {total_s:.3f} s, {nbytes} B on disk "
+              f"({nbytes / total_s / 1e9:.3f} GB/s)", flush=True)
+        shutil.rmtree(step_dir)
+
+        # the two accumulation forms
+        it = DataIterator(dcfg, start_step=TRAIN_STEPS)
+        for fused in (False, True):
+            acc = make_train_step(cfg, TRAIN_ACCUM, opt_cfg,
+                                  fused_accum=fused)
+            rows = []
+            opt = out["state"]["opt"]
+            for _ in range(TRAIN_ACCUM_STEPS):
+                a, z = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(2))
+                mb = _train_batch(next(it), TRAIN_ACCUM, dev)
+                a.record()
+                _, opt, m = acc(model, opt, mb)
+                z.record()
+                z.synchronize()
+                rows.append((a.elapsed_time(z), float(m["loss"]),
+                             float(m["grad_norm"])))
+            out["state"]["opt"] = opt
+            print(f"train accum: {gpu}; accum {TRAIN_ACCUM} x microbatch "
+                  f"{TRAIN_BATCH // TRAIN_ACCUM}, "
+                  f"{'fused' if fused else 'scan'} form: (ms, loss, "
+                  f"grad_norm) {[tuple(round(x, 4) for x in r) for r in rows]}",
+                  flush=True)
+            _check(all(np.isfinite(r[1:]).all() for r in rows),
+                   f"train accum: not finite: {rows}")
+
+        # the optimizer alone: one update of every weight, the first
+        # moment standing in for the gradient (the same work)
+        opt = out["state"]["opt"]
+        grads = dict(opt["m"].named_parameters())
+        for _ in range(2):
+            a, z = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            _, opt, _ = adamw.update(opt_cfg, grads, opt, model)
+            z.record()
+            z.synchronize()
+        out["state"]["opt"] = opt
+        upd_ms = a.elapsed_time(z)
+        upd_bound = TRAIN_UPDATE_BYTES * n / HBM_BYTES_PER_S * 1e3
+        print(f"train optimizer: {gpu}; adamw.update of {n} weights "
+              f"{upd_ms:.3f} ms (CUDA events; {upd_ms / med:.3f} of the "
+              f"median step) against its bytes bound {upd_bound:.3f} ms "
+              f"({TRAIN_UPDATE_BYTES} B a weight at 3.35 TB/s)", flush=True)
+
+        # a trace of two steps
+        batches = [_train_batch(next(it), 1, dev)
+                   for _ in range(TRAIN_PROFILE_STEPS)]
+
+        def two_steps():
+            o = out["state"]["opt"]
+            for mb in batches:
+                _, o, _ = step(model, o, mb)
+            out["state"]["opt"] = o
+
+        _, pwall, st = device_timeline(two_steps)
+        if st is None:
+            print(f"train profile: {gpu}; wall {pwall * 1e3:.3f} ms; the "
+                  "profiler shows no device time (not measured)", flush=True)
+        else:
+            top = "; ".join(f"{name[:60]} {us / 1e3:.3f} ms x{k}"
+                            for name, us, k in st["top"][:5])
+            print(f"train profile: {gpu}; {TRAIN_PROFILE_STEPS} steps, wall "
+                  f"{pwall * 1e3:.3f} ms under the profiler, device busy "
+                  f"{st['busy_ms']:.3f} ms = {st['busy_share']:.6f}; "
+                  f"{st['kernels'] / TRAIN_PROFILE_STEPS:.1f} kernels a step, "
+                  f"{st['kernel_ms'] / TRAIN_PROFILE_STEPS:.3f} kernel ms a "
+                  f"step; top 5: {top}", flush=True)
+        del model, out, step, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        for name in TRAIN_CHECK_ARCHS:
+            errs = train_card_against_cpu(name, dev)
+            print(f"train card-vs-cpu: {gpu}; {name} reduced, f32, one step: "
+                  + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+                  + f" (bound {TRAIN_CARD_CPU_TOL} relative; flips are "
+                  "updates where the gradient's sign is not sure)",
+                  flush=True)
+            _check(max(v for k, v in errs.items() if k != "flips")
+                   <= TRAIN_CARD_CPU_TOL,
+                   f"train card-vs-cpu {name}: {errs}")
+        same = train_resume_check(work / "resume", dev)
+        print(f"train resume: {gpu}; reduced qwen3-8b, 4 straight steps "
+              f"against 2, save, a new loop and 2 more: every weight "
+              f"bit-equal {same} (default kernels, "
+              f"deterministic algorithms "
+              f"{torch.are_deterministic_algorithms_enabled()})", flush=True)
+        _check(same, "train resume: not bit-identical")
+        _train_cli(work, gpu)
+    print(f"train: {gpu}; phase {time.perf_counter() - t_phase:.3f} s",
+          flush=True)
+
+
 def fold_bound(outer: int, k: int, inner: int, lop_rate: float) -> tuple:
     """Least time of B6 on ``outer x k x inner`` words: the block read
     and the fold written once at the HBM rate, against one 32-bit XOR a
@@ -3436,6 +3892,7 @@ def main() -> None:
     warm_start_phase(gpu)
     lm_phase(gpu)
     lm_families_phase(gpu)
+    train_phase(gpu)
     kernels = measure(progs, statics, chunk_rows, main["launches"], worst,
                       gpu) + measure_folds(chunk_rows, folds, worst, gpu)
     if args.turns:

@@ -639,6 +639,7 @@ def serve_pim_synthetic(args) -> dict:
 
 # ---------------------------------------------------------------- LLM decode
 
+@torch.no_grad()
 def generate(cfg, model, tokens, gen: int, *, vision=None, step_ms=None):
     """The reference's decode loop: teacher-force the prompt ``tokens``
     [B, P] through decode steps, then ``gen`` greedy steps; ``vision``
@@ -647,7 +648,8 @@ def generate(cfg, model, tokens, gen: int, *, vision=None, step_ms=None):
     [B, P + gen] int32 tokens on the model's device.
     Nothing waits for the device inside the loop.  With a list
     ``step_ms``, each step's milliseconds are appended to it (CUDA events
-    on a CUDA device)."""
+    on a CUDA device).  Records no autograd graph, trainable weights or
+    not."""
     b, p = tokens.shape
     max_seq = p + gen
     tokens = tokens.to(torch.int32)
@@ -688,6 +690,7 @@ def generate(cfg, model, tokens, gen: int, *, vision=None, step_ms=None):
     return out
 
 
+@torch.no_grad()
 def serve_llm(args):
     """LM decode serving (the reference's ``serve_llm``): random weights
     and prompt from ``--seed`` on ``--device`` (and a vision model's

@@ -8,8 +8,9 @@ The serving half of ``repro.launch.steps``: the assigned LM shape grid
   long_500k    seq 524288, global_batch 1     -> serve_step; sub-quadratic
                                                  archs only
 
-with the reference's skips, and the prefill and decode steps.  The train
-step and the abstract input specs wait for ROADMAP A15 and A17.
+with the reference's skips, the gradient-accumulation depth, and the
+train, prefill and decode steps.  The abstract input specs
+(``batch_specs``, ``input_specs``) wait for ROADMAP A17.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 
 from ..models import model as M
 from ..models.config import ModelConfig
+from ..optim import adamw
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,6 +47,70 @@ def cell_skip_reason(cfg: ModelConfig, shape: ShapePlan) -> Optional[str]:
     if shape.name == "long_500k" and not cfg.sub_quadratic:
         return "full attention is quadratic at 500k ctx (DESIGN.md)"
     return None
+
+
+def accum_for(cfg: ModelConfig, shape: ShapePlan) -> int:
+    """Gradient-accumulation depth: keep the dispatched/activation working
+    set of a microbatch inside HBM (MoE dispatch inflates by top_k)."""
+    if shape.kind != "train":
+        return 1
+    if cfg.moe is not None or cfg.n_layers >= 90 or cfg.d_model >= 8192:
+        return 16
+    if cfg.n_params > 2e10:
+        return 8
+    return 4
+
+
+def make_train_step(cfg: ModelConfig, accum: int,
+                    opt_cfg: adamw.AdamWConfig = adamw.AdamWConfig(),
+                    acc_dtype=torch.float32, fused_accum: bool = False):
+    """Gradient-accumulated train step: ``train_step(params, opt_state,
+    batch)`` -> (params, opt_state, {"loss", "grad_norm", "lr"}), with
+    ``batch``'s tensors [accum, microbatch, ...] on the parameters'
+    device.  The parameters are made trainable (``requires_grad``) and
+    updated in place (:func:`repro_torch.optim.adamw.update`).
+
+    Scan form: each microbatch's backward in turn, its gradients (in the
+    parameters' dtype) added into an ``acc_dtype`` accumulator, divided by
+    ``accum``; the loss is the microbatch losses' mean.  ``fused_accum``:
+    one backward of the microbatch losses' sum over ``accum``, whose
+    gradients (in the parameters' dtype) go to the optimizer as they are;
+    the loss is that mean.  A parameter no loss reaches gets a zero
+    gradient, as under ``jax.grad``."""
+    def grads_of(loss, leaves):
+        return torch.autograd.grad(loss, leaves, allow_unused=True,
+                                   materialize_grads=True)
+
+    def train_step(params, opt_state, batch):
+        names, leaves = zip(*params.named_parameters())
+        for p in leaves:
+            p.requires_grad_(True)
+        micro = [{k: v[i] for k, v in batch.items()} for i in range(accum)]
+        with torch.enable_grad():
+            if fused_accum:
+                total = torch.zeros((), dtype=torch.float32,
+                                    device=leaves[0].device)
+                for mb in micro:
+                    total = total + M.loss_fn(cfg, params, mb)[0]
+                loss = total / accum
+                gacc = dict(zip(names, grads_of(loss, leaves)))
+                losses = [loss.detach()]
+            else:
+                gacc = {n: torch.zeros(p.shape, dtype=acc_dtype,
+                                       device=p.device)
+                        for n, p in zip(names, leaves)}
+                losses = []
+                for mb in micro:
+                    loss, _ = M.loss_fn(cfg, params, mb)
+                    for a, g in zip(gacc.values(), grads_of(loss, leaves)):
+                        a.add_(g.to(acc_dtype))
+                    losses.append(loss.detach())
+                for a in gacc.values():
+                    a.div_(accum)
+        new_p, new_opt, om = adamw.update(opt_cfg, gacc, opt_state, params)
+        return new_p, new_opt, {"loss": torch.stack(losses).mean(), **om}
+
+    return train_step
 
 
 def make_prefill_step(cfg: ModelConfig):

@@ -1,4 +1,5 @@
-"""Model assembly on PyTorch: parameters, forward, prefill, decode step.
+"""Model assembly on PyTorch: parameters, forward, loss, prefill, decode
+step.
 
 The port of ``repro.models.model`` for every layer kind (``attn``,
 ``local``, ``cross``, ``moe``, ``moe_dense``, ``recurrent``, ``rwkv``),
@@ -7,7 +8,9 @@ MLA attention and the audio and vision frontends: a ``prefix`` then
 group's parameters on a leading axis and scans over it; here the layers
 are one flat list in the order the scan visits them (:func:`layer_kinds`),
 and a group's parameters are its layers' own tensors.  The decode caches
-follow the same list.
+follow the same list.  ``forward`` runs the groups one by one, each under
+``torch.utils.checkpoint`` when it trains (the reference's remat of the
+scan body).
 
 :class:`LM` holds the parameters on an explicit device, drawn from an
 explicit ``torch.Generator`` (weights made on the card stay on the card);
@@ -17,10 +20,12 @@ reference's parameters instead.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.ops import _checked_device
 from . import layers as L
@@ -188,27 +193,71 @@ def _logits(cfg: ModelConfig, params, x):
 # forward (prefill)
 # --------------------------------------------------------------------------
 
+def _group(cfg: ModelConfig, layers, x, *, pos, xv):
+    """One repetition of ``cfg.group``: returns (x, the sum of its layers'
+    aux losses)."""
+    ax = torch.zeros((), dtype=torch.float32, device=x.device)
+    for kind, p in zip(cfg.group, layers):
+        ckv = _cross_kv(cfg, p["attn"], xv) if kind == "cross" else None
+        x, _, aux = apply_layer(cfg, kind, p, x, pos=pos, cross_kv=ckv)
+        ax = ax + aux
+    return _shard("act", x), ax
+
+
 def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
             remat: bool = True):
     """Returns (logits [B,S,V], the layers' mean aux loss).  ``batch``:
     ``tokens`` [B,S] (or ``frames`` [B,S,Df] for audio), ``vision``
-    [B,Sv,Df] for vision.  ``remat`` is accepted and has no effect:
-    nothing is kept for a backward pass."""
+    [B,Sv,Df] for vision.  With ``remat`` and autograd recording, each
+    group of ``len(cfg.group)`` layers after the prefix runs under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` with
+    ``nothing_saveable``): only the group's input is kept, the rest is
+    recomputed in the backward pass."""
     x, xv = _embed(cfg, params, batch)
     b, s, _ = x.shape
     pos = torch.arange(s, device=x.device).expand(b, s)
+    layers = list(params["layers"])
+    base, width = len(cfg.prefix), len(cfg.group)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for kind, p in zip(layer_kinds(cfg), params["layers"]):
-        ckv = _cross_kv(cfg, p["attn"], xv) if kind == "cross" else None
-        x, _, aux = apply_layer(cfg, kind, p, x, pos=pos, cross_kv=ckv)
-        if kind == "moe":
-            aux_total = aux_total + aux
+    for kind, p in zip(cfg.prefix, layers[:base]):
+        x, _, aux = apply_layer(cfg, kind, p, x, pos=pos)
+        aux_total = aux_total + aux
+    auxs = []
+    for g in range(cfg.n_groups):
+        body = functools.partial(
+            _group, cfg, layers[base + g * width: base + (g + 1) * width],
+            pos=pos, xv=xv)
+        if remat and torch.is_grad_enabled():
+            x, ax = checkpoint(body, x, use_reentrant=False,
+                               preserve_rng_state=False)
+        else:
+            x, ax = body(x)
+        auxs.append(ax)
+    if auxs:
+        aux_total = aux_total + torch.stack(auxs).sum()
     return _logits(cfg, params, x), aux_total / max(cfg.n_layers, 1)
 
 
+def loss_fn(cfg: ModelConfig, params, batch, *, remat: bool = True):
+    """The mean next-token cross-entropy over the labels ``>= 0`` (in
+    float32) plus 0.01 x the aux loss; returns (loss, {"nll", "aux"}).  A
+    negative label is masked; its gather index wraps, as ``jnp``'s."""
+    logits, aux = forward(cfg, params, batch, remat=remat)
+    labels = batch["labels"].long()
+    lf = logits.float()
+    logz = torch.logsumexp(lf, dim=-1)
+    idx = torch.where(labels < 0, labels + lf.shape[-1], labels)
+    ll = torch.gather(lf, -1, idx[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    nll = ((logz - ll) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll + 0.01 * aux, {"nll": nll, "aux": aux}
+
+
+@torch.no_grad()
 def prefill(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
     """Inference prefill: the full-sequence forward that also emits each
-    layer's decode cache; returns (last-position logits [B,V], caches)."""
+    layer's decode cache; returns (last-position logits [B,V], caches).
+    Records no autograd graph, trainable weights or not."""
     x, xv = _embed(cfg, params, batch)
     b, s, _ = x.shape
     pos = torch.arange(s, device=x.device).expand(b, s)
@@ -281,13 +330,15 @@ def seq_len(cache: dict) -> Optional[int]:
     return None
 
 
+@torch.no_grad()
 def decode_step(cfg: ModelConfig, params, caches: List[dict], token,
                 pos_idx: int, vision=None):
     """One decode step.  token [B], ``pos_idx`` the position (an int on
     the host: the step waits for nothing on the device), ``vision``
     [B,Sv,Df] for a vision model; returns (logits [B,V], caches), the
     caches written in place.  A cross layer recomputes its keys and
-    values from ``vision`` every step, as the reference does."""
+    values from ``vision`` every step, as the reference does.  Records no
+    autograd graph, trainable weights or not."""
     for c in caches:
         n = seq_len(c)
         if n is not None and not 0 <= pos_idx < n:

@@ -1,5 +1,6 @@
 """Telemetry, the fault-model types the execution plan refers to, the
-serving loop's liveness primitives, the PIM batched serving runtime
+liveness primitives of the serving and training loops, the fault-tolerant
+training loop (``train_loop``), the PIM batched serving runtime
 (queue -> planner -> coalescer -> splitter; DESIGN.md §10), the
 persistent artifact cache and the autotuner (DESIGN.md §16).
 ``pim_batch``, ``artifact_cache`` and ``tune`` are imported lazily, so

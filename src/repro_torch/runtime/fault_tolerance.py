@@ -11,8 +11,8 @@ The counterpart of ``repro.runtime.fault_tolerance``:
   reports a heartbeat and the policy hook decides (log / re-shard /
   evict).  Single-process here, same API.
 
-The training loop that imports these two classes back in the reference
-is LM training (ROADMAP A15).
+The training loop (:mod:`~repro_torch.runtime.train_loop`) imports both
+classes back, as the reference's does.
 """
 
 from __future__ import annotations

@@ -1,8 +1,9 @@
 """The port stands alone, runs on the card by default, and refuses what it
 has not ported.
 
-* No module of ``src/repro_torch`` and not ``chip_smoke.py`` imports JAX or
-  anything of the JAX package ``repro``.
+* No module of ``src/repro_torch``, no script of ``examples_torch`` and not
+  ``chip_smoke.py`` imports JAX, anything of the JAX package ``repro`` or
+  ``ml_dtypes`` (the port reads bfloat16 bits through ``int16``).
 * With no GPU, a default call raises instead of running on the CPU.
 * What is not ported raises ``NotImplementedError`` naming the ROADMAP
   item that brings it; the options and entry points ported since (the
@@ -24,7 +25,8 @@ from repro_torch.kernels import plan as kplan
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "src" / "repro_torch"
-SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted(PKG.rglob("*.py")) + \
+    sorted((ROOT / "examples_torch").glob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _imported_modules(path: Path):
@@ -52,7 +54,8 @@ def _imported_modules(path: Path):
 def test_no_jax_and_no_reference_imports(path):
     for name in _imported_modules(path):
         top = name.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro"), (path, name)
+        assert top not in ("jax", "jaxlib", "repro", "ml_dtypes"), \
+            (path, name)
         assert not name.startswith("."), (path, name)   # escapes src/
 
 
@@ -69,6 +72,9 @@ def test_the_scan_sees_the_whole_package():
     assert {"models/config.py", "models/layers.py", "models/model.py",
             "models/convert.py", "configs/registry.py", "configs/qwen3_8b.py",
             "launch/steps.py"} <= names
+    assert {"optim/adamw.py", "data/pipeline.py", "checkpoint/manager.py",
+            "runtime/train_loop.py", "launch/train.py"} <= names
+    assert (ROOT / "examples_torch" / "train_lm.py") in SOURCES
     assert len([n for n in names if n.startswith("configs/")]) == 12
     for src in ("slot_scan.cu", "level_gather.cu", "gate_serial.cu",
                 "check_words.cu", "pim_state.cuh", "ring.cuh"):
@@ -114,6 +120,16 @@ def test_unported_options_raise(kw, item, tmp_path):
     assert np.array_equal(got, rpim.add(x, x))
     assert [n for n in (tmp_path / "artifacts").iterdir()
             if n.name.startswith("sched-")]
+
+
+def test_training_raises_without_a_gpu(monkeypatch, tmp_path):
+    """Training (ROADMAP A15) runs on the card by default: with no GPU
+    ``launch.train`` raises before it builds the model."""
+    from repro_torch.launch import train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--reduced", "--steps", "1", "--ckpt-dir",
+                    str(tmp_path)])
 
 
 def test_lm_serving_raises_without_a_gpu(monkeypatch):

@@ -1219,3 +1219,34 @@ def test_lm_families_on_the_card_match_the_cpu(lm_cuda, name):
             None if feats is None else feats.to(lm_cuda))
     for g, w in zip(got, want):
         assert float((g - w).abs().max()) < tol
+
+
+@pytest.fixture(scope="module")
+def smoke_mod():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["qwen3-8b", "qwen3-moe-235b-a22b"])
+def test_train_step_on_the_card_matches_the_cpu(lm_cuda, smoke_mod, name):
+    """One train step of the reduced model in float32 from one set of
+    weights and one batch on both devices: loss, grad norm, both moments
+    and the updated weights within ``chip_smoke.TRAIN_CARD_CPU_TOL`` of
+    their largest (the weights where the gradient's sign is sure)."""
+    errs = smoke_mod.train_card_against_cpu(name, lm_cuda)
+    assert max(v for k, v in errs.items() if k != "flips") <= \
+        smoke_mod.TRAIN_CARD_CPU_TOL, errs
+
+
+@pytest.mark.cuda
+def test_train_resume_on_the_card_is_bit_identical(lm_cuda, smoke_mod,
+                                                   tmp_path):
+    """Four straight steps against two, a checkpoint, a new loop on a
+    fresh model and two more: every weight bit-equal."""
+    assert smoke_mod.train_resume_check(tmp_path, lm_cuda)

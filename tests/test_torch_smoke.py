@@ -101,3 +101,24 @@ def test_grow_caches_grows_only_a_sequence_axis(smoke):
                     want[1] += 3
                 assert list(g[k].shape) == want
                 assert torch.equal(g[k][:, :c[k].shape[1]], c[k])
+
+
+def test_train_bound_of_the_twelve_layer_cut(smoke):
+    """qwen3-8b at 12 of 36 layers, batch 8 x seq 256: 3,560,020,992
+    parameters, 622,329,856 of them in the embedding; operations 6 x N x
+    tokens at 989 TFLOP/s (about 36.5 ms), bytes 38 B a parameter at
+    3.35 TB/s (about 40.4 ms).  A layer, the embedding with the head and
+    the final norm add up to the parameters."""
+    assert 12 * 192_946_432 + 1_244_659_712 + 4096 == 3_560_020_992
+    ops, nbytes = smoke.train_bound_ms(3_560_020_992, 622_329_856, 8 * 256)
+    assert ops == pytest.approx(6 * 2_937_691_136 * 2048 / 989e12 * 1e3)
+    assert 36.4 < ops < 36.6 and 40.3 < nbytes < 40.5
+
+
+def test_train_checks_run_on_the_cpu(smoke, tmp_path):
+    """The card checks' helpers with the CPU in the card's place: one
+    step against itself is exact, and the resume is bit-identical."""
+    errs = smoke.train_card_against_cpu("qwen3-8b", "cpu")
+    assert errs == {"loss": 0.0, "grad_norm": 0.0, "m": 0.0, "v": 0.0,
+                    "params": 0.0, "flips": 0}
+    assert smoke.train_resume_check(tmp_path, "cpu")
