@@ -154,11 +154,25 @@ Phases, each of which raises (exit code 1) on failure:
 10. time each kernel entry at one chunk of 1 Mi rows beside its plain
    version, one PyTorch library call computing the same function, and its
    bound, with its launch attributes (CTAs an SM, registers, local bytes),
-   and the check fold on a fused and a packed chunk.
+   and the check fold on a fused and a packed chunk;
+11. examples: each PIM script of ``examples_torch/`` (quickstart, the int8
+   linear layer, fusion with ``dot``/``gemv``, batched serving, streaming
+   at 1 Mi rows) run on the card in process (:func:`examples_phase`), its
+   lines printed, its correctness flags and asserts held, its seconds and
+   launches (B1 fused or io as :data:`EXAMPLES` says, no plain version);
+12. offload: the offload planner under the H100 entry of
+   ``repro_torch.core.device_model`` for every ``--arch``
+   (:func:`offload_phase`), each op class of ``rwkv6-1.6b`` and
+   ``qwen3-8b`` measured on the card as one bf16 add or multiply beside
+   the planner's time, and the paper's Fig. 9 lines against the card's
+   roofline and a measured ``a + b`` over 64 Mi int32 and fp32 elements
+   (printed, not gated).
 
-Phases 4 to 9, the verified and the serving phase each zero the launch
-counters just before a run and read them just after: the run's kernels must have
-launched and no plain version may have run.
+Each phase prints its seconds.
+
+Phases 4 to 9, the verified, the serving and the examples phase each
+zero the launch counters just before a run and read them just after: the
+run's kernels must have launched and no plain version may have run.
 
 The line before the last is a JSON object with one record per kernel entry;
 the last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -184,11 +198,13 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
-# H100 SXM data-sheet device memory bandwidth (NVIDIA, 700 W).  The rate of
-# the 32-bit NOR word operations is the card's logic-op rate: one LOP3 per
-# NOR, 64 a clock per SM on 132 SMs, at the SM clock nvidia-smi reports
+# The card's data-sheet rates (H100 SXM 80GB at 700 W: memory bandwidth,
+# bf16 dense peak) come from its entry in the port's device model.  The rate
+# of the 32-bit NOR word operations is the card's logic-op rate: one LOP3
+# per NOR, 64 a clock per SM on 132 SMs, at the SM clock nvidia-smi reports
 # (see ``measure``).
-HBM_BYTES_PER_S = 3.35e12
+from repro_torch.core.device_model import H100  # noqa: E402
+
 N_SMS = 132
 LOPS_PER_SM_CLOCK = 64
 SEED = 0
@@ -1981,10 +1997,6 @@ def _prefill_then_decode(cfg, model, toks, n_dec: int, vision=None) -> list:
     return out
 
 
-#: bf16 dense peak of the H100 SXM (NVIDIA's data sheet, 700 W).
-BF16_FLOPS = 989e12
-
-
 def cache_bytes(cfg, kind: str, batch: int, pos: int) -> int:
     """The bytes one layer's decode step at position ``pos`` must move in
     its cache (bfloat16, float32 states): the keys and values (or MLA's
@@ -2034,7 +2046,7 @@ def decode_bound(model, cfg, batch: int, pos: int) -> tuple:
         ops += 2 * batch * sv * cfg.frontend_dim * cfg.d_model
         ops += n_cross * (2 * 2 * batch * sv * cfg.d_model * kvd
                           + 2 * 2 * batch * cfg.n_heads * sv * cfg.hd)
-    return nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_FLOPS * 1e3
+    return nbytes / H100.hbm_bw * 1e3, ops / H100.peak_bf16_flops * 1e3
 
 
 def decode_bound_ms(model, cfg, batch: int, pos: int) -> float:
@@ -2231,7 +2243,8 @@ def lm_phase(gpu: str) -> None:
     print(f"lm prefill: {gpu}; {bp}x{sp} tokens ({sp // 512} chunks of "
           f"512 queries): {ms[0]:.3f} ms first, {ms[1]:.3f} ms second = "
           f"{bp * sp / ms[1] * 1e3:.3f} tok/s; operations bound "
-          f"{flop / 989e12 * 1e3:.6f} ms (bf16 989 TFLOP/s); last logits "
+          f"{flop / H100.peak_bf16_flops * 1e3:.6f} ms (bf16 "
+          f"{H100.peak_bf16_flops / 1e12:g} TFLOP/s); last logits "
           f"against forward max |d| {perr:.6f} (bound {CARD_CPU_TOL})",
           flush=True)
     if not ok or not perr < CARD_CPU_TOL:
@@ -2436,7 +2449,7 @@ def _hubert_serving(cfg, model, gpu: str) -> tuple:
           f"[{b}, {s}, {cfg.frontend_dim}]: logits {tuple(logits.shape)}, "
           f"finite {ok}; {ms[0]:.3f} ms first, {ms[1]:.3f} ms second = "
           f"{b * s / ms[1] * 1e3:.3f} frames/s against an operations bound "
-          f"of {flop / BF16_FLOPS * 1e3:.6f} ms", flush=True)
+          f"of {flop / H100.peak_bf16_flops * 1e3:.6f} ms", flush=True)
     _check(ok, f"hubert forward: logits {tuple(logits.shape)}")
     return frames
 
@@ -2733,7 +2746,6 @@ TRAIN_OPT_BYTES = 38
 #: gradient read, both moments read and written, the bf16 weight read
 #: and written.
 TRAIN_UPDATE_BYTES = 24
-BF16_FLOPS = 989e12
 #: Card against CPU, one train step of a reduced model in float32 from one
 #: set of weights and one batch: the loss, the grad norm and both moments
 #: relative to their (leaf's) largest magnitude; the updated weights the
@@ -2757,8 +2769,8 @@ def train_bound_ms(n_params: int, n_embed: int, tokens: int) -> tuple:
     embedding (the forward's 2 N a token, the backward's 4 N; remat's
     second forward is not counted); bytes: :data:`TRAIN_OPT_BYTES` a
     parameter at the memory rate."""
-    ops = 6 * (n_params - n_embed) * tokens / BF16_FLOPS * 1e3
-    return ops, TRAIN_OPT_BYTES * n_params / HBM_BYTES_PER_S * 1e3
+    ops = 6 * (n_params - n_embed) * tokens / H100.peak_bf16_flops * 1e3
+    return ops, TRAIN_OPT_BYTES * n_params / H100.hbm_bw * 1e3
 
 
 def _train_batch(batch: dict, accum: int, device) -> dict:
@@ -3018,10 +3030,11 @@ def train_phase(gpu: str) -> None:
               f"remat: first step {ms[0]:.3f} ms, median of the rest "
               f"{med:.3f} ms (CUDA events) = {tokens / med * 1e3:.1f} "
               f"tokens/s; wall {wall:.3f} s; bound: operations "
-              f"{ops_ms:.3f} ms (6 x {n - n_embed} x {tokens} at 989 "
+              f"{ops_ms:.3f} ms (6 x {n - n_embed} x {tokens} at "
+              f"{H100.peak_bf16_flops / 1e12:g} "
               f"TFLOP/s), bytes {bytes_ms:.3f} ms ({TRAIN_OPT_BYTES} B x {n} "
-              f"at 3.35 TB/s); median / bound {med / max(ops_ms, bytes_ms):.3f}"
-              f"x; step ms {[round(x, 3) for x in ms]}", flush=True)
+              f"at {H100.hbm_bw / 1e12:g} TB/s); median / bound "
+              f"{med / max(ops_ms, bytes_ms):.3f}x; step ms {[round(x, 3) for x in ms]}", flush=True)
         print(f"train loss: {gpu}; {[round(x, 6) for x in loss]}; grad_norm "
               f"{[round(x, 6) for x in gn]}; lr {[float(f'{x:.6g}') for x in lr]}",
               flush=True)
@@ -3084,11 +3097,12 @@ def train_phase(gpu: str) -> None:
             z.synchronize()
         out["state"]["opt"] = opt
         upd_ms = a.elapsed_time(z)
-        upd_bound = TRAIN_UPDATE_BYTES * n / HBM_BYTES_PER_S * 1e3
+        upd_bound = TRAIN_UPDATE_BYTES * n / H100.hbm_bw * 1e3
         print(f"train optimizer: {gpu}; adamw.update of {n} weights "
               f"{upd_ms:.3f} ms (CUDA events; {upd_ms / med:.3f} of the "
               f"median step) against its bytes bound {upd_bound:.3f} ms "
-              f"({TRAIN_UPDATE_BYTES} B a weight at 3.35 TB/s)", flush=True)
+              f"({TRAIN_UPDATE_BYTES} B a weight at "
+              f"{H100.hbm_bw / 1e12:g} TB/s)", flush=True)
 
         # a trace of two steps
         batches = [_train_batch(next(it), 1, dev)
@@ -3139,11 +3153,152 @@ def train_phase(gpu: str) -> None:
           flush=True)
 
 
+# --------------------------------------------------------------------------
+# the PIM examples and the offload planner on the card (ROADMAP A18, A17)
+# --------------------------------------------------------------------------
+
+#: The port's PIM examples, each with the kernel entries it must launch on
+#: the card (no plain version may run): B1 fused for the elementwise calls,
+#: B1 io for ``dot``/``gemv``'s tree levels and ``pim_linear_i8``.
+EXAMPLES = (("quickstart.py", ("slot_scan_fused",)),
+            ("pim_linear_inference.py", ("slot_scan_io",)),
+            ("pim_gemv.py", ("slot_scan_fused", "slot_scan_io")),
+            ("pim_serving.py", ("slot_scan_fused",)),
+            ("pim_streaming.py", ("slot_scan_fused",)))
+#: The examples' correctness flags: each must read ``True``.
+EXAMPLE_FLAGS = ("bit-exact: ", "exact vs numpy: ", "agrees: ")
+#: The decode cell the offload planner reckons (its ``report`` default).
+OFFLOAD_CELL = (128, 32768)
+#: The archs whose op classes are measured on the card: the two that
+#: ``benchmarks/run.py``'s offload rows plan.
+OFFLOAD_ARCHS = ("rwkv6-1.6b", "qwen3-8b")
+#: The planner's op classes that are adds; the rest are multiplies.
+OFFLOAD_ADDS = ("residual adds", "kv-cache append")
+#: Elements of the Fig. 9 library add on the card: the PIM's 64 Mi rows.
+FIG9_ELEMS = 64 << 20
+
+
+def run_example(path: Path, argv=()) -> str:
+    """Run the script at ``path`` in this process as ``__main__`` with
+    ``sys.argv`` set, and return what it printed."""
+    import contextlib
+    import runpy
+    saved, sys.argv = sys.argv, [str(path), *argv]
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            runpy.run_path(str(path), run_name="__main__")
+    finally:
+        sys.argv = saved
+    return buf.getvalue()
+
+
+def example_flags_hold(text: str) -> bool:
+    """Whether every correctness flag in ``text`` reads ``True``."""
+    for flag in EXAMPLE_FLAGS:
+        for part in text.split(flag)[1:]:
+            if not part.startswith("True"):
+                return False
+    return bool(text.strip())
+
+
+def examples_phase(gpu: str) -> dict:
+    """Each script of ``examples_torch/`` on the card, in process, under
+    :func:`_counted`: its lines, its seconds and its launches.  A script's
+    own asserts, a flag that is not ``True`` or a kernel that did not
+    launch raise.  Returns script -> (seconds, launches)."""
+    root = Path(__file__).resolve().parent / "examples_torch"
+    out = {}
+    for script, keys in EXAMPLES:
+        text, launches, s = _counted(f"example {script}", keys,
+                                     lambda: run_example(root / script))
+        for line in text.splitlines():
+            print(f"example {script}: {line}", flush=True)
+        if not example_flags_hold(text):
+            raise AssertionError(f"example {script}: a flag is not True")
+        print(f"example {script}: {gpu}; {s:.3f} s, launches {launches}, "
+              "plain calls 0", flush=True)
+        out[script] = (s, launches)
+    return out
+
+
+def offload_phase(gpu: str, device: str = "cuda") -> dict:
+    """The offload planner under the H100 entry for every ``--arch`` at
+    :data:`OFFLOAD_CELL`, with the count of op classes that offload; for
+    :data:`OFFLOAD_ARCHS`, each class's bandwidth-bound op measured on the
+    card (one bf16 ``add`` or ``mul`` over its elements: two reads, one
+    write, as the planner's 3 x 2 B assumes; CUDA events, the mean of 50
+    launches as the "time" lines) beside the planner's time; and the
+    paper's Fig. 9 lines against the card.  Printed findings: only an
+    exception fails the phase.  Returns the measured classes."""
+    from repro_torch.configs import registry
+    from repro_torch.core import bitparallel, bitserial, bitserial_fp, offload
+    from repro_torch.core.device_model import H100_GPU, PIM_DEFAULT
+    from repro_torch.core.floatfmt import FP32
+    batch, seq = OFFLOAD_CELL
+    n_off = n_all = 0
+    for cfg in registry.ARCHS.values():
+        for line in offload.report(cfg, batch, seq).splitlines():
+            print(f"offload plan: {line}", flush=True)
+        plans = offload.decode_step_plan(cfg, batch, seq)
+        n_off += sum(p.offload for p in plans)
+        n_all += len(plans)
+    print(f"offload plan: {gpu}; under {H100.name} "
+          f"({H100.hbm_bw / 1e12:g} TB/s) {n_off}/{n_all} op classes "
+          f"offload at batch {batch} seq {seq}", flush=True)
+
+    measured = {}
+    for arch in OFFLOAD_ARCHS:
+        for p in offload.decode_step_plan(registry.get(arch), batch, seq):
+            a, b, c = (torch.empty(p.n_elems, dtype=torch.bfloat16,
+                                   device=device).normal_()
+                       for _ in range(3))
+            op = torch.add if p.name in OFFLOAD_ADDS else torch.mul
+            us = cuda_ms(lambda: op(a, b, out=c), 50) * 1e3
+            flips = (p.pim_us < us) != p.offload
+            print(f"offload measured: {gpu}; {arch} {p.name}: bf16 "
+                  f"{op.__name__} of {p.n_elems} elements {us:.3f} us "
+                  f"(CUDA events) against the planner's {p.tpu_us:.3f} us, "
+                  f"measured / planned {us / p.tpu_us:.3f}; PIM "
+                  f"{p.pim_us:.3f} us: planned "
+                  f"{'YES' if p.offload else 'no'}, measured "
+                  f"{'YES' if p.pim_us < us else 'no'}"
+                  f"{' (flips)' if flips else ''}", flush=True)
+            measured[(arch, p.name)] = (us, p.tpu_us, p.pim_us)
+            del a, b, c
+
+    roof = H100_GPU.throughput_ops(4)
+    rates = {}
+    for dtype in (torch.int32, torch.float32):
+        x, y = (torch.ones(FIG9_ELEMS, dtype=dtype, device=device)
+                for _ in range(2))
+        ms = cuda_ms(lambda: x + y, 50)
+        rates[dtype] = FIG9_ELEMS / (ms * 1e-3)
+        print(f"fig9 measured: {gpu}; a + b over {FIG9_ELEMS} "
+              f"{str(dtype).removeprefix('torch.')} elements {ms:.6f} ms = "
+              f"{rates[dtype] / 1e9:.1f} GOPS against the roofline "
+              f"{roof / 1e9:.1f} GOPS (3 x 4 B at "
+              f"{H100_GPU.mem_bw / 1e12:g} TB/s)", flush=True)
+        del x, y
+    for name, prog, dtype in (
+            ("int32 add", bitserial.build_add(32), torch.int32),
+            ("fp32 add", bitserial_fp.build_fp_add(FP32), torch.float32),
+            ("int32 add (bit-parallel)", bitparallel.build_bp_add(32),
+             torch.int32)):
+        cost = prog.parallel_cost() or prog.cost()
+        thr = PIM_DEFAULT.throughput_ops(cost)
+        print(f"fig9 {name}: {gpu}; PIM {thr / 1e9:.1f} GOPS modeled over "
+              f"{PIM_DEFAULT.parallel_rows >> 20} Mi rows = "
+              f"{thr / roof:.1f}x the H100 roofline, "
+              f"{thr / rates[dtype]:.1f}x the measured a + b", flush=True)
+    return measured
+
+
 def fold_bound(outer: int, k: int, inner: int, lop_rate: float) -> tuple:
     """Least time of B6 on ``outer x k x inner`` words: the block read
     and the fold written once at the HBM rate, against one 32-bit XOR a
     word read at ``lop_rate``."""
-    t_bytes = 4 * outer * inner * (k + 1) / HBM_BYTES_PER_S * 1e3
+    t_bytes = 4 * outer * inner * (k + 1) / H100.hbm_bw * 1e3
     t_ops = outer * k * inner / lop_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -3200,7 +3355,7 @@ def bound(entry: str, s, n_rows: int, fused, lop_rate: float,
         else:
             nbytes = 4 * n_words * (sum(s.in_widths) + s.k_out)
         ops = (s.sched.n_gates + s.sched.copy_gates) * n_words
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_bytes = nbytes / H100.hbm_bw * 1e3
     t_ops = ops / lop_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -3878,23 +4033,33 @@ def main() -> None:
     print(gpu, flush=True)
     chunk_rows = kplan.DEFAULT_CHUNK_ROWS
 
-    worst = check_kernels(progs, statics)
-    check_folds(worst)
-    main = main_path()
-    unsharded = streaming_phase(main["a"], main["b"], gpu)
-    groups_phase()
-    sharding_phase(main["a"], main["b"], unsharded)
-    reductions_phase(gpu)
-    fused_phase(gpu)
-    folds = verified_phase(main["a"], main["b"], gpu)
-    serving_phase(gpu)
-    tune_phase(gpu)
-    warm_start_phase(gpu)
-    lm_phase(gpu)
-    lm_families_phase(gpu)
-    train_phase(gpu)
-    kernels = measure(progs, statics, chunk_rows, main["launches"], worst,
-                      gpu) + measure_folds(chunk_rows, folds, worst, gpu)
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+        return out
+
+    worst = phase("check", check_kernels, progs, statics)
+    phase("check folds", check_folds, worst)
+    main = phase("main", main_path)
+    unsharded = phase("streaming", streaming_phase, main["a"], main["b"],
+                      gpu)
+    phase("groups", groups_phase)
+    phase("sharding", sharding_phase, main["a"], main["b"], unsharded)
+    phase("reductions", reductions_phase, gpu)
+    phase("fused", fused_phase, gpu)
+    folds = phase("verified", verified_phase, main["a"], main["b"], gpu)
+    phase("serving", serving_phase, gpu)
+    phase("tune", tune_phase, gpu)
+    phase("warm-start", warm_start_phase, gpu)
+    phase("lm", lm_phase, gpu)
+    phase("lm families", lm_families_phase, gpu)
+    phase("train", train_phase, gpu)
+    kernels = phase("time", lambda: measure(
+        progs, statics, chunk_rows, main["launches"], worst, gpu)
+        + measure_folds(chunk_rows, folds, worst, gpu))
+    phase("examples", examples_phase, gpu)
+    phase("offload", offload_phase, gpu)
     if args.turns:
         turns(main["a"], main["b"], gpu, args.turns)
     if args.probe is not None:

@@ -6,6 +6,12 @@ NOT/NOR column operation per cycle per array.  The GPU baseline is modeled at
 its memory-bandwidth roofline -- the paper *measured* an RTX 3070 and found
 throughput indistinguishable from that bound, which is what makes the model
 transferable to this GPU-less container (DESIGN.md §7).
+
+The port's card is one NVIDIA H100 SXM 80GB HBM3 at its 700 W limit:
+:data:`H100_GPU` is its bandwidth roofline for the paper's Fig. 9
+comparison, :data:`H100` its constants for the roofline analysis and the
+offload planner, in the fields the reference keeps for a TPU chip.  The
+reference's devices and defaults are unchanged.
 """
 
 from __future__ import annotations
@@ -80,3 +86,12 @@ class TPUChip:
 PIM_DEFAULT = PIMDevice()
 GPU_DEFAULT = GPUDevice()
 TPU_DEFAULT = TPUChip()
+
+#: H100 SXM 80GB HBM3 at its 700 W limit (NVIDIA's data sheet): 3.35 TB/s
+#: of HBM3, the board power a 700 W limit allows.
+H100_GPU = GPUDevice(name="h100-sxm-80gb", mem_bw=3.35e12, tdp_w=700.0)
+#: The same card at the same 700 W limit for the roofline and the offload
+#: planner (NVIDIA's data sheet): 989 TFLOP/s dense bf16, 3.35 TB/s HBM3,
+#: 450 GB/s a direction over NVLink 4 (18 links of 25 GB/s), 80 GB.
+H100 = TPUChip(name="h100-sxm-80gb", peak_bf16_flops=989e12,
+               hbm_bw=H100_GPU.mem_bw, ici_bw=450e9, hbm_bytes=80 * 10 ** 9)

@@ -8,15 +8,16 @@ The serving half of ``repro.launch.steps``: the assigned LM shape grid
   long_500k    seq 524288, global_batch 1     -> serve_step; sub-quadratic
                                                  archs only
 
-with the reference's skips, the gradient-accumulation depth, and the
-train, prefill and decode steps.  The abstract input specs
-(``batch_specs``, ``input_specs``) wait for ROADMAP A17.
+with the reference's skips, the gradient-accumulation depth, the abstract
+input specs (``batch_specs``, ``input_specs``: tensors on the ``meta``
+device, shapes and dtypes with nothing allocated) and the train, prefill
+and decode steps.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -59,6 +60,64 @@ def accum_for(cfg: ModelConfig, shape: ShapePlan) -> int:
     if cfg.n_params > 2e10:
         return 8
     return 4
+
+
+# --------------------------------------------------------------------------
+# input specs (meta tensors; no allocation)
+# --------------------------------------------------------------------------
+
+def batch_specs(cfg: ModelConfig, shape: ShapePlan) -> Dict:
+    def sd(dims, dtype):
+        return torch.empty(dims, dtype=dtype, device="meta")
+
+    if shape.kind == "train":
+        a = accum_for(cfg, shape)
+        mb = shape.global_batch // a
+        assert mb >= 1, (cfg.name, shape.name)
+        out = {}
+        if cfg.frontend == "audio":
+            out["frames"] = sd((a, mb, shape.seq, cfg.frontend_dim),
+                               torch.float32)
+        else:
+            out["tokens"] = sd((a, mb, shape.seq), torch.int32)
+        out["labels"] = sd((a, mb, shape.seq), torch.int32)
+        if cfg.frontend == "vision":
+            out["vision"] = sd((a, mb, cfg.vision_seq, cfg.frontend_dim),
+                               torch.float32)
+        return out
+    if shape.kind == "prefill":
+        b = shape.global_batch
+        out = {}
+        if cfg.frontend == "audio":
+            out["frames"] = sd((b, shape.seq, cfg.frontend_dim),
+                               torch.float32)
+        else:
+            out["tokens"] = sd((b, shape.seq), torch.int32)
+        if cfg.frontend == "vision":
+            out["vision"] = sd((b, cfg.vision_seq, cfg.frontend_dim),
+                               torch.float32)
+        return out
+    # decode
+    out = {"token": sd((shape.global_batch,), torch.int32),
+           "pos": sd((), torch.int32)}
+    if cfg.frontend == "vision":
+        out["vision"] = sd((shape.global_batch, cfg.vision_seq,
+                            cfg.frontend_dim), torch.float32)
+    return out
+
+
+def input_specs(cfg: ModelConfig, shape: ShapePlan) -> Dict:
+    """All abstract inputs for the cell, on the ``meta`` device: batch +
+    params (an :class:`~repro_torch.models.model.LM`) (+ opt/caches, the
+    port's per-layer list)."""
+    params = M.LM(cfg, device="meta")
+    specs = {"params": params, "batch": batch_specs(cfg, shape)}
+    if shape.kind == "train":
+        specs["opt"] = adamw.init(params)
+    if shape.kind == "decode":
+        specs["caches"] = M.init_caches(cfg, shape.global_batch, shape.seq,
+                                        device="meta")
+    return specs
 
 
 def make_train_step(cfg: ModelConfig, accum: int,

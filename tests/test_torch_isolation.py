@@ -75,6 +75,10 @@ def test_the_scan_sees_the_whole_package():
     assert {"optim/adamw.py", "data/pipeline.py", "checkpoint/manager.py",
             "runtime/train_loop.py", "launch/train.py"} <= names
     assert (ROOT / "examples_torch" / "train_lm.py") in SOURCES
+    for script in ("quickstart.py", "pim_linear_inference.py", "pim_gemv.py",
+                   "pim_serving.py", "pim_streaming.py"):
+        assert (ROOT / "examples_torch" / script) in SOURCES, script
+    assert {"core/offload.py", "launch/roofline.py"} <= names
     assert len([n for n in names if n.startswith("configs/")]) == 12
     for src in ("slot_scan.cu", "level_gather.cu", "gate_serial.cu",
                 "check_words.cu", "pim_state.cuh", "ring.cuh"):

@@ -67,7 +67,7 @@ def test_decode_bound_counts_each_cache_kind(smoke):
     kv = cfg.n_layers * 2 * b * cfg.n_kv_heads * cfg.hd * 2 * (pos + 2)
     t_bytes, t_ops = smoke.decode_bound(lm, cfg, b, pos)
     assert t_bytes == (w + b * cfg.d_model * 2 + kv) / \
-        smoke.HBM_BYTES_PER_S * 1e3
+        smoke.H100.hbm_bw * 1e3
     assert smoke.decode_bound_ms(lm, cfg, b, pos) == max(t_bytes, t_ops)
     for name, kind in (("recurrentgemma-2b", "recurrent"),
                        ("rwkv6-1.6b", "rwkv")):
@@ -122,3 +122,43 @@ def test_train_checks_run_on_the_cpu(smoke, tmp_path):
     assert errs == {"loss": 0.0, "grad_norm": 0.0, "m": 0.0, "v": 0.0,
                     "params": 0.0, "flips": 0}
     assert smoke.train_resume_check(tmp_path, "cpu")
+
+
+
+def test_example_flags_and_run_example(smoke):
+    """An example's output passes only when every correctness flag reads
+    True; ``run_example`` runs a script in process with its arguments and
+    returns its lines (here the quickstart on the CPU).  Every PIM script
+    of ``examples_torch`` is in the examples phase."""
+    from repro_torch import pim_ufunc as pim
+    assert smoke.example_flags_hold("a: 3\nfused -> bit-exact: True\n"
+                                    "gemv: exact vs numpy: True  (1 ms)")
+    assert not smoke.example_flags_hold("dot: bit-exact: False")
+    assert not smoke.example_flags_hold("unfused chain agrees: False")
+    assert not smoke.example_flags_hold("")
+    folder = ROOT / "examples_torch"
+    with pim.options():
+        text = smoke.run_example(folder / "quickstart.py",
+                                 ["--device", "cpu"])
+    assert smoke.example_flags_hold(text)
+    lines = text.splitlines()
+    assert lines[0] == "int16 add/mul/div: 1000 rows, bit-exact"
+    assert len(lines) == 9
+    assert {name for name, _ in smoke.EXAMPLES} == \
+        {p.name for p in folder.glob("*.py")} - {"train_lm.py"}
+
+
+def test_offload_phase_runs_on_the_cpu(smoke, monkeypatch, capsys):
+    """The offload phase's control flow at a tiny cell on the CPU (its
+    timer stubbed: a CPU time is no device figure): every arch planned,
+    each class of the two measured archs compared, the Fig. 9 lines."""
+    monkeypatch.setattr(smoke, "OFFLOAD_CELL", (1, 8))
+    monkeypatch.setattr(smoke, "FIG9_ELEMS", 1024)
+    monkeypatch.setattr(smoke, "cuda_ms", lambda fn, iters: (fn(), 0.5)[1])
+    measured = smoke.offload_phase("cpu", device="cpu")
+    assert {a for a, _ in measured} == set(smoke.OFFLOAD_ARCHS)
+    assert len(measured) == 9
+    out = capsys.readouterr().out
+    assert out.count("offload plan: PIM offload plan:") == 10
+    assert "op classes offload at batch 1 seq 8" in out
+    assert out.count("fig9 measured:") == 2 and "fig9 fp32 add:" in out
