@@ -151,6 +151,24 @@ Phases, each of which raises (exit code 1) on failure:
    and 2 more: every weight bit-equal); ``python -m
    repro_torch.launch.train`` as a subprocess, run, resumed at its
    checkpoint and run on to 30 steps;
+
+   mesh: meshes, shardings, compressed all-reduce and the dry run
+   (:func:`mesh_phase`, ROADMAP A16 and A17b; no kernel of their own):
+   ``serve.main`` on ``qwen3-8b`` at the serving defaults with the
+   launcher's one-rank mesh and sharder installed, against
+   ``serve.generate`` with none on the same weights and prompt (tokens
+   identical; both median steps); the train phase's model (17 layers)
+   for :data:`MESH_TRAIN_STEPS` steps plain and with its parameters and
+   AdamW state as DTensors on a one-rank NCCL mesh, from the same
+   weights and batches (losses within :data:`MESH_TRAIN_TOL`; step ms
+   and peak memory of both); ``compressed_psum`` over that group on
+   qwen3-8b's embedding and LM head shapes in bf16 (1.24 G elements)
+   beside its bytes bound (:data:`PSUM_PASSES`); a line that collectives
+   across distinct cards were not measured; the dry run of ``qwen3-8b``
+   for every shape on both production meshes, a process a cell, all at
+   once on the host's CPU (each cell's trace seconds, FLOP ratio
+   against the model's and collective bytes by kind), then
+   ``roofline.markdown`` over its records;
 10. time each kernel entry at one chunk of 1 Mi rows beside its plain
    version, one PyTorch library call computing the same function, and its
    bound, with its launch attributes (CTAs an SM, registers, local bytes),
@@ -3154,6 +3172,264 @@ def train_phase(gpu: str) -> None:
 
 
 # --------------------------------------------------------------------------
+# meshes, shardings, compressed all-reduce and the dry run (A16, A17b)
+# --------------------------------------------------------------------------
+
+#: Train steps of the plain and the sharded run, and how far their losses
+#: may part (relative): on one rank every placement replicates, so the
+#: sharded step runs the plain step's kernels.
+MESH_TRAIN_STEPS = 3
+MESH_TRAIN_TOL = 1e-6
+#: Calls of ``compressed_psum`` timed, on gradient-shaped leaves:
+#: qwen3-8b's embedding [vocab, d] and LM head [d, vocab] in bf16,
+#: 1,244,659,712 elements (over 1 Gi).
+MESH_PSUM_REPS = 3
+#: ``compressed_psum``'s passes over an element of a bf16 gradient, each
+#: (what it does, bytes read, bytes written), in the order the code runs
+#: them: its least bytes are their sum (the amax and scale are one
+#: element a leaf).
+PSUM_PASSES = (
+    ("g.float()", 2, 4), ("+ residual", 8, 4), ("abs", 4, 4), ("max", 4, 0),
+    ("/ scale", 4, 4), ("round", 4, 4), ("clamp", 4, 4), ("to int8", 4, 1),
+    ("gf.double()", 4, 8), ("q.double()", 1, 8), ("* scale", 8, 8),
+    ("gf - q*scale", 16, 8), ("residual .float()", 8, 4),
+    ("q to int32", 1, 4), ("all_reduce SUM", 4, 4), ("s.float()", 4, 4),
+    ("* scale", 4, 4), ("/ n", 4, 4), ("to bf16", 4, 2))
+#: The dry run's cells on the card's host: qwen3-8b, every shape, both
+#: meshes, one process a cell, all started together.
+DRYRUN_ARCH = "qwen3-8b"
+DRYRUN_TIMEOUT = 900
+
+
+def _mesh_serving(gpu: str) -> None:
+    """``serve.main`` (the launcher's one-rank mesh installed) against
+    ``serve.generate`` with no mesh on the same weights and prompt."""
+    import contextlib
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    b, p, g = LM_SERVE
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        meshed = serve.main(["--arch", LM_ARCH, "--batch", str(b),
+                             "--prompt-len", str(p), "--gen", str(g),
+                             "--seed", str(SEED)])
+    st = _serve_line(buf.getvalue())
+    torch.cuda.empty_cache()
+    cfg = registry.get(LM_ARCH)
+    dev = "cuda"
+    model = M.init_model(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         device=dev)
+    prompt = torch.randint(0, cfg.vocab, (b, p), dtype=torch.int32,
+                           device=dev, generator=torch.Generator(
+                               device=dev).manual_seed(SEED))
+    ms = []
+    plain = serve.generate(cfg, model, prompt, g, step_ms=ms).cpu().numpy()
+    med = float(np.median(ms[1:]))
+    same = np.array_equal(meshed, plain)
+    print(f"mesh serve: {gpu}; {LM_ARCH} at full width, batch {b}, prompt "
+          f"{p}, gen {g}: serve.main on the (1, 1) mesh with the sharder "
+          f"installed, median step {st['median_ms']:.3f} ms; serve.generate "
+          f"with no mesh, median step {med:.3f} ms (CUDA events); tokens "
+          f"identical {same}", flush=True)
+    _check(same, "mesh serve: the tokens differ with the mesh installed")
+    del model
+
+
+def _mesh_train(gpu: str, mesh) -> None:
+    """The train phase's model, plain and with its parameters and AdamW
+    state as DTensors on ``mesh``, from the same weights and batches."""
+    import gc
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataConfig, DataIterator
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    dev = "cuda"
+    cfg = dataclasses.replace(registry.get(TRAIN_ARCH),
+                              n_layers=TRAIN_LAYERS)
+    opt_cfg = adamw.AdamWConfig(lr=TRAIN_LR, total_steps=TRAIN_STEPS,
+                                warmup_steps=max(TRAIN_STEPS // 20, 1))
+    it = DataIterator(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                 global_batch=TRAIN_BATCH, seed=SEED))
+    batches = [_train_batch(next(it), 1, dev)
+               for _ in range(MESH_TRAIN_STEPS)]
+    runs = {}
+    for sharded in (False, True):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = M.init_model(
+            cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+        opt = adamw.init(params)
+        if sharded:
+            pshard = SH.param_shardings(mesh, params)
+            params = SH.place_tree(params, pshard)
+            opt = SH.place_tree(opt, SH.opt_shardings(mesh, opt, pshard))
+        step = make_train_step(cfg, 1, opt_cfg)
+        ms, loss = [], []
+        for mb in batches:
+            if sharded:
+                mb = SH.place_tree(mb, SH.batch_shardings(mesh, mb,
+                                                          accum=True))
+            a, z = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            params, opt, m = step(params, opt, mb)
+            z.record()
+            z.synchronize()
+            ms.append(a.elapsed_time(z))
+            loss.append(float(m["loss"]))
+        kind = type(params["embed"]).__name__
+        runs[sharded] = (ms, loss, torch.cuda.max_memory_allocated(), kind)
+        del params, opt, step
+    (p_ms, p_loss, p_peak, _), (s_ms, s_loss, s_peak, kind) = \
+        runs[False], runs[True]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(s_loss, p_loss))
+    print(f"mesh train: {gpu}; {cfg.name} at full width, {TRAIN_LAYERS} "
+          f"layers, {MESH_TRAIN_STEPS} steps at batch {TRAIN_BATCH} x seq "
+          f"{TRAIN_SEQ}: plain step ms {[round(x, 3) for x in p_ms]}, "
+          f"peak {p_peak} B; parameters and AdamW state as {kind}s on the "
+          f"(1, 1) NCCL mesh: step ms {[round(x, 3) for x in s_ms]}, peak "
+          f"{s_peak} B; losses plain {p_loss}, sharded {s_loss}: worst "
+          f"relative difference {rel:.3g} (bound {MESH_TRAIN_TOL})",
+          flush=True)
+    _check(kind == "DTensor", f"mesh train: the parameters are {kind}s")
+    _check(rel <= MESH_TRAIN_TOL, f"mesh train: losses {s_loss} against "
+           f"{p_loss}")
+
+
+def _mesh_psum(gpu: str) -> None:
+    """``compressed_psum`` over the NCCL group on gradient-shaped leaves
+    of qwen3-8b, timed beside its bytes bound."""
+    from repro_torch.configs import registry
+    from repro_torch.optim.compression import compressed_psum, \
+        init_residuals
+    cfg = registry.get(LM_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    grads = {k: (torch.randn(shape, generator=gen, device="cuda") * 1e-3
+                 ).to(torch.bfloat16)
+             for k, shape in (("embed", (cfg.vocab, cfg.d_model)),
+                              ("lm_head", (cfg.d_model, cfg.vocab)))}
+    res = init_residuals(grads)
+    n = sum(g.numel() for g in grads.values())
+    ms = []
+    for _ in range(MESH_PSUM_REPS):
+        a, z = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        red, res = compressed_psum(grads, res)
+        z.record()
+        z.synchronize()
+        ms.append(a.elapsed_time(z))
+    per = sum(r + w for _, r, w in PSUM_PASSES)
+    bound = per * n / H100.hbm_bw * 1e3
+    err = max(float((red[k].float() - g.float()).abs().max()
+                    / (g.float().abs().max() / 127.0))
+              for k, g in grads.items())
+    med = float(np.median(ms))
+    print(f"mesh compressed_psum: {gpu}; {n} bf16 elements "
+          f"(embedding and LM head shapes of {LM_ARCH}) over the one-rank "
+          f"NCCL group: {[round(x, 3) for x in ms]} ms a call (CUDA "
+          f"events), median {med:.3f} ms against its bytes bound "
+          f"{bound:.3f} ms ({per} B an element over {len(PSUM_PASSES)} "
+          f"passes at {H100.hbm_bw / 1e12:g} TB/s; {med / bound:.3f}x); "
+          f"worst |mean - grad| {err:.4f} of the int8 step (one rank: "
+          f"the dequantized grad)", flush=True)
+    # half a step of rounding to int8, then the mean's rounding to bf16:
+    # half an ulp of the largest value, 127 / 256 of a step
+    _check(err <= 0.5 + 127 / 256, f"mesh compressed_psum: error {err} of "
+           "a step")
+    del grads, res, red
+
+
+def _mesh_dryrun(gpu: str) -> None:
+    """The dry run of qwen3-8b on both meshes, a process a cell, then the
+    roofline over its records."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import roofline
+    from repro_torch.launch.steps import SHAPES
+    root = Path(__file__).resolve().parent
+    out = root / "build" / "chip_smoke_dryrun"
+    shutil.rmtree(out, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(root / "src"),
+               OMP_NUM_THREADS="1")
+    cells = [(s, mp) for s in SHAPES for mp in (False, True)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         DRYRUN_ARCH, "--shape", s, "--out", str(out), "--force"]
+        + (["--multi-pod"] if mp else []), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for s, mp in cells]
+    t0 = time.perf_counter()
+    try:
+        logs = [p.communicate(timeout=DRYRUN_TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for (s, mp), p, log in zip(cells, procs, logs):
+        _check(p.returncode == 0, f"mesh dry run {s} multi_pod={mp}: exit "
+               f"{p.returncode}: {log[-3000:]}")
+    cfg = registry.get(DRYRUN_ARCH)
+    for s, mp in cells:
+        tag = f"{DRYRUN_ARCH}__{s}__{'pod2' if mp else 'pod1'}"
+        with open(out / f"{tag}.json") as f:
+            rec = json.load(f)
+        if rec["skip"]:
+            print(f"mesh dryrun: {gpu}; {tag}: skipped ({rec['skip']})",
+                  flush=True)
+            continue
+        chips = roofline.CHIPS[rec["mesh"]]
+        ratio = rec["hlo_dot_flops"] * chips / roofline.model_flops(
+            cfg, SHAPES[s])
+        coll = ", ".join(f"{k} {v['bytes']:.6g} B in {v['count']}"
+                         for k, v in rec["collectives"].items()
+                         if v["count"])
+        print(f"mesh dryrun: {gpu} (its host's CPU traces); {tag}: trace "
+              f"{rec['lower_s']} s, count {rec['compile_s']} s; "
+              f"hlo_dot_flops x {chips} / model_flops {ratio:.4f}; per "
+              f"device: dot {rec['hlo_dot_flops']:.6g} FLOPs, arguments "
+              f"{rec['memory']['argument_size_in_bytes']} B, temporaries "
+              f"peak {rec['memory']['temp_size_in_bytes']} B; collectives "
+              f"{coll}", flush=True)
+        _check(rec["hlo_dot_flops"] > 0 and ratio >= 1.0,
+               f"mesh dryrun {tag}: {rec['hlo_dot_flops']} FLOPs, ratio "
+               f"{ratio}")
+    print(f"mesh dryrun: {gpu}; {len(cells)} cells in {wall:.1f} s, "
+          f"{len(cells)} processes at once; roofline of the 16x16 cells "
+          f"against the H100 (roofline.markdown):", flush=True)
+    print(roofline.markdown(str(out)), flush=True)
+
+
+def mesh_phase(gpu: str) -> None:
+    """Meshes, shardings, compressed all-reduce and the dry run (ROADMAP
+    A16, A17b) on the card (see the module docstring); raises on any
+    failed check."""
+    import gc
+    from repro_torch.launch import sharding as SH
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    _mesh_serving(gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with SH.launch_mesh("cuda") as mesh:
+        _mesh_train(gpu, mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        _mesh_psum(gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"mesh collectives: {gpu}; collectives across distinct cards "
+          "were not measured: this machine has one card, and NCCL refuses "
+          "two ranks on one card", flush=True)
+    _mesh_dryrun(gpu)
+    print(f"mesh: {gpu}; phase {time.perf_counter() - t_phase:.3f} s",
+          flush=True)
+
+
+# --------------------------------------------------------------------------
 # the PIM examples and the offload planner on the card (ROADMAP A18, A17)
 # --------------------------------------------------------------------------
 
@@ -4055,6 +4331,7 @@ def main() -> None:
     phase("lm", lm_phase, gpu)
     phase("lm families", lm_families_phase, gpu)
     phase("train", train_phase, gpu)
+    phase("mesh", mesh_phase, gpu)
     kernels = phase("time", lambda: measure(
         progs, statics, chunk_rows, main["launches"], worst, gpu)
         + measure_folds(chunk_rows, folds, worst, gpu))

@@ -26,6 +26,10 @@ other's.  A bfloat16 leaf is saved as its ``uint16`` bits with ``"dtype":
 ``treedef`` is the port's own description (the leaves' paths), not
 jax's string; :meth:`CheckpointManager.restore` checks only the leaf
 count, as the reference's does.
+
+Under a process group the state may be DTensors: every rank takes part
+in gathering each leaf whole, rank 0 alone writes, and a restore hands
+each rank its own blocks (``restore(..., shardings=)``).
 """
 
 from __future__ import annotations
@@ -39,7 +43,11 @@ from typing import Any, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
 
 from ..models import convert
 
@@ -82,6 +90,12 @@ def _host_leaves(tree) -> Tuple[List[Tuple[np.ndarray, str]], str]:
     return leaves, json.dumps(paths)
 
 
+def _writer() -> bool:
+    """Whether this process writes: under a process group every rank
+    gathers the state (a DTensor's blocks), rank 0 alone writes it."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 3):
         self.dir = directory
@@ -91,13 +105,20 @@ class CheckpointManager:
 
     # ------------------------------------------------------------------ save
     def save(self, step: int, tree: Any) -> str:
-        return self._write(step, *_host_leaves(tree))
+        leaves, treedef = _host_leaves(tree)
+        path = self._write(step, leaves, treedef) if _writer() else \
+            os.path.join(self.dir, f"step_{step:08d}")
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            dist.barrier()
+        return path
 
     def save_async(self, step: int, tree: Any) -> None:
         """Copies ``tree`` to the host, then writes it in a daemon thread;
         ``tree`` may change as soon as this returns."""
         self.wait()
         leaves, treedef = _host_leaves(tree)
+        if not _writer():
+            return
         self._thread = threading.Thread(
             target=self._write, args=(step, leaves, treedef), daemon=True)
         self._thread.start()
@@ -162,12 +183,20 @@ class CheckpointManager:
         with open(path) as f:
             return int(f.read().strip())
 
-    def restore(self, template: Any, step: Optional[int] = None) -> Any:
+    def restore(self, template: Any, step: Optional[int] = None, *,
+                shardings: Any = None) -> Any:
         """A new tree of ``template``'s structure holding checkpoint
-        ``step`` (the latest by default), each tensor on its template
-        tensor's device and in its dtype (the port's ``shardings=``: a
-        restarted job places the state where its template lies); an
-        ``LM`` comes back as a new ``LM``, frozen.  ``template`` is not
+        ``step`` (the latest by default), each tensor in its template
+        tensor's dtype, on its device (a DTensor template: a DTensor of
+        its mesh and placements); an ``LM`` comes back as a new ``LM``,
+        frozen.  With ``shardings`` (a matching tree of
+        :class:`~repro_torch.launch.sharding.NamedSharding`, as
+        :mod:`~repro_torch.launch.sharding` gives them) each tensor comes
+        back as a DTensor of its sharding on the *current* mesh: every
+        rank reads a leaf and keeps its own blocks, one leaf at a time,
+        so no rank holds more than one whole leaf on the host and its own
+        blocks on the device -- resharding happens here, which is what
+        makes restarts elastic across device counts.  ``template`` is not
         changed."""
         step = self.latest_step() if step is None else step
         if step is None:
@@ -188,17 +217,35 @@ class CheckpointManager:
                     torch.bfloat16)
             return torch.from_numpy(arr)
 
-        return _rebuild(template, iter(range(n)), load)
+        return _rebuild(template, iter(range(n)), load, shardings)
 
 
-def _place(arr: torch.Tensor, like) -> torch.Tensor:
+def _place(arr: torch.Tensor, like, sharding=None) -> torch.Tensor:
+    """``arr`` in ``like``'s dtype: as a DTensor of ``sharding``, or of
+    ``like``'s own mesh and placements where ``like`` is one, else on
+    ``like``'s device."""
     if tuple(arr.shape) != tuple(like.shape):
         raise ValueError(f"checkpoint leaf {tuple(arr.shape)}, template "
                          f"{tuple(like.shape)}")
-    return arr.to(device=like.device, dtype=like.dtype)
+    if sharding is not None:
+        mesh, pl = sharding.mesh, sharding.placements
+    elif isinstance(like, DTensor):
+        mesh, pl = like.device_mesh, like.placements
+    else:
+        return arr.to(device=like.device, dtype=like.dtype)
+    shape, offset = compute_local_shape_and_global_offset(arr.shape, mesh,
+                                                          pl)
+    block = arr[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
+    device = torch.device(mesh.device_type, torch.cuda.current_device()) \
+        if mesh.device_type == "cuda" else torch.device(mesh.device_type)
+    local = block.to(device=device, dtype=like.dtype, copy=True)
+    return DTensor.from_local(local, mesh, pl, run_check=False,
+                              shape=arr.shape, stride=arr.stride())
 
 
-def _rebuild(template, index: Iterator[int], load):
+def _rebuild(template, index: Iterator[int], load, shardings=None):
+    sub = (lambda k: shardings[k]) if shardings is not None \
+        else (lambda k: None)
     if isinstance(template, nn.Module):
         cfg = template.cfg
         names = {id(p): n for n, p in template.named_parameters()}
@@ -210,15 +257,17 @@ def _rebuild(template, index: Iterator[int], load):
                 raise ValueError(f"checkpoint leaf {rpath}: {len(parts)} "
                                  f"groups, template {len(tensors)}")
             for t, part in zip(tensors, parts):
-                out[names[id(t)]] = _place(part, t)
+                name = names[id(t)]
+                out[name] = _place(part, t, sub(name))
         return convert.assemble(cfg, out)
     if isinstance(template, Mapping):
-        got = {k: _rebuild(template[k], index, load)
+        got = {k: _rebuild(template[k], index, load, sub(k))
                for k in sorted(template)}
         return {k: got[k] for k in template}
     if isinstance(template, (list, tuple)):
-        return type(template)(_rebuild(v, index, load) for v in template)
+        return type(template)(_rebuild(v, index, load, sub(i))
+                              for i, v in enumerate(template))
     arr = load(next(index))
     if isinstance(template, torch.Tensor):
-        return _place(arr, template)
+        return _place(arr, template, shardings)
     return arr

@@ -62,6 +62,7 @@ from ..models import model as M
 from ..runtime import pim_batch, telemetry
 from ..runtime.fault_tolerance import Heartbeat, StragglerMonitor
 from ..runtime.faults import FaultModel, Scrubber, drain_media_health
+from . import sharding as SH
 from .steps import make_decode_step
 
 _PIM_INT_OPS = ("add", "sub", "mul", "div")
@@ -698,7 +699,12 @@ def serve_llm(args):
     prompt teacher-forced, then ``--gen`` greedy tokens.  Prints the
     reference's ``generated``
     line and the decode steps' times; returns the [B, prompt + gen]
-    tokens as numpy."""
+    tokens as numpy.  Runs on the launcher's ``(n_dev, 1)`` mesh with
+    the activation sharder installed
+    (:func:`~repro_torch.launch.sharding.launch_mesh`), as the reference
+    does; the weights stay plain tensors, as the reference's stay
+    unplaced, so on one rank the sharder passes every activation
+    unchanged and the decode step pays no DTensor dispatch."""
     cfg = registry.get(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -709,6 +715,11 @@ def serve_llm(args):
                          f"{args.prompt_len}, --gen {args.gen}: need a row, "
                          "a prompt token and no negative count")
     device = kops._checked_device(args.device)
+    with SH.launch_mesh(device):
+        return _serve_llm(args, cfg, device)
+
+
+def _serve_llm(args, cfg, device):
     b, max_seq = args.batch, args.prompt_len + args.gen
     weights = torch.Generator(device=device).manual_seed(args.seed)
     model = M.init_model(cfg, weights, device=device)

@@ -20,7 +20,9 @@ import dataclasses
 from typing import Dict, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from ..models import layers as L
 from ..models import model as M
 from ..models.config import ModelConfig
 from ..optim import adamw
@@ -66,12 +68,15 @@ def accum_for(cfg: ModelConfig, shape: ShapePlan) -> int:
 # input specs (meta tensors; no allocation)
 # --------------------------------------------------------------------------
 
-def batch_specs(cfg: ModelConfig, shape: ShapePlan) -> Dict:
+def batch_specs(cfg: ModelConfig, shape: ShapePlan, *, accum: int = 0
+                ) -> Dict:
+    """``accum``: the train step's accumulation depth (0:
+    :func:`accum_for`'s)."""
     def sd(dims, dtype):
         return torch.empty(dims, dtype=dtype, device="meta")
 
     if shape.kind == "train":
-        a = accum_for(cfg, shape)
+        a = accum or accum_for(cfg, shape)
         mb = shape.global_batch // a
         assert mb >= 1, (cfg.name, shape.name)
         out = {}
@@ -106,12 +111,14 @@ def batch_specs(cfg: ModelConfig, shape: ShapePlan) -> Dict:
     return out
 
 
-def input_specs(cfg: ModelConfig, shape: ShapePlan) -> Dict:
+def input_specs(cfg: ModelConfig, shape: ShapePlan, *, accum: int = 0
+                ) -> Dict:
     """All abstract inputs for the cell, on the ``meta`` device: batch +
     params (an :class:`~repro_torch.models.model.LM`) (+ opt/caches, the
     port's per-layer list)."""
     params = M.LM(cfg, device="meta")
-    specs = {"params": params, "batch": batch_specs(cfg, shape)}
+    specs = {"params": params,
+             "batch": batch_specs(cfg, shape, accum=accum)}
     if shape.kind == "train":
         specs["opt"] = adamw.init(params)
     if shape.kind == "decode":
@@ -135,10 +142,19 @@ def make_train_step(cfg: ModelConfig, accum: int,
     one backward of the microbatch losses' sum over ``accum``, whose
     gradients (in the parameters' dtype) go to the optimizer as they are;
     the loss is that mean.  A parameter no loss reaches gets a zero
-    gradient, as under ``jax.grad``."""
+    gradient, as under ``jax.grad``.  The parameters, the optimizer state
+    and the batch may be DTensors (:mod:`~repro_torch.launch.sharding`):
+    each gradient is then laid out as its parameter, and the metrics come
+    back as plain tensors, the same on every rank."""
     def grads_of(loss, leaves):
-        return torch.autograd.grad(loss, leaves, allow_unused=True,
-                                   materialize_grads=True)
+        """The gradients, each laid out as its parameter (a DTensor's
+        pending sums over the batch's ranks reduced)."""
+        with L.mesh_scope(loss):
+            gs = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                     materialize_grads=True)
+            return [g.redistribute(p.device_mesh, p.placements)
+                    if isinstance(p, DTensor) else g
+                    for g, p in zip(gs, leaves)]
 
     def train_step(params, opt_state, batch):
         names, leaves = zip(*params.named_parameters())
@@ -155,8 +171,7 @@ def make_train_step(cfg: ModelConfig, accum: int,
                 gacc = dict(zip(names, grads_of(loss, leaves)))
                 losses = [loss.detach()]
             else:
-                gacc = {n: torch.zeros(p.shape, dtype=acc_dtype,
-                                       device=p.device)
+                gacc = {n: torch.zeros_like(p, dtype=acc_dtype)
                         for n, p in zip(names, leaves)}
                 losses = []
                 for mb in micro:
@@ -167,7 +182,11 @@ def make_train_step(cfg: ModelConfig, accum: int,
                 for a in gacc.values():
                     a.div_(accum)
         new_p, new_opt, om = adamw.update(opt_cfg, gacc, opt_state, params)
-        return new_p, new_opt, {"loss": torch.stack(losses).mean(), **om}
+        metrics = {"loss": torch.stack(losses).mean(), **om}
+        # the same on every rank: a DTensor's value as a plain tensor
+        return new_p, new_opt, {k: L.whole(v).to_local()
+                                if isinstance(v, DTensor) else v
+                                for k, v in metrics.items()}
 
     return train_step
 
@@ -186,6 +205,6 @@ def make_decode_step(cfg: ModelConfig):
         logits, new_caches = M.decode_step(
             cfg, params, caches, batch["token"], batch["pos"],
             vision=batch.get("vision"))
-        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        next_tok = torch.argmax(L.whole(logits, -1), dim=-1).to(torch.int32)
         return next_tok, logits, new_caches
     return serve_step

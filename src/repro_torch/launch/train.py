@@ -12,9 +12,18 @@ without a GPU, never drops to the CPU).  Random weights from a
 accumulation, AdamW), the fault-tolerant loop (resume from the newest
 checkpoint, async checkpoints every ``--ckpt-every`` steps,
 preemption-safe), deterministic data.  The reference's loop writes no
-checkpoint at its end, so a run resumes from the last periodic one.  One
-device: the reference's mesh, its activation sharder and its parameter
-and optimizer shardings wait for ROADMAP A16.
+checkpoint at its end, so a run resumes from the last periodic one.
+
+The reference's distribution: the launcher's ``(n_dev, 1)`` mesh over
+``("data", "model")`` with the activation sharder installed
+(:func:`~repro_torch.launch.sharding.launch_mesh`; ``n_dev`` the process
+group's ranks: one, or torchrun's), the parameters and AdamW's moments
+DTensors of ``param_shardings``/``opt_shardings`` and each batch of
+``batch_shardings`` (every rank draws the same batch and keeps its
+slice).  Under torchrun each rank runs this on its own device:
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train --reduced \
+        --device cpu
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ from ..kernels.ops import _checked_device
 from ..models import model as M
 from ..optim import adamw
 from ..runtime.train_loop import train_loop
+from . import sharding as SH
 from .steps import make_train_step
 
 
@@ -65,11 +75,18 @@ def main(argv=None):
             over["n_layers"] = args.layers
         cfg = cfg.reduced(**over)
     device = _checked_device(args.device)
+    with SH.launch_mesh(device) as mesh:
+        return _train(args, cfg, device, mesh)
 
+
+def _train(args, cfg, device, mesh):
     params = M.init_model(
         cfg, torch.Generator(device=device).manual_seed(args.seed),
         device=device)
     opt = adamw.init(params)
+    pshard = SH.param_shardings(mesh, params)
+    oshard = SH.opt_shardings(mesh, opt, pshard)
+    params, opt = SH.place_tree(params, pshard), SH.place_tree(opt, oshard)
     opt_cfg = adamw.AdamWConfig(lr=args.lr, total_steps=args.steps,
                                 warmup_steps=max(args.steps // 20, 1))
     step_core = make_train_step(cfg, args.accum, opt_cfg)
@@ -86,6 +103,7 @@ def main(argv=None):
         mb = {k: torch.from_numpy(v).to(device).reshape(
                   (args.accum, args.batch // args.accum) + v.shape[1:])
               for k, v in batch.items()}
+        mb = SH.place_tree(mb, SH.batch_shardings(mesh, mb, accum=True))
         p, o, metrics = step_core(state["params"], state["opt"], mb)
         return {"params": p, "opt": o}, metrics
 

@@ -22,6 +22,7 @@ from typing import Dict, Iterator, List, Mapping, Optional, Tuple, Union
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from ..kernels.ops import _checked_device
 from .config import ModelConfig
@@ -56,7 +57,10 @@ def to_tensor(a: np.ndarray, bits_of=None) -> torch.Tensor:
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     """A copy of a tensor's values on the host, bfloat16 as its ``uint16``
-    bits (numpy has no bfloat16 without ``ml_dtypes``)."""
+    bits (numpy has no bfloat16 without ``ml_dtypes``); of a DTensor, the
+    whole tensor (a collective: every rank of its mesh calls it)."""
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)

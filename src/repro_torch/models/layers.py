@@ -21,6 +21,16 @@ place, and returns the same dict: a new key and value (or MLA latent) by
 ``index_copy_`` at the position the device holds, so no step waits for
 the host, and a recurrent state by ``copy_``.  A full cache is not copied
 once a layer and a step.
+
+The parameters may be DTensors on a mesh (:mod:`repro_torch.launch.
+sharding`): every function then runs as it is, but for the points where
+a layout must be fixed or DTensor has no rule.  Weight products take a
+fixed tensor-parallel layout (:func:`mm`); the embedding lookup, the
+cache writes, the attention core, the WKV scan and the MoE's routing
+run on each rank's own block as plain tensors (:func:`lookup`,
+:func:`write_at`, :func:`_group_attn_on_mesh`, :func:`_wkv`,
+:func:`_moe_on_mesh`); heads split on each rank's block
+(:func:`split_dim`).
 """
 
 from __future__ import annotations
@@ -28,16 +38,24 @@ from __future__ import annotations
 import functools
 from typing import Mapping, Optional
 
+import contextlib
+import math
+
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
+from torch.distributed.tensor.experimental import local_map
 
 from .config import ModelConfig
 
 ATTN_CHUNK = 512          # query-chunked attention threshold / block
+_DP_AXES = ("pod", "data")  # the mesh axes of batch and FSDP sharding
 
-# activation-sharding hook: (tag, tensor) -> tensor.  The port runs on one
-# device, so it stays the identity unless a caller installs one.
+# activation-sharding hook: (tag, tensor) -> tensor.  The identity unless
+# a launcher installs one (launch.sharding.install_activation_sharder).
 _SHARDER = lambda tag, x: x
 
 
@@ -48,6 +66,220 @@ def set_activation_sharder(fn) -> None:
 
 def _shard(tag, x):
     return _SHARDER(tag, x)
+
+
+def whole(x, dim: Optional[int] = None):
+    """``x`` with its pending sums taken and, given ``dim``, that
+    dimension whole on every rank: a DTensor's ``Partial`` placements
+    (and shards of ``dim``) become ``Replicate``; a plain tensor as it is.
+    Where DTensor cannot go on: an argmax over a sharded axis (its global
+    index needs the shard offsets, which a trace cannot read), a split of
+    a sharded axis into parts the shards do not divide; and where a sum
+    or max over ranks must be taken."""
+    if not isinstance(x, DTensor):
+        return x
+    if dim is not None:
+        dim %= x.ndim
+    return x.redistribute(x.device_mesh, [
+        Replicate() if p.is_partial() or (dim is not None and
+                                          p.is_shard(dim)) else p
+        for p in x.placements])
+
+
+def split_dim(x, dim: int, sizes):
+    """``x.unflatten(dim, sizes)``: heads out of a projection.  A DTensor
+    split on ``dim`` over ranks that divide ``sizes[0]`` is split on each
+    rank's own block, its shards going to the first new dimension
+    (PyTorch 2.11's DTensor refuses to split a split dimension); over
+    ranks that do not (8 KV heads 16 ways) the dimension is made whole
+    first (:func:`whole`)."""
+    if not isinstance(x, DTensor):
+        return x.unflatten(dim, sizes)
+    dim %= x.ndim
+    n = 1
+    for i, p in enumerate(x.placements):
+        if p.is_shard(dim):
+            n *= x.device_mesh.size(i)
+    if n == 1 or sizes[0] % n:
+        return whole(x, dim).unflatten(dim, sizes)
+    shape = x.shape[:dim] + torch.Size(sizes) + x.shape[dim + 1:]
+    local = x.to_local().unflatten(dim, (sizes[0] // n,) + tuple(sizes[1:]))
+    return DTensor.from_local(local, x.device_mesh, x.placements,
+                              run_check=False, shape=shape,
+                              stride=torch.empty(shape,
+                                                 device="meta").stride())
+
+
+def gathered(w):
+    """A weight gathered over the data axes (FSDP's all-gather at use),
+    its shards on 'model' kept; a plain ``w`` as it is."""
+    if not isinstance(w, DTensor):
+        return w
+    mesh = w.device_mesh
+    return w.redistribute(mesh, [
+        Replicate() if n in _DP_AXES else p
+        for n, p in zip(mesh.mesh_dim_names, w.placements)])
+
+
+def mm(x, w):
+    """``x @ w`` for a weight ``w``.  DTensors are put in the fixed
+    tensor-parallel layout first, so that no product has to pick one:
+    ``w`` gathered over the data axes (FSDP's all-gather at use), its
+    shards on 'model' kept; ``x`` split on dimension 0 (the batch) over
+    the data axes (as it is, or over all of them where none splits it yet
+    and they divide it), on its last dimension over each mesh dimension
+    that splits ``w``'s first (a row-parallel product, its result a
+    pending sum), whole over the others (column-parallel)."""
+    if not isinstance(w, DTensor):
+        return x @ w
+    mesh = w.device_mesh
+    dp = [i for i, n in enumerate(mesh.mesh_dim_names) if n in _DP_AXES]
+    w = gathered(w)
+    wp = w.placements
+    if isinstance(x, DTensor):
+        batch = [i for i in dp if x.placements[i].is_shard(0)]
+        if not batch and x.shape[0] % math.prod(
+                mesh.size(i) for i in dp) == 0:
+            batch = [i for i in dp if mesh.size(i) > 1]
+        x = x.redistribute(mesh, [
+            Shard(x.ndim - 1) if wp[i].is_shard(0) else
+            Shard(0) if i in batch else Replicate()
+            for i in range(mesh.ndim)])
+    return x @ w
+
+
+def pinned(x):
+    """``x`` as it is, its gradient brought to ``x``'s layout: after a
+    reshape that merged heads which could not be split (their merged axis
+    whole on every rank), so the backward's split of the gradient meets
+    the same whole axis however the product that reads ``x`` lays its
+    gradient out.  A plain ``x`` as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    return DTensor.from_local(x.to_local(), x.device_mesh, x.placements,
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
+def lookup(table, ids):
+    """``table[ids]``: rows of an embedding table.  Of a DTensor table,
+    each rank looks up its own: the table gathered over the data axes,
+    as :func:`mm` gathers a weight, its shards on 'model' kept (of the
+    vocabulary, or of d_model); the ids of its own rows; a row outside
+    its vocabulary shard reads as zero, and the ranks' rows add up (a
+    pending sum over the vocabulary axes).  DTensor's own lookup needs
+    sharding rules that PyTorch 2.11 lacks (ids split over two mesh
+    dimensions; the backward into a table split on d_model)."""
+    if not isinstance(table, DTensor):
+        return table[ids]
+    mesh = table.device_mesh
+    names = mesh.mesh_dim_names
+    tp = [Replicate() if n in _DP_AXES else p
+          for n, p in zip(names, table.placements)]
+    ids = ids if isinstance(ids, DTensor) else DTensor.from_local(
+        ids, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    ip = [p if p.is_shard(0) and n in _DP_AXES else Replicate()
+          for n, p in zip(names, ids.placements)]
+    vocab = [i for i, p in enumerate(tp) if p.is_shard(0)]
+    # this rank's table block gets the gradient of this rank's ids alone
+    grads = [p if p.is_shard() else
+             Partial() if ip[i].is_shard(0) else Replicate()
+             for i, p in enumerate(tp)]
+    local = table.redistribute(mesh, tp).to_local(grad_placements=grads)
+    mine = ids.redistribute(mesh, ip).to_local()
+    if vocab:
+        _, offset = compute_local_shape_and_global_offset(
+            table.shape, mesh, tp)
+        j = mine - offset[0]
+        here = (j >= 0) & (j < local.shape[0])
+        rows = local[torch.where(here, j, 0)] * here[..., None]
+    else:
+        rows = local[mine]
+    out = [Partial() if i in vocab else
+           Shard(ids.ndim) if tp[i].is_shard(1) else ip[i]
+           for i in range(mesh.ndim)]
+    shape = tuple(ids.shape) + tuple(table.shape[1:])
+    return DTensor.from_local(rows, mesh, out, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape,
+                                                 device="meta").stride())
+
+
+def write_at(cache, index, values):
+    """``cache.index_copy_(1, index, values)``: a decode step's write at
+    its position.  Of a DTensor cache, each rank writes its own blocks
+    (PyTorch 2.11's DTensor has no rule for ``index_copy_``)."""
+    if not isinstance(cache, DTensor):
+        return cache.index_copy_(1, index, values)
+    mesh, pl = cache.device_mesh, cache.placements
+    if not isinstance(values, DTensor):
+        values = DTensor.from_local(values, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    if isinstance(index, DTensor):
+        index = index.full_tensor()
+    local = cache.to_local()
+    vals = values.redistribute(mesh, [
+        Replicate() if p.is_shard(1) else p for p in pl]).to_local()
+    if any(p.is_shard(1) for p in pl):
+        # the position axis split (a ring's positions): the rank that
+        # holds the position writes it, the others write back what they
+        # hold, so nothing waits for the host to say which
+        _, offset = compute_local_shape_and_global_offset(cache.shape, mesh,
+                                                          pl)
+        j = index - offset[1]
+        here = ((j >= 0) & (j < local.shape[1])).reshape(
+            (1, -1) + (1,) * (local.ndim - 2))
+        index = j.clamp(0, local.shape[1] - 1)
+        vals = torch.where(here, vals, local.index_select(1, index))
+    local.index_copy_(1, index, vals)
+    return cache
+
+
+def _attn_layout(x, kv_heads: int):
+    """A DTensor ``[B, S, heads, ...]`` in the attention core's layout:
+    the batch's shards kept, the heads sharded only over mesh dimensions
+    that divide the ``kv_heads`` key/value heads (so a query head's shard
+    holds its key/value head), every other dimension whole.  DTensor
+    cannot split 8 KV heads 16 ways, nor regroup a sharded head axis into
+    (KV head, group) without a strided shard that the output projection
+    cannot take.  A plain ``x`` as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    out, n = [], 1
+    for i, p in enumerate(x.placements):
+        if p.is_shard(0):
+            out.append(p)
+        elif p.is_shard(2) and kv_heads % (n * mesh.size(i)) == 0:
+            n *= mesh.size(i)
+            out.append(p)
+        else:
+            out.append(Replicate())
+    return x.redistribute(mesh, out)
+
+
+@contextlib.contextmanager
+def _replicating():
+    # torch.distributed.tensor.experimental.implicit_replication, but
+    # nestable: that one clears the flag on leaving, an outer scope's too.
+    # The flag is thread-local state the autograd engine hands on to its
+    # workers, so a backward pass started in the scope runs in it.
+    prev = torch._C._get_dtensor_allow_implicit_replication()
+    torch._C._set_dtensor_allow_implicit_replication(True)
+    try:
+        yield
+    finally:
+        torch._C._set_dtensor_allow_implicit_replication(prev)
+
+
+def mesh_scope(t):
+    """The context a model function (or its backward pass) runs in when
+    its parameters are DTensors (``t`` one of them): the tensors it makes
+    itself (positions, masks, zeros) are full-size values the same on
+    every rank, so they take part as replicated DTensors.  A plain ``t``:
+    no context."""
+    return _replicating() if isinstance(t, DTensor) \
+        else contextlib.nullcontext()
 
 
 class Params(nn.Module):
@@ -149,7 +381,11 @@ def init_attention(cfg: ModelConfig, gen, cross: bool = False, *,
 def _group_attn(q, k, v, mask):
     """Grouped-query attention core (no KV-head replication): query head
     ``h`` reads KV head ``h // G``.  q: [B,Sq,H,hd]; k,v: [B,Sk,K,hd];
-    mask broadcastable to [B,Sq,Sk]."""
+    mask broadcastable to [B,Sq,Sk].  Of DTensors, each rank attends with
+    its own rows and heads (:func:`_attn_layout`) on plain tensors: no
+    step of the core needs a sharding rule."""
+    if isinstance(q, DTensor):
+        return _group_attn_on_mesh(q, k, v, mask)
     b, sq, h, hd = q.shape
     kh = k.shape[2]
     g = h // kh
@@ -160,6 +396,31 @@ def _group_attn(q, k, v, mask):
     a = torch.softmax(s, dim=-1)
     o = torch.einsum("bqkgs,bskd->bqkgd", a.to(v.dtype), v)
     return o.reshape(b, sq, h, v.shape[-1])
+
+
+def _group_attn_on_mesh(q, k, v, mask):
+    kh = k.shape[2]
+    q = _attn_layout(q, kh)
+    mesh, pl = q.device_mesh, q.placements
+    if not isinstance(mask, DTensor):
+        mask = DTensor.from_local(mask, mesh, [Replicate()] * mesh.ndim,
+                                  run_check=False)
+    rows = [p if p.is_shard(0) and mask.shape[0] == q.shape[0]
+            else Replicate() for p in pl]
+    return local_map(_group_attn, out_placements=list(pl),
+                     in_placements=(pl, pl, pl, rows),
+                     redistribute_inputs=True)(q, k, v, mask)
+
+
+def _pad_front(x, n: int, value: float = 0.0):
+    """``x`` with ``n`` positions of ``value`` in front of axis 1
+    (``pad(x, (0, 0, n, 0))``); a DTensor's by a concatenation, which
+    PyTorch 2.11's DTensor has a rule for and ``pad`` not."""
+    if not isinstance(x, DTensor):
+        return torch.nn.functional.pad(x, (0, 0, n, 0), value=value)
+    front = torch.full((x.shape[0], n) + tuple(x.shape[2:]), value,
+                       dtype=x.dtype, device=x.device)
+    return torch.cat([front, x], 1)
 
 
 def _sdpa(q, k, v, *, causal, window, q_offset=0):
@@ -189,7 +450,7 @@ def _sdpa(q, k, v, *, causal, window, q_offset=0):
 
 
 def _proj(x, p, w: str, bias: str):
-    y = x @ p[w]
+    y = mm(x, p[w])
     return y + p[bias] if bias in p else y
 
 
@@ -200,12 +461,13 @@ def apply_attention(cfg: ModelConfig, p, x, *, pos, kind: str, cache=None,
     written in place at ``pos[0]`` (the same position for every row)."""
     b, s, d = x.shape
     hd = cfg.hd
-    q = _proj(x, p, "wq", "bq").reshape(b, s, cfg.n_heads, hd)
+    heads = lambda y, n: split_dim(y, 2, (n, hd))
+    q = heads(_proj(x, p, "wq", "bq"), cfg.n_heads)
     if kind == "cross":
         k, v = cross_kv
     else:
-        k = _proj(x, p, "wk", "bk").reshape(b, s, cfg.n_kv_heads, hd)
-        v = _proj(x, p, "wv", "bv").reshape(b, s, cfg.n_kv_heads, hd)
+        k = heads(_proj(x, p, "wk", "bk"), cfg.n_kv_heads)
+        v = heads(_proj(x, p, "wv", "bv"), cfg.n_kv_heads)
     if cfg.qk_norm:
         q = rms_norm(q, p["qnorm"], cfg.norm_eps)
         if kind != "cross":
@@ -221,14 +483,14 @@ def apply_attention(cfg: ModelConfig, p, x, *, pos, kind: str, cache=None,
             w = cfg.window
             i = pos[:1, 0] % w                       # ring-buffer slot
             kpos = cache["pos"]
-            ck.index_copy_(1, i, k[:, :1].to(ck.dtype))
-            cv.index_copy_(1, i, v[:, :1].to(cv.dtype))
-            kpos.index_copy_(1, i, pos[:, :1].to(kpos.dtype))
+            write_at(ck, i, k[:, :1].to(ck.dtype))
+            write_at(cv, i, v[:, :1].to(cv.dtype))
+            write_at(kpos, i, pos[:, :1].to(kpos.dtype))
             new_cache = {"k": ck, "v": cv, "pos": kpos}
             valid = (kpos <= pos[:, :1]) & (kpos > pos[:, :1] - w)
         else:
-            ck.index_copy_(1, pos[0], k.to(ck.dtype))
-            cv.index_copy_(1, pos[0], v.to(cv.dtype))
+            write_at(ck, pos[0], k.to(ck.dtype))
+            write_at(cv, pos[0], v.to(cv.dtype))
             new_cache = {"k": ck, "v": cv}
             valid = (torch.arange(ck.shape[1], device=x.device)[None]
                      <= pos[:1, :1]).expand(b, -1)
@@ -261,7 +523,7 @@ def apply_attention(cfg: ModelConfig, p, x, *, pos, kind: str, cache=None,
                 new_cache = {"k": k, "v": v}
         elif isinstance(cache, dict) and kind == "cross":
             new_cache = {}
-    out = out.reshape(b, s, cfg.n_heads * hd) @ p["wo"]
+    out = mm(out.reshape(b, s, cfg.n_heads * hd), p["wo"])
     if kind == "cross":
         out = out * torch.tanh(p["gate"]).to(out.dtype)
     return out, new_cache
@@ -300,22 +562,23 @@ def apply_mla(cfg: ModelConfig, p, x, *, pos, cache=None):
     h = cfg.n_heads
     nhd, rhd, vhd = m.nope_head_dim, m.rope_head_dim, m.v_head_dim
 
-    q = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps) @ p["wq_b"]
-    q = q.reshape(b, s, h, nhd + rhd)
+    q = mm(rms_norm(mm(x, p["wq_a"]), p["q_norm"], cfg.norm_eps),
+           p["wq_b"])
+    q = split_dim(q, 2, (h, nhd + rhd))
     q_nope, q_rope = q[..., :nhd], q[..., nhd:]
     q_rope = rotary(q_rope, pos, cfg.rope_theta)
 
-    kv = x @ p["wkv_a"]
+    kv = mm(x, p["wkv_a"])
     c_kv = rms_norm(kv[..., : m.kv_lora], p["kv_norm"], cfg.norm_eps)
     k_rope = rotary(kv[..., m.kv_lora:][:, :, None, :], pos, cfg.rope_theta)
 
-    wkv_b = p["wkv_b"].reshape(m.kv_lora, h, nhd + vhd)
+    wkv_b = split_dim(gathered(p["wkv_b"]), 1, (h, nhd + vhd))
     scale = 1.0 / np.sqrt(nhd + rhd)
 
     if isinstance(cache, dict):
         cc, cr = cache["c"], cache["r"]
-        cc.index_copy_(1, pos[0], c_kv.to(cc.dtype))
-        cr.index_copy_(1, pos[0], k_rope[:, :, 0].to(cr.dtype))
+        write_at(cc, pos[0], c_kv.to(cc.dtype))
+        write_at(cr, pos[0], k_rope[:, :, 0].to(cr.dtype))
         new_cache = {"c": cc, "r": cr}
         # absorbed decode: score via the latent space (the MLA cache win)
         q_abs = torch.einsum("bqhn,lhn->bqhl", q_nope.float(),
@@ -339,7 +602,7 @@ def apply_mla(cfg: ModelConfig, p, x, *, pos, cache=None):
         k = torch.cat([k_nope, k_rope.expand(b, s, h, rhd)], -1)
         qf = torch.cat([q_nope, q_rope], -1)
         out = _sdpa(qf, k, v, causal=True, window=0)
-    out = out.reshape(b, s, h * vhd) @ p["wo"]
+    out = mm(out.reshape(b, s, h * vhd), p["wo"])
     return out, new_cache
 
 
@@ -354,7 +617,7 @@ def init_ffn(gen, d, ff, *, device) -> Params:
 
 
 def apply_ffn(p, x):
-    return (silu(x @ p["w1"]) * (x @ p["w3"])) @ p["w2"]
+    return mm(silu(mm(x, p["w1"])) * mm(x, p["w3"]), p["w2"])
 
 
 def init_moe(cfg: ModelConfig, gen, *, device) -> Params:
@@ -373,8 +636,8 @@ def init_moe(cfg: ModelConfig, gen, *, device) -> Params:
     return Params(p)
 
 
-# dispatch groups: the reference's launcher sets them to the DP shard
-# count; the port runs on one device and keeps the reference's default
+# dispatch groups: the launcher sets them to the DP shard count
+# (launch.sharding.install_activation_sharder); 1 with no mesh
 _MOE_GROUPS = 1
 
 
@@ -403,20 +666,37 @@ def apply_moe(cfg: ModelConfig, p, x):
       token in sort order, that is, a token's ``k`` contributions in
       ascending expert order, each partial sum rounded to the dtype.
       Here the ``k`` are summed in that order, one add at a time.
+
+    With DTensors (:func:`_moe_on_mesh`) the routing runs on each rank's
+    own groups, and only the expert products are distributed.
     """
+    if isinstance(x, DTensor):
+        return _moe_on_mesh(cfg, p, x)
     m = cfg.moe
     b, s, d = x.shape
     t = b * s
-    k, n_exp = m.top_k, m.n_experts
     g = _MOE_GROUPS if t % _MOE_GROUPS == 0 else 1
-    tg = t // g
-    dev = x.device
-    xf = x.reshape(g, tg, d)
-    logits = xf.float() @ p["router"]                        # [G,Tg,E]
+    cap = int(np.ceil(t // g * m.top_k / m.n_experts * m.capacity_factor))
+    buf, route, counts, probs = _dispatch(m, x.reshape(g, t // g, d),
+                                          p["router"], cap)
+    y = _combine(_experts(p, buf), route, x.dtype).reshape(b, s, d)
+    aux = _balance_loss(m, counts, probs, t)
+    if m.n_shared:
+        y = y + apply_ffn(p["shared"], x)
+    return y, aux
+
+
+def _dispatch(m, xf, router, cap: int):
+    """Route groups ``xf`` [G, Tg, d] (plain tensors): returns (the
+    dispatched rows [G, E, cap, d], what the combine needs, the pairs an
+    expert took [G, E], the router's probabilities [G, Tg, E])."""
+    g, tg, d = xf.shape
+    k, n_exp = m.top_k, m.n_experts
+    dev = xf.device
+    logits = mm(xf.float(), router)                          # [G,Tg,E]
     probs = torch.softmax(logits, dim=-1)
     w, idx = torch.topk(probs, k, dim=-1)                    # [G,Tg,k]
     w = w / (w.sum(-1, keepdim=True) + 1e-9)
-    cap = int(np.ceil(tg * k / n_exp * m.capacity_factor))
 
     n = tg * k
     e_flat = idx.reshape(g, n)
@@ -435,38 +715,89 @@ def apply_moe(cfg: ModelConfig, p, x):
     spare = g * n_exp * cap + gi * n + torch.arange(n, device=dev)
     rows = torch.where(keep, (gi * n_exp + e_flat) * cap + pos, spare)
     src = xf.repeat_interleave(k, dim=1)                     # [G,n,d]
-    vals = torch.where(filled[..., None], src, torch.zeros((), dtype=x.dtype,
-                                                           device=dev))
-    buf = torch.zeros((g * n_exp * cap + g * n, d), dtype=x.dtype,
+    vals = torch.where(filled[..., None], src, torch.zeros(
+        (), dtype=xf.dtype, device=dev))
+    buf = torch.zeros((g * n_exp * cap + g * n, d), dtype=xf.dtype,
                       device=dev).index_copy_(0, rows.reshape(-1),
                                               vals.reshape(-1, d))
-    buf = _shard("moe_buf", buf[: g * n_exp * cap].reshape(g, n_exp, cap, d))
+    buf = buf[: g * n_exp * cap].reshape(g, n_exp, cap, d)
+    return buf, (w, idx, keep, pos, cap), counts, probs
+
+
+def _experts(p, buf):
+    """Every expert's gated FFN over its rows [G, E, cap, d]."""
+    buf = _shard("moe_buf", buf)
     w1 = _shard("moe_w", p["w1"])
     w3 = _shard("moe_w", p["w3"])
     w2 = _shard("moe_w", p["w2"])
     hid = silu(torch.einsum("gecd,edf->gecf", buf, w1)) * \
         torch.einsum("gecd,edf->gecf", buf, w3)
-    eo = _shard("moe_eo", torch.einsum("gecf,efd->gecd", hid, w2))
+    return _shard("moe_eo", torch.einsum("gecf,efd->gecd", hid, w2))
 
-    # combine, in the dtype: each pair's output times its weight (0 when
-    # dropped; a dropped pair reads slot cap - 1), summed per token in
-    # ascending expert order
-    w16 = torch.where(keep, w.reshape(g, n), 0.0).to(x.dtype)
+
+def _combine(eo, route, dtype):
+    """The tokens' outputs [G, Tg, d] from the experts' [G, E, cap, d], in
+    the dtype: each pair's output times its weight (0 when dropped; a
+    dropped pair reads slot cap - 1), summed per token in ascending
+    expert order."""
+    w, idx, keep, pos, cap = route
+    g, tg, k = idx.shape
+    d = eo.shape[-1]
+    gi = torch.arange(g, device=eo.device)[:, None]
+    w16 = torch.where(keep, w.reshape(g, tg * k), 0.0).to(dtype)
     slot = torch.clamp(pos, max=cap - 1)
-    out = eo[gi, e_flat, slot] * w16[..., None]              # [G,n,d]
+    out = eo[gi, idx.reshape(g, tg * k), slot] * w16[..., None]  # [G,n,d]
     order = torch.argsort(idx, dim=-1)                       # [G,Tg,k]
     out = torch.gather(out.reshape(g, tg, k, d), 2,
                        order[..., None].expand(g, tg, k, d))
-    y = torch.zeros((g, tg, d), dtype=x.dtype, device=dev)
+    y = torch.zeros((g, tg, d), dtype=dtype, device=eo.device)
     for j in range(k):
         y = y + out[:, :, j]
+    return y
 
-    # load-balance aux loss (Switch-style), computed globally
-    frac = counts.sum(0).float() / (t * k)
+
+def _balance_loss(m, counts, probs, t: int):
+    """The load-balance aux loss (Switch-style), over every group."""
+    frac = counts.sum(0).float() / (t * m.top_k)
     imp = probs.mean((0, 1))
-    aux = (frac * imp).sum() * n_exp
+    return (frac * imp).sum() * m.n_experts
 
-    y = y.reshape(b, s, d)
+
+def _moe_on_mesh(cfg: ModelConfig, p, x):
+    """:func:`apply_moe` of a DTensor ``x`` [B, S, d]: the dispatch
+    groups are the data axes' shards of the batch (the reference's
+    launcher sets as many groups as it has), so each rank routes its own
+    groups on plain tensors with the whole router (DTensor has no
+    sharding rule for the routing's sort, scatter and cumsum), the
+    expert products run on DTensors through the sharding points, and
+    each rank combines its own tokens.  Where the groups are not the
+    batch's shards, every rank routes all of them."""
+    m = cfg.moe
+    mesh = x.device_mesh
+    b, s, d = x.shape
+    t = b * s
+    g = _MOE_GROUPS if t % _MOE_GROUPS == 0 else 1
+    cap = int(np.ceil(t // g * m.top_k / m.n_experts * m.capacity_factor))
+    dp = [i for i, n in enumerate(mesh.mesh_dim_names)
+          if n in _DP_AXES and mesh.size(i) > 1]
+    n_dp = math.prod(mesh.size(i) for i in dp)
+    split = dp if b % n_dp == 0 and g % n_dp == 0 else []
+    rows = [Shard(0) if i in split else Replicate()
+            for i in range(mesh.ndim)]
+    # each rank's rows are its own: its router gradient is a partial sum
+    # over the split axes, the same on the others
+    mine = [Partial() if i in split else Replicate()
+            for i in range(mesh.ndim)]
+    xl = x.redistribute(mesh, rows).to_local()
+    router = p["router"].redistribute(mesh, [Replicate()] * mesh.ndim
+                                      ).to_local(grad_placements=mine)
+    g_l = g // (n_dp if split else 1)
+    buf, route, counts, probs = _dispatch(
+        m, xl.reshape(g_l, -1, d), router, cap)
+    on = lambda z: DTensor.from_local(z, mesh, rows, run_check=False)
+    eo = _experts(p, on(buf)).redistribute(mesh, rows).to_local()
+    y = on(_combine(eo, route, x.dtype).reshape(xl.shape))
+    aux = _balance_loss(m, on(counts), on(probs), t)
     if m.n_shared:
         y = y + apply_ffn(p["shared"], x)
     return y, aux
@@ -498,9 +829,8 @@ def _linear_scan(a, b):
     s = a.shape[1]
     step = 1
     while step < s:
-        a_prev = torch.nn.functional.pad(a[:, :-step], (0, 0, step, 0),
-                                         value=1.0)
-        b_prev = torch.nn.functional.pad(b[:, :-step], (0, 0, step, 0))
+        a_prev = _pad_front(a[:, :-step], step, 1.0)
+        b_prev = _pad_front(b[:, :-step], step)
         b = a * b_prev + b
         a = a * a_prev
         step *= 2
@@ -512,21 +842,21 @@ def apply_rglru(cfg: ModelConfig, p, x, *, cache=None):
     None, ``"collect"`` or the decode state ``{"h", "conv"}`` (the last
     state and the last 3 conv inputs), written in place."""
     b, s, _ = x.shape
-    u = x @ p["w_x"]                                   # [B,S,dr]
+    u = mm(x, p["w_x"])                                # [B,S,dr]
     # jax.nn.gelu's default is the tanh approximation
-    gate = torch.nn.functional.gelu((x @ p["w_gate"]).float(),
+    gate = torch.nn.functional.gelu(mm(x, p["w_gate"]).float(),
                                     approximate="tanh")
     # causal depthwise conv width 4
     if isinstance(cache, dict):
         hist = torch.cat([cache["conv"], u], dim=1)   # [B,3+S,dr]
     else:
-        hist = torch.nn.functional.pad(u, (0, 0, 3, 0))
+        hist = _pad_front(u, 3)
     new_conv = hist[:, -3:]
     u = sum(hist[:, i: i + s] * p["conv"][i] for i in range(4))
 
     uf = u.float()
-    r = torch.sigmoid(uf @ p["w_rec_gate"].float())
-    i = torch.sigmoid(uf @ p["w_in_gate"].float())
+    r = torch.sigmoid(mm(uf, p["w_rec_gate"].float()))
+    i = torch.sigmoid(mm(uf, p["w_in_gate"].float()))
     lam = p["lam"]
     softplus = torch.logaddexp(-lam, torch.zeros_like(lam))   # jax's
     log_a = -8.0 * r * softplus                        # log sigmoid(lam)^(8r)
@@ -543,7 +873,7 @@ def apply_rglru(cfg: ModelConfig, p, x, *, cache=None):
         hs = _linear_scan(a, gated)
         new_cache = {"h": hs[:, -1], "conv": new_conv} \
             if cache == "collect" else None
-    out = (hs * gate).to(x.dtype) @ p["w_out"]
+    out = mm((hs * gate).to(x.dtype), p["w_out"])
     return out, new_cache
 
 
@@ -617,12 +947,41 @@ def _wkv_chunked(r, k, v, w, u, s0):
     return torch.stack(ys, 2).reshape(b, h, t, hd), s
 
 
+def _wkv_step(r, k, v, w, u, s0):
+    """One position of WKV6 from the state ``s0``: (y, the new state)."""
+    y = ((r * u[None, :, None]) * k).sum(-1, keepdim=True) * v + \
+        torch.einsum("bhcd,bhde->bhce", r, s0)
+    sT = w[:, :, 0, :, None] * s0 + \
+        torch.einsum("bhd,bhe->bhde", k[:, :, 0], v[:, :, 0])
+    return y, sT
+
+
+def _wkv(r, k, v, w, u, s0, *, step: bool):
+    """:func:`_wkv_step` or :func:`_wkv_chunked`.  Of DTensors, each rank
+    runs its own rows and heads on plain tensors (the scan is independent
+    a row and a head; its cumulative sums and einsums have no sharding
+    rule in PyTorch 2.11's DTensor)."""
+    core = _wkv_step if step else _wkv_chunked
+    if not isinstance(r, DTensor):
+        return core(r, k, v, w, u, s0)
+    mesh = r.device_mesh
+    pl = [p if p.is_shard(0) or p.is_shard(1) else Replicate()
+          for p in r.placements]
+    heads = [Shard(0) if p.is_shard(1) else Replicate() for p in pl]
+    if not isinstance(s0, DTensor):
+        s0 = DTensor.from_local(s0, mesh, [Replicate()] * mesh.ndim,
+                                run_check=False)
+    return local_map(core, out_placements=(pl, pl),
+                     in_placements=(pl, pl, pl, pl, heads, pl),
+                     redistribute_inputs=True)(r, k, v, w, u, s0)
+
+
 def _shifted(x, cache, key):
     """x one position later: the cache's last input (decode) or zeros in
     front."""
     if isinstance(cache, dict):
         return torch.cat([cache[key][:, None], x[:, :-1]], 1)
-    return torch.nn.functional.pad(x, (0, 0, 1, 0))[:, :-1]
+    return _pad_front(x, 1)[:, :-1]
 
 
 def apply_rwkv_timemix(cfg: ModelConfig, p, x, *, cache=None):
@@ -634,28 +993,26 @@ def apply_rwkv_timemix(cfg: ModelConfig, p, x, *, cache=None):
     hd = d // h
     xprev = _shifted(x, cache, "xa")
     mixes = [x + (xprev - x) * p["mu"][i].to(x.dtype) for i in range(5)]
-    r = (mixes[0] @ p["wr"]).reshape(b, s, h, hd)
-    k = (mixes[1] @ p["wk"]).reshape(b, s, h, hd)
-    v = (mixes[2] @ p["wv"]).reshape(b, s, h, hd)
-    g = silu(mixes[4] @ p["wg"])
-    wlog = p["w0"] + torch.tanh(mixes[3].float() @ p["wA"]) @ p["wB"]
-    w = torch.exp(-torch.exp(wlog)).reshape(b, s, h, hd)   # decay in (0,1)
+    heads = lambda z: split_dim(z, 2, (h, hd))
+    r = heads(mm(mixes[0], p["wr"]))
+    k = heads(mm(mixes[1], p["wk"]))
+    v = heads(mm(mixes[2], p["wv"]))
+    g = silu(mm(mixes[4], p["wg"]))
+    wlog = p["w0"] + mm(torch.tanh(mm(mixes[3].float(), p["wA"])),
+                        p["wB"])
+    w = heads(torch.exp(-torch.exp(wlog)))                 # decay in (0,1)
 
     tb = lambda z: z.transpose(1, 2)                   # [B,H,S,hd]
     rf, kf, vf = (tb(z).float() for z in (r, k, v))
     wf = tb(w)
-    u = p["u"].reshape(h, hd)
+    u = split_dim(p["u"], 0, (h, hd))
     s0 = cache["s"] if isinstance(cache, dict) else \
         torch.zeros((b, h, hd, hd), dtype=torch.float32, device=x.device)
-    if s == 1 and isinstance(cache, dict):              # decode fast path
-        y = ((rf * u[None, :, None]) * kf).sum(-1, keepdim=True) * vf + \
-            torch.einsum("bhcd,bhde->bhce", rf, s0)
-        sT = wf[:, :, 0, :, None] * s0 + \
-            torch.einsum("bhd,bhe->bhde", kf[:, :, 0], vf[:, :, 0])
-    else:
-        y, sT = _wkv_chunked(rf, kf, vf, wf, u, s0)
-    y = y.transpose(1, 2).reshape(b, s, d).to(x.dtype)
-    out = (y * g) @ p["wo"]
+    # one position with a state: the reference's decode fast path
+    y, sT = _wkv(rf, kf, vf, wf, u, s0,
+                 step=s == 1 and isinstance(cache, dict))
+    y = pinned(y.transpose(1, 2).reshape(b, s, d)).to(x.dtype)
+    out = mm(y * g, p["wo"])
     if isinstance(cache, dict):
         cache["s"].copy_(sT)
         cache["xa"].copy_(x[:, -1])
@@ -670,8 +1027,8 @@ def apply_rwkv_channelmix(cfg, p, x, *, cache=None):
     xprev = _shifted(x, cache, "xc")
     mk = x + (xprev - x) * p["mu_c"][0].to(x.dtype)
     mr = x + (xprev - x) * p["mu_c"][1].to(x.dtype)
-    kk = torch.square(torch.relu(mk @ p["ck"]))
-    out = torch.sigmoid(mr @ p["cr"]).to(x.dtype) * (kk @ p["cv"])
+    kk = torch.square(torch.relu(mm(mk, p["ck"])))
+    out = torch.sigmoid(mm(mr, p["cr"])).to(x.dtype) * mm(kk, p["cv"])
     if isinstance(cache, dict):
         cache["xc"].copy_(x[:, -1])
         return out, {"xc": cache["xc"]}

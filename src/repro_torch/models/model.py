@@ -25,6 +25,10 @@ from typing import Any, Dict, List, Optional
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.ops import _checked_device
@@ -33,6 +37,16 @@ from .config import ModelConfig
 
 set_activation_sharder = L.set_activation_sharder
 _shard = L._shard
+
+
+def _on_mesh(fn):
+    """Runs ``fn(cfg, params, ...)`` in :func:`~.layers.mesh_scope` of
+    its parameters, so DTensor parameters need nothing else."""
+    @functools.wraps(fn)
+    def run(cfg, params, *args, **kwargs):
+        with L.mesh_scope(params["embed"]):
+            return fn(cfg, params, *args, **kwargs)
+    return run
 
 
 def layer_kinds(cfg: ModelConfig) -> List[str]:
@@ -158,9 +172,9 @@ def apply_layer(cfg: ModelConfig, kind: str, p, x, *, pos, cache=None,
 
 def _cross_kv(cfg: ModelConfig, p_attn, xv):
     b, sv, _ = xv.shape
-    k = (xv @ p_attn["wk"]).reshape(b, sv, cfg.n_kv_heads, cfg.hd)
-    v = (xv @ p_attn["wv"]).reshape(b, sv, cfg.n_kv_heads, cfg.hd)
-    return k, v
+    heads = lambda w: L.split_dim(L.mm(xv, p_attn[w]), 2,
+                                  (cfg.n_kv_heads, cfg.hd))
+    return heads("wk"), heads("wv")
 
 
 def _frontend(params, feats):
@@ -169,7 +183,7 @@ def _frontend(params, feats):
     (``torch.matmul`` refuses mixed dtypes)."""
     w = params["frontend"]
     dt = torch.promote_types(torch.bfloat16, w.dtype)
-    return feats.to(torch.bfloat16).to(dt) @ w.to(dt)
+    return L.mm(feats.to(torch.bfloat16).to(dt), w.to(dt))
 
 
 def _embed(cfg: ModelConfig, params, batch):
@@ -177,7 +191,7 @@ def _embed(cfg: ModelConfig, params, batch):
     if cfg.frontend == "audio":
         x = _frontend(params, batch["frames"])
     else:
-        x = params["embed"][batch["tokens"].long()]
+        x = L.lookup(params["embed"], batch["tokens"].long())
     xv = _frontend(params, batch["vision"]) if cfg.frontend == "vision" \
         else None
     return _shard("act", x), xv
@@ -186,7 +200,7 @@ def _embed(cfg: ModelConfig, params, batch):
 def _logits(cfg: ModelConfig, params, x):
     x = L.rms_norm(x, params["norm_f"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return _shard("logits", x @ head)
+    return _shard("logits", L.mm(x, head))
 
 
 # --------------------------------------------------------------------------
@@ -195,15 +209,18 @@ def _logits(cfg: ModelConfig, params, x):
 
 def _group(cfg: ModelConfig, layers, x, *, pos, xv):
     """One repetition of ``cfg.group``: returns (x, the sum of its layers'
-    aux losses)."""
-    ax = torch.zeros((), dtype=torch.float32, device=x.device)
-    for kind, p in zip(cfg.group, layers):
-        ckv = _cross_kv(cfg, p["attn"], xv) if kind == "cross" else None
-        x, _, aux = apply_layer(cfg, kind, p, x, pos=pos, cross_kv=ckv)
-        ax = ax + aux
-    return _shard("act", x), ax
+    aux losses).  Sets its own mesh scope: remat runs it again in the
+    backward pass."""
+    with L.mesh_scope(x):
+        ax = torch.zeros((), dtype=torch.float32, device=x.device)
+        for kind, p in zip(cfg.group, layers):
+            ckv = _cross_kv(cfg, p["attn"], xv) if kind == "cross" else None
+            x, _, aux = apply_layer(cfg, kind, p, x, pos=pos, cross_kv=ckv)
+            ax = ax + aux
+        return _shard("act", x), ax
 
 
+@_on_mesh
 def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
             remat: bool = True):
     """Returns (logits [B,S,V], the layers' mean aux loss).  ``batch``:
@@ -238,6 +255,43 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
     return _logits(cfg, params, x), aux_total / max(cfg.n_layers, 1)
 
 
+def _vocab_sharded(lf) -> bool:
+    return isinstance(lf, DTensor) and any(
+        p.is_shard(lf.ndim - 1) and lf.device_mesh.size(i) > 1
+        for i, p in enumerate(lf.placements))
+
+
+def _sharded_label_terms(lf, idx):
+    """(the log-sum-exp over the vocabulary, the label's logit) of float32
+    logits whose vocabulary axis is split over ranks, without gathering
+    it: a max, a sum of exponentials and the label's logit on each
+    rank's slice, added over the ranks.  (DTensor's own gather from a
+    split axis keeps a pending sum that cannot be reduced once the axis
+    is dropped, and its backward makes a zero tensor of the whole
+    logits on every rank.)"""
+    mesh, vdim = lf.device_mesh, lf.ndim - 1
+    m = L.whole(lf.detach().amax(dim=-1, keepdim=True))
+    logz = (m + torch.log(L.whole(torch.exp(lf - m).sum(-1, keepdim=True)))
+            )[..., 0]
+    _, offset = compute_local_shape_and_global_offset(lf.shape, mesh,
+                                                      lf.placements)
+    first, width = offset[vdim], lf.to_local().shape[vdim]
+
+    def pick(lf_local, idx_local):
+        j = idx_local - first
+        here = (j >= 0) & (j < width)
+        got = torch.gather(lf_local, -1, torch.where(here, j, 0)[..., None])
+        return torch.where(here, got[..., 0], 0.0)
+
+    rows = [Replicate() if p.is_shard(vdim) else p for p in lf.placements]
+    out = [Partial() if p.is_shard(vdim) else p for p in lf.placements]
+    ll = local_map(pick, out_placements=out,
+                   in_placements=(lf.placements, rows),
+                   redistribute_inputs=True)(lf, idx)
+    return logz, L.whole(ll)
+
+
+@_on_mesh
 def loss_fn(cfg: ModelConfig, params, batch, *, remat: bool = True):
     """The mean next-token cross-entropy over the labels ``>= 0`` (in
     float32) plus 0.01 x the aux loss; returns (loss, {"nll", "aux"}).  A
@@ -245,15 +299,19 @@ def loss_fn(cfg: ModelConfig, params, batch, *, remat: bool = True):
     logits, aux = forward(cfg, params, batch, remat=remat)
     labels = batch["labels"].long()
     lf = logits.float()
-    logz = torch.logsumexp(lf, dim=-1)
     idx = torch.where(labels < 0, labels + lf.shape[-1], labels)
-    ll = torch.gather(lf, -1, idx[..., None])[..., 0]
+    if _vocab_sharded(lf):
+        logz, ll = _sharded_label_terms(lf, idx)
+    else:
+        logz = torch.logsumexp(lf, dim=-1)
+        ll = torch.gather(lf, -1, idx[..., None])[..., 0]
     mask = (labels >= 0).float()
     nll = ((logz - ll) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return nll + 0.01 * aux, {"nll": nll, "aux": aux}
 
 
 @torch.no_grad()
+@_on_mesh
 def prefill(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
     """Inference prefill: the full-sequence forward that also emits each
     layer's decode cache; returns (last-position logits [B,V], caches).
@@ -261,12 +319,15 @@ def prefill(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
     x, xv = _embed(cfg, params, batch)
     b, s, _ = x.shape
     pos = torch.arange(s, device=x.device).expand(b, s)
+    base, width = len(cfg.prefix), len(cfg.group)
     caches = []
-    for kind, p in zip(layer_kinds(cfg), params["layers"]):
+    for i, (kind, p) in enumerate(zip(layer_kinds(cfg), params["layers"])):
         ckv = _cross_kv(cfg, p["attn"], xv) if kind == "cross" else None
         x, nc, _ = apply_layer(cfg, kind, p, x, pos=pos, cache="collect",
                                cross_kv=ckv)
         caches.append(nc)
+        if i >= base and (i - base) % width == width - 1:
+            x = _shard("act", x)                # a group's end
     return _logits(cfg, params, x[:, -1:])[:, 0], caches
 
 
@@ -331,6 +392,7 @@ def seq_len(cache: dict) -> Optional[int]:
 
 
 @torch.no_grad()
+@_on_mesh
 def decode_step(cfg: ModelConfig, params, caches: List[dict], token,
                 pos_idx: int, vision=None):
     """One decode step.  token [B], ``pos_idx`` the position (an int on
@@ -345,7 +407,7 @@ def decode_step(cfg: ModelConfig, params, caches: List[dict], token,
             raise ValueError(f"position {pos_idx} is outside the "
                              f"{n}-position cache")
     b = token.shape[0]
-    x = params["embed"][token.long()][:, None]
+    x = L.lookup(params["embed"], token.long())[:, None]
     pos = torch.full((b, 1), int(pos_idx), dtype=torch.long,
                      device=x.device)
     xv = _frontend(params, vision) if cfg.frontend == "vision" else None

@@ -13,7 +13,9 @@ the reference's tree rather than the port's flat layer list:
 
 * :func:`global_norm` sums the leaves' squared sums in the reference's
   leaf order (:func:`~repro_torch.models.convert.reference_leaves`), a
-  stacked group leaf's layers one after another;
+  stacked group leaf's layers one after another (of DTensor leaves, each
+  rank sums its own blocks in that order, and one all-reduce adds the
+  ranks' sums);
 * weight decay applies to a leaf of ``ndim >= 2`` *as the reference
   stacks it*: a group's norm vector ``[d]`` is a ``[n_groups, d]`` leaf
   there and decays, the same vector in the prefix does not.
@@ -26,6 +28,7 @@ import math
 from typing import Any, Dict
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..models import convert
 
@@ -91,6 +94,25 @@ def _chunks(n: int):
 @torch.no_grad()
 def _update_leaf(cfg: AdamWConfig, g, m, v, p, scale, lr, b1c, b2c,
                  decay: float) -> None:
+    """One leaf, in place.  DTensors: each rank updates its own blocks,
+    the gradient laid out as the moments; a parameter laid out otherwise
+    (the dry run's vocabulary-sharded embedding beside moments sharded on
+    d_model) is updated in the moments' layout and copied back."""
+    if isinstance(p, DTensor):
+        g = g.redistribute(m.device_mesh, m.placements)
+        pm = p if p.placements == m.placements else \
+            p.redistribute(m.device_mesh, m.placements)
+        _update_local(cfg, *(t.to_local() for t in (g, m, v, pm)), scale,
+                      lr, b1c, b2c, decay)
+        if pm is not p:
+            p.to_local().copy_(
+                pm.redistribute(p.device_mesh, p.placements).to_local())
+        return
+    _update_local(cfg, g, m, v, p, scale, lr, b1c, b2c, decay)
+
+
+def _update_local(cfg: AdamWConfig, g, m, v, p, scale, lr, b1c, b2c,
+                  decay: float) -> None:
     shrink = 1 - lr * decay
     g, m, v, p = (t.reshape(-1) for t in (g, m, v, p))
     for sl in _chunks(p.numel()):
@@ -115,12 +137,15 @@ def update(cfg: AdamWConfig, grads, state, params):
     lr = schedule(cfg, step)
     b1c = 1 - cfg.b1 ** step.float()
     b2c = 1 - cfg.b2 ** step.float()
+    # the same on every rank: each rank's own blocks take them as they are
+    consts = [c.to_local() if isinstance(c, DTensor) else c
+              for c in (scale, lr, b1c, b2c)]
     trees = [convert.reference_leaves(mcfg, t)
              for t in (params, state["m"], state["v"])]
     for (path, gs), (_, ps), (_, ms), (_, vs) in zip(g_leaves, *trees):
         for g, p, m, v in zip(gs, ps, ms, vs):
             ndim = p.dim() + convert.stacked(path)
             decay = cfg.weight_decay if ndim >= 2 else 0.0
-            _update_leaf(cfg, g, m, v, p, scale, lr, b1c, b2c, decay)
+            _update_leaf(cfg, g, m, v, p, *consts, decay)
     return params, {"m": state["m"], "v": state["v"], "step": step}, \
         {"grad_norm": gn, "lr": lr}

@@ -59,6 +59,30 @@ def test_no_jax_and_no_reference_imports(path):
         assert not name.startswith("."), (path, name)   # escapes src/
 
 
+#: The port's meshes, shardings, elastic re-meshing, compressed all-reduce
+#: and the dry run with its census.
+DISTRIBUTION = ("launch/mesh.py", "launch/sharding.py", "launch/dryrun.py",
+                "launch/hlo_census.py", "runtime/elastic.py",
+                "optim/compression.py")
+
+
+@pytest.mark.parametrize("name", DISTRIBUTION)
+def test_distribution_modules_set_no_xla_flags(name):
+    """The reference's dry run sets ``XLA_FLAGS`` when it is imported, to
+    fake 512 host devices; the port's fakes its ranks with a process
+    group and touches no environment variable of XLA."""
+    assert "XLA_FLAGS" not in (PKG / name).read_text()
+
+
+def test_the_port_keeps_the_reference_s_module_names():
+    """Every module of ``repro`` has its counterpart of the same path in
+    ``repro_torch``, so a reader finds one from the other."""
+    ref = ROOT / "src" / "repro"
+    missing = [p.relative_to(ref).as_posix() for p in sorted(ref.rglob("*.py"))
+               if not (PKG / p.relative_to(ref)).exists()]
+    assert missing == []
+
+
 def test_the_scan_sees_the_whole_package():
     names = {p.relative_to(PKG).as_posix() for p in SOURCES if PKG in p.parents}
     assert {"core/gates.py", "core/pim_numerics.py", "kernels/ops.py",
@@ -74,6 +98,7 @@ def test_the_scan_sees_the_whole_package():
             "launch/steps.py"} <= names
     assert {"optim/adamw.py", "data/pipeline.py", "checkpoint/manager.py",
             "runtime/train_loop.py", "launch/train.py"} <= names
+    assert set(DISTRIBUTION) <= names
     assert (ROOT / "examples_torch" / "train_lm.py") in SOURCES
     for script in ("quickstart.py", "pim_linear_inference.py", "pim_gemv.py",
                    "pim_serving.py", "pim_streaming.py"):
