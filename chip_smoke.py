@@ -24,8 +24,11 @@ Phases, each of which raises (exit code 1) on failure:
    bit-exactly (``torch.equal``): the slot scan (B1), the level gather
    (B3), the static-slice kernels (B2) and the gate-serial kernel (B4),
    under rows32 and rows64, the ring kernels (B3, B4) on long streams
-   and at fewer than 32 words per CTA, and the slot scan at slot widths
-   4 and 8; and the check fold of verified execution (B6) on fused
+   and at fewer than 32 words per CTA, the slot scan at slot widths 4 and
+   8 and past 8 lanes (slot widths 12, 16, 32 and 64, whose levels take 2
+   to 8 windows of at most 8 records each; io at 16; rows64 at 16), the
+   level gather at dense caps 16, 32 and 64, and B2 at slot width 16
+   under both layouts; and the check fold of verified execution (B6) on fused
    blocks of 1, 31, 32 and 33 ports at 1000, 1 Mi and 16 Mi rows and on
    packed rows32 and rows64 blocks of 1, 33 and 64 cells and odd word
    counts, also against numpy's XOR reduction of the host copy;
@@ -35,8 +38,10 @@ Phases, each of which raises (exit code 1) on failure:
    ``pim_ufunc.fp_add`` on float32 at 64 Mi rows (the paper's 8 GB of
    1024x1024 crossbars) under the default slot schedule, ``dense``,
    ``slots-static`` and ``rows64`` (and the last two schedules under
-   rows64); ``pim_ufunc.add`` on uint32 at 4 Mi rows (the io branch) under
-   the slot and dense schedules, rows32 and rows64; and
+   rows64), and under plans retuned to the widths of :data:`WIDE_MAIN`
+   (B1 at slot widths 8, 12, 16 and 32, B3 at dense caps 16 and 32, B2 at
+   slot width 16); ``pim_ufunc.add`` on uint32 at 4 Mi rows (the io
+   branch) under the slot and dense schedules, rows32 and rows64; and
    ``ops.run_program(..., levelized=False)`` on fp32 add at 4 Mi rows (the
    gate-serial path carries the whole state through the host);
 5. the streaming pipeline: the main path's run profiled with
@@ -172,7 +177,8 @@ Phases, each of which raises (exit code 1) on failure:
 10. time each kernel entry at one chunk of 1 Mi rows beside its plain
    version, one PyTorch library call computing the same function, and its
    bound, with its launch attributes (CTAs an SM, registers, local bytes),
-   and the check fold on a fused and a packed chunk;
+   B1, B3 and B2 on fp32 add also at the widths of :data:`WIDE_MAIN`, and
+   the check fold on a fused and a packed chunk;
 11. examples: each PIM script of ``examples_torch/`` (quickstart, the int8
    linear layer, fusion with ``dot``/``gemv``, batched serving, streaming
    at 1 Mi rows) run on the card in process (:func:`examples_phase`), its
@@ -297,15 +303,19 @@ def resolved(program, backend: str = "cuda", pkg=None, schedule=None,
 
 
 def operands(program, kind: str = "slots", planes: int = 1,
-             slot_width=None):
+             slot_width=None, cap=None):
     """One program's schedule of ``kind`` ('slots' or 'dense', the slots at
-    ``slot_width`` if given) with every operand its kernel entries take,
-    on the card, with its packed stream and the ring kernels' CTA width --
-    built directly, not through ``resolve``, so that each entry runs the
-    schedule it is named for whatever the dispatcher would pick."""
+    ``slot_width`` and the dense schedule at width cap ``cap`` if given)
+    with every operand its kernel entries take, on the card, with its
+    packed stream and the ring kernels' CTA width -- built directly, not
+    through ``resolve``, so that each entry runs the schedule it is named
+    for whatever the dispatcher would pick."""
     from repro_torch.kernels import ops, pim_exec, plan as kplan
-    backend = kplan.BACKENDS["cuda"] if slot_width is None else \
-        kplan.Backend("cuda", slot_width=slot_width)
+    backend = kplan.BACKENDS["cuda"]
+    if slot_width is not None:
+        backend = dataclasses.replace(backend, slot_width=slot_width)
+    if cap is not None:
+        backend = dataclasses.replace(backend, level_max_width=cap)
     plan = kplan.as_plan(backend=backend, device="cuda", schedule=kind)
     s = ops.compiled(program, plan).get_schedule(program, plan)
     in_names = sorted(program.in_ports)
@@ -421,17 +431,29 @@ def programs():
 
 
 def program_of(progs, name: str) -> tuple:
-    """(program, slot width or None) of a check's program name: "fp32
-    add@4" is fp32 add levelized at slot width 4."""
+    """(program, slot width or None, dense cap or None) of a check's
+    program name: "fp32 add@4" is fp32 add levelized at slot width 4,
+    "fp32 add@cap16" its dense schedule capped at 16 lanes."""
     base, _, width = name.partition("@")
-    return progs[base], int(width) if width else None
+    if width.startswith("cap"):
+        return progs[base], None, int(width[3:])
+    return progs[base], int(width) if width else None, None
+
+
+def schedule_of(progs, name: str, kind: str, planes: int = 1):
+    """:func:`operands` of the program a check or timed row names."""
+    prog, slot_width, cap = program_of(progs, name)
+    return operands(prog, kind, planes, slot_width, cap)
 
 
 #: Phase 3: (entry, program, fused, rows, planes): the slot scan, the
 #: level gather, the static kernels, the gate-serial kernel, then rows64,
 #: then the ring kernels on long streams (fp32 mul: 23 tiles for B4) and at
 #: fewer than 32 words per CTA (int-parallel div64, 25354 cells: 2), then
-#: the slot scan at slot widths 4 and 8 (windows of 4 and 8 records).
+#: the slot scan at slot widths 4 and 8 (windows of 4 and 8 records), then
+#: levels past a window: slot widths 12, 16, 32 and 64 (each level split
+#: into 2, 2, 4 and 8 windows of at most 8 records), the level gather at
+#: dense caps 16, 32 and 64, and B2 at slot width 16.
 CHECKS = [
     ("slot_scan", "fp16 add", True, 1 << 20, 1),
     ("slot_scan", "fp32 add", True, 1 << 20, 1),
@@ -481,13 +503,25 @@ CHECKS = [
     ("slot_scan", "fp32 mul@8", True, 1 << 20, 1),
     ("slot_scan", "uint32 add@4", False, 1 << 20, 1),
     ("slot_scan", "uint32 add@8", False, (1 << 20) + 77, 2),
+    ("slot_scan", "fp32 add@8", True, (1 << 20) + 3, 1),
+    ("slot_scan", "fp32 add@12", True, (1 << 20) + 3, 1),
+    ("slot_scan", "fp32 add@16", True, (1 << 20) + 3, 1),
+    ("slot_scan", "fp32 add@32", True, (1 << 20) + 3, 1),
+    ("slot_scan", "fp32 add@64", True, (1 << 20) + 3, 1),
+    ("slot_scan", "uint32 mul@16", False, (1 << 20) + 77, 1),
+    ("slot_scan", "fp32 add@16", True, (1 << 20) + 37, 2),
+    ("level_gather", "fp32 add@cap16", True, (1 << 20) + 3, 1),
+    ("level_gather", "fp32 add@cap32", True, (1 << 20) + 3, 1),
+    ("level_gather", "fp32 add@cap64", True, (1 << 20) + 3, 1),
+    ("slots_static", "fp32 add@16", True, (1 << 20) + 5, 1),
+    ("slots_static", "fp32 add@16", True, (1 << 20) + 37, 2),
 ]
 
 
 def static_kernels(progs) -> dict:
     """The B2 kernels phase 3 and the main path run, by (program, planes)."""
     return {(name, planes): static_kernel(
-        operands(progs[name], "slots", planes))
+        schedule_of(progs, name, "slots", planes))
         for entry, name, _, _, planes in CHECKS if entry == "slots_static"}
 
 
@@ -519,7 +553,7 @@ def check_kernels(progs, statics) -> dict:
     rng = np.random.default_rng(SEED)
     worst = {}
     for entry, name, fused, rows, planes in CHECKS:
-        prog, slot_width = program_of(progs, name)
+        prog = program_of(progs, name)[0]
         if entry == "gate_serial":
             state, gates, packed = gate_serial_case(prog, rows, rng)
             got = pim_exec.gate_serial(state, *gates, packed=packed)
@@ -531,7 +565,7 @@ def check_kernels(progs, statics) -> dict:
                         state.shape[0] + pim_exec.GATE_CONSTANTS)))
         else:
             kind = "dense" if entry == "level_gather" else "slots"
-            c = operands(prog, kind, planes, slot_width)
+            c = schedule_of(progs, name, kind, planes)
             static = statics[(name, planes)] if entry == "slots_static" \
                 else None
             x = random_inputs(c, rows, fused, rng)
@@ -540,12 +574,16 @@ def check_kernels(progs, statics) -> dict:
             want = run_entry(c, x, fused, False, static)
             wpc = static.wpc if static else c.wpc
             info = (f"levels={c.sched.n_levels} width={c.sched.width} "
-                    f"windows of {c.packed.width} cells={c.sched.n_cells} "
-                    f"words_per_cta={wpc} one_cell={c.one_cell}")
+                    f"windows={c.packed.n_windows} of {c.packed.width} "
+                    f"cells={c.sched.n_cells} words_per_cta={wpc} "
+                    f"one_cell={c.one_cell}")
         key = entry_key(entry, fused, planes)
         err = int((got.long() - want.long()).abs().max()) if got.numel() \
             else 0
         worst[key] = max(worst.get(key, 0), err)
+        if "@" in name:            # the timed rows of a width read theirs
+            at = f"{key}@{name.partition('@')[2]}"
+            worst[at] = max(worst.get(at, 0), err)
         same = torch.equal(got, want)
         print(f"check {key} {name}: rows={rows} {info} equal={same}",
               flush=True)
@@ -628,12 +666,34 @@ def _main_run(label: str, key: str, fn, want) -> tuple:
     return ran[key], s
 
 
+#: The main path under plans retuned to other widths (Backend field,
+#: width, schedule, the entry it launches): B1 at slot widths 8, 12, 16 and
+#: 32 (levels of 1, 2, 2 and 4 windows), B3 at dense caps 16 and 32, B2 at
+#: slot width 16.  Their launches are recorded as the entry's
+#: name with the width (``slot_scan_fused@16``, ``level_gather_fused@cap16``).
+WIDE_MAIN = [
+    ("slot_width", 8, None, "slot_scan_fused"),
+    ("slot_width", 12, None, "slot_scan_fused"),
+    ("slot_width", 16, None, "slot_scan_fused"),
+    ("slot_width", 32, None, "slot_scan_fused"),
+    ("level_max_width", 16, "dense", "level_gather_fused"),
+    ("level_max_width", 32, "dense", "level_gather_fused"),
+    ("slot_width", 16, "slots-static", "slots_static_fused"),
+]
+
+
+def width_tag(field: str, width: int) -> str:
+    """The suffix a width gives a program or entry name: "@16" for a slot
+    width, "@cap16" for a dense cap."""
+    return f"@cap{width}" if field == "level_max_width" else f"@{width}"
+
+
 def main_path() -> dict:
     """Phase 4: the public entry points at full size.  Returns the
     launches of each kernel entry in its run and the walls."""
     from repro_torch import pim_ufunc as pim
     from repro_torch.core.pim_numerics import program_for
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, plan as kplan
     rng = np.random.default_rng(SEED)
     a = rng.standard_normal(MAIN_ROWS).astype(np.float32)
     b = rng.standard_normal(MAIN_ROWS).astype(np.float32)
@@ -653,6 +713,14 @@ def main_path() -> dict:
         label = f"fp_add fp32 rows={MAIN_ROWS} {kw or 'default'}"
         launches[key], walls[label] = _main_run(
             label, key, lambda: pim.fp_add(a, b, **kw), want)
+    for field, width, schedule, key in WIDE_MAIN:
+        plan = kplan.as_plan(backend=kplan.Backend("cuda", **{field: width}),
+                             schedule=schedule)
+        pim.prepare("fp_add", a[:1], b[:1], plan=plan).warm()
+        label = (f"fp_add fp32 rows={MAIN_ROWS} Backend('cuda', "
+                 f"{field}={width}) schedule={plan.schedule}")
+        launches[key + width_tag(field, width)], walls[label] = _main_run(
+            label, key, lambda: pim.fp_add(a, b, plan=plan), want)
 
     x = rng.integers(0, 1 << 32, IO_ROWS, dtype=np.uint64).astype(np.uint32)
     y = rng.integers(0, 1 << 32, IO_ROWS, dtype=np.uint64).astype(np.uint32)
@@ -3740,6 +3808,16 @@ INFO: dict = {}
 STATIC_INFO: dict = {}
 
 
+def ring_info(body: int):
+    """The KernelInfo of the level kernel (B1 and B3) at window body
+    ``body``: the main-path instance of that body (6 records for B1, 8
+    for B3)."""
+    for entry in ("slot_scan", "level_gather"):
+        if INFO_KERNELS[entry].startswith(f"ring::level_kernel<{body},"):
+            return INFO[entry]
+    raise KeyError(f"no launch attributes of a {body}-record body")
+
+
 def cta_shape(entry: str, n_cells: int, planes: int = 1, static=None,
               pim_exec=None) -> dict:
     """The CTA of ``entry`` at the rule's width for a state of ``n_cells``
@@ -3811,6 +3889,13 @@ TIMED = [
     ("level_gather", "uint32 add", False, 2),
     ("slots_static", "fp32 add", True, 2),
     ("gate_serial", "fp32 add", None, 1),
+    ("slot_scan", "fp32 add@8", True, 1),
+    ("slot_scan", "fp32 add@12", True, 1),
+    ("slot_scan", "fp32 add@16", True, 1),
+    ("slot_scan", "fp32 add@32", True, 1),
+    ("level_gather", "fp32 add@cap16", True, 1),
+    ("level_gather", "fp32 add@cap32", True, 1),
+    ("slots_static", "fp32 add@16", True, 1),
 ]
 
 
@@ -3827,7 +3912,9 @@ def measure(progs, statics, chunk_rows: int, launches: dict, worst: dict,
     rows = []
     for entry, name, fused, planes in TIMED:
         key = entry_key(entry, fused, planes)
-        prog = progs[name]
+        if "@" in name:
+            key += "@" + name.partition("@")[2]
+        prog = program_of(progs, name)[0]
         if entry == "gate_serial":
             # the packed stream is made here, outside the timed launches
             state, gates, packed = gate_serial_case(prog, n, rng)
@@ -3846,7 +3933,7 @@ def measure(progs, statics, chunk_rows: int, launches: dict, worst: dict,
             attrs = launch_attrs(INFO[entry], 1, False, cta)
         else:
             kind = "dense" if entry == "level_gather" else "slots"
-            c = operands(prog, kind, planes)
+            c = schedule_of(progs, name, kind, planes)
             static = statics[(name, planes)] if entry == "slots_static" \
                 else None
             x = random_inputs(c, n, fused, rng)
@@ -3860,7 +3947,11 @@ def measure(progs, statics, chunk_rows: int, launches: dict, worst: dict,
             smem = 12 * lanes * n_words
             shape = (f"levels={s.n_levels} width={s.width} lanes={lanes} "
                      f"cells={s.n_cells}")
-            info = STATIC_INFO[(name, planes)] if static else INFO[entry]
+            if not static:
+                shape += (f" windows={c.packed.n_windows} of "
+                          f"{c.packed.width} records")
+            info = STATIC_INFO[(name, planes)] if static else \
+                ring_info(c.packed.width)
             attrs = launch_attrs(info, planes, fused,
                                  cta_shape(entry, s.n_cells, planes, static))
         if fused is False:

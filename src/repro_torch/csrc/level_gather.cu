@@ -8,10 +8,12 @@
 // word layouts: rows32 (planes = 1) and rows64 (planes = 2).
 //
 // What it computes.  A dense schedule (levelize's "scan" allocation) has
-// levels of up to 8 lanes; per level every lane k reads cells a[k] and b[k]
-// and writes ~(a | b) to o[k], all reads before any write.  The packed
-// stream (kernels/pim_exec.py `pack_levels`) holds one window a level, its
-// lanes in uint16 cells; the schedule's pad lanes only read the sink and
+// levels of up to its width cap of lanes (8 by default); per level every
+// lane k reads cells a[k] and b[k] and writes ~(a | b) to o[k], all reads
+// before any write.  The packed stream (kernels/pim_exec.py `pack_levels`)
+// holds one window a level, its lanes in uint16 cells, or a level wider
+// than 8 lanes as consecutive windows of at most 8 (exact since no level
+// reads a cell it writes); the schedule's pad lanes only read the sink and
 // write sink cells that no port and no real lane reads.
 //
 // Shape on Hopper: the level kernel of ring.cuh, which the slot scan (B1)

@@ -11,13 +11,16 @@
 // (all zeros, all ones).  Records come in windows of K (2, 4, 6 or 8)
 // consecutive gates, and the loop reads every operand of a window before
 // it stores any result, so a window is one step of the schedule: a slot
-// level, whose band may overwrite cells its own lanes read; a dense level;
-// or a run of the gate-serial stream with no gate reading or writing a
-// cell another gate of it writes.  The gates of a window write distinct
-// cells, but a window of fewer gates repeats its last gate, which stores
-// the same value to the same cell again; n, the window's own gates, is on
-// its first record for the reader's sake.  A tile holds kPerTile windows
-// from its first record on, and its last kWin records are zero.
+// or dense level, or a run of the gate-serial stream with no gate reading
+// or writing a cell another gate of it writes.  A level wider than kWin
+// lanes takes several consecutive windows.  That is exact because both
+// packages' allocators keep levels free of hazards: no level reads a cell
+// it writes, pad lanes included (the packer checks it for every level it
+// splits).  The gates of a window write distinct cells, but a window of
+// fewer gates repeats its last gate, which stores the same value to the
+// same cell again; n, the window's own gates, is on its first record for
+// the reader's sake.  A tile holds kPerTile windows from its first record
+// on, and its last kWin records are zero.
 //
 // Ring.  Two tile slots and one mbarrier each, after the state in dynamic
 // shared memory.  Thread 0 fetches each tile with one TMA bulk copy
@@ -47,7 +50,7 @@
 
 namespace ring {
 
-constexpr int kWin = PIM_LEVEL_MAX_WIDTH;   // records a window holds at most
+constexpr int kWin = PIM_MAX_WINDOW;        // records a window holds at most
 constexpr int kRecords = PIM_TILE_RECORDS;  // records a tile holds
 constexpr int kTileBytes = 8 * kRecords;
 constexpr int kSlots = 2;

@@ -7,20 +7,21 @@
 // around it.  Both word layouts: rows32 (planes = 1) and rows64 (planes = 2).
 //
 // What it computes.  A slot schedule has `n_levels` levels of W lanes (any
-// slot width from 1 to 8; both packages levelize at 6 by default).  The
-// kernel zeroes the state, writes the input cells, sets the folded INIT1
-// cell `one_cell` to all ones, then for every level l reads the 2W cells
-// `la[l]`, `lb[l]` and writes `~(a | b)` as one contiguous band of W cells
-// starting at `lo[l, 0]`; the band may overwrite cells the level reads, so
-// every operand is read first.  Finally it emits the output cells
-// `out_idx`.
+// slot width; both packages levelize at 6 by default).  The kernel zeroes
+// the state, writes the input cells, sets the folded INIT1 cell `one_cell`
+// to all ones, then for every level l reads the 2W cells `la[l]`, `lb[l]`
+// and writes `~(a | b)` as one contiguous band of W cells starting at
+// `lo[l, 0]`; every operand of a window is read before any result is
+// stored.  Finally it emits the output cells `out_idx`.
 //
 // Shape on Hopper: the level kernel of ring.cuh, which the level gather
 // (B3) runs too.  The schedule comes packed once per program
 // (kernels/pim_exec.py `pack_slots`): one window a level, lane k writing
-// cell lo[l, 0] + k, the windows of 2, 4, 6 or 8 records streamed into shared
-// memory by TMA bulk copies and read one level ahead of their use, so no
-// index load sits on a level's load-NOR-store chain.  One thread owns one
+// cell lo[l, 0] + k (a level wider than 8 lanes as consecutive windows of at
+// most 8, exact since no level reads its own band), the windows of 2, 4,
+// 6 or 8 records streamed into shared memory by TMA bulk copies and read
+// one window ahead of their use, so no index load sits on a level's
+// load-NOR-store chain.  One thread owns one
 // word column of the state in shared memory; a CTA holds as many columns
 // as fit beside the ring, spread over four warps (`ring_words_per_cta`,
 // `ring_lanes`), and the fused bridges of pim_state.cuh transpose 32 rows

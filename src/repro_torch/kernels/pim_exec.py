@@ -58,7 +58,7 @@ import torch
 
 from . import ref as kref
 from . import slots as kslots
-from .plan import LEVEL_MAX_WIDTH, SLOT_SEG_LEVELS
+from .plan import SLOT_SEG_LEVELS
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -74,9 +74,11 @@ BUILD_DIR = _PKG.parent.parent / "build" / "repro_torch"
 CUDA_HOME = os.environ.get("CUDA_HOME", "/usr/local/cuda")
 #: Records (8 B each) of one tile of a packed stream (ring.cuh kRecords).
 TILE_RECORDS = 512
-#: Most gates one window of a packed stream holds (ring.cuh kWin): a slot
-#: or dense level's lanes, or a run of independent gate-serial gates.
-WINDOW = LEVEL_MAX_WIDTH
+#: Most gates one window of a packed stream holds (ring.cuh kWin,
+#: ``-DPIM_MAX_WINDOW``), and the zero records at the end of a tile: a
+#: slot or dense level's lanes, or a run of independent gate-serial gates.
+#: A level wider than this takes consecutive windows (:func:`level_windows`).
+WINDOW = 8
 #: Most gates a window of B4's stream holds.  The kernel's window body is
 #: as wide as the stream's widest window (2, 4, 6 or 8 gates) and runs every
 #: lane of it, and gate-serial windows are short (1.6 gates on average on
@@ -101,7 +103,7 @@ RING_MAX_THREADS = 256
 MAX_THREADS = 1024
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-              f"-DPIM_LEVEL_MAX_WIDTH={LEVEL_MAX_WIDTH}",
+              f"-DPIM_MAX_WINDOW={WINDOW}",
               f"-DPIM_TILE_RECORDS={TILE_RECORDS}")
 
 #: Kernel launches per entry (a launch is counted where it is issued);
@@ -449,9 +451,11 @@ class Packed:
     """A packed stream (``csrc/ring.cuh``): ``tiles`` int32[n_tiles,
     2 * TILE_RECORDS], each record the uint16 (a, b, o, n) of one NOR gate
     ``o <- ~(a | b)``.  The ``n_windows`` windows take ``width`` records
-    each (2, 4, 6 or 8: the kernel's window body), ``(TILE_RECORDS - WINDOW)
-    // width`` to a tile; a window of fewer gates repeats its last gate,
-    and ``n`` is the window's own gates on its first record, 0 elsewhere.
+    each (2, 4, 6 or 8: the kernel's window body), ``(TILE_RECORDS -
+    WINDOW) // width`` to a tile; a window of fewer gates repeats its last
+    gate, and ``n`` is the window's own gates on its first record, 0
+    elsewhere.  A level wider than :data:`WINDOW` lanes takes consecutive
+    windows, so ``n_windows`` counts windows, not levels.
     ``n_gates`` counts the stream's own gates."""
     tiles: torch.Tensor
     n_windows: int
@@ -469,11 +473,31 @@ class Packed:
 def window_width(n: int) -> int:
     """Records a window of up to ``n`` gates takes: 2, 4, 6 or 8, the
     kernels' window bodies (ring.cuh ``with_width``; 6 is the default slot
-    width)."""
+    width).  A wider level is split first (:func:`level_windows`)."""
     if not 0 <= n <= WINDOW:
-        raise ValueError(f"a window holds 1 to {WINDOW} gates (a level 1 "
-                         f"to {WINDOW} lanes), got {n}")
+        raise ValueError(f"a window holds 1 to {WINDOW} gates, got {n}")
     return 2 if n <= 2 else 4 if n <= 4 else 6 if n <= 6 else 8
+
+
+def level_windows(width: int) -> list:
+    """Gates of each window a level of ``width`` lanes takes, in order:
+    one window, or the fewest windows of at most :data:`WINDOW` lanes,
+    as even as they come (a level of 12 lanes: 6 and 6)."""
+    n = max(-(-int(width) // WINDOW), 1)
+    return [width // n + (i < width % n) for i in range(n)]
+
+
+def _check_hazard_free(a, b, o) -> None:
+    """Raise unless no level (row) of ``a/b/o`` reads a cell it writes:
+    what makes a level split into consecutive windows run as the level
+    does.  Both packages' allocators keep this for every level, pad lanes
+    included (``core.gates.levelize``)."""
+    n_levels = a.shape[0]
+    span = int(max(a.max(), b.max(), o.max())) + 1
+    row = np.arange(n_levels, dtype=np.int64)[:, None] * span
+    if np.isin(o + row, np.concatenate([a + row, b + row])).any():
+        raise ValueError("a level wider than a window reads a cell it "
+                         "writes: its windows would not run as the level")
 
 
 def _pack(a, b, o, lens) -> Packed:
@@ -542,22 +566,30 @@ def _cells_fit(n_cells: int, constants: int = 0) -> None:
 
 def pack_levels(a, b, o, *, n_cells: int) -> Packed:
     """B3's stream of a dense schedule ``a/b/o`` [n_levels, width]: one
-    window a level, of all its lanes.  The pad lanes write sink cells that
-    no port and no real lane reads, and the kernel runs a window's every
-    lane at one cost, so they stay."""
+    window a level, of all its lanes, or a level wider than
+    :data:`WINDOW` lanes as the consecutive windows of
+    :func:`level_windows` (raises if such a level reads a cell it writes).
+    The pad lanes write sink cells that no port and no real lane reads,
+    and the kernel runs a window's every lane at one cost, so they stay."""
     _cells_fit(n_cells)
     a, b, o = (np.asarray(x, np.int64) for x in (a, b, o))
     n_levels, width = a.shape
-    return _pack(a, b, o, np.full(n_levels, width, np.int64))
+    lens = level_windows(width)
+    if n_levels and len(lens) > 1:
+        _check_hazard_free(a, b, o)
+    return _pack(a, b, o, np.tile(np.asarray(lens, np.int64), n_levels))
 
 
 def pack_slots(la, lb, lo, *, n_cells: int) -> Packed:
     """B1's stream of a slot schedule ``la/lb/lo`` [n_levels, W]: one
-    window a level of all its W lanes, lane k writing cell ``lo[l, 0] +
-    k`` of the level's band, as the plain version writes the whole band.
-    A band may overwrite cells its own level reads: the kernel reads every
-    operand of a window before it stores any, which is the level's
-    meaning."""
+    window a level of all its W lanes (or the windows of
+    :func:`level_windows`, as :func:`pack_levels` lays them), lane k
+    writing cell ``lo[l, 0] + k`` of the level's band, as the plain
+    version writes the whole band.  The kernel reads every operand of a
+    window before it stores any, so a level in one window runs as the
+    level even where its band overwrites cells it reads; no schedule of
+    either package's allocator has such a level, and a level split over
+    windows must not."""
     lo = np.asarray(lo, np.int64)
     band = lo[:, :1] + np.arange(lo.shape[1])
     return pack_levels(la, lb, band, n_cells=n_cells)
@@ -593,6 +625,9 @@ def pack_gates(ops, a, b, o, *, n_cells: int, window: int = GATE_WINDOW
     cell ``n_cells`` (all zeros) twice, INIT0 the constant cell
     ``n_cells + 1`` (all ones), which the kernel keeps after the state."""
     _cells_fit(n_cells, constants=GATE_CONSTANTS)
+    if not 1 <= window <= WINDOW:
+        raise ValueError(f"the gate-serial kernel runs windows of 1 to "
+                         f"{WINDOW} gates, got {window}")
     ops = np.asarray(ops)
     const = np.where(ops == 1, n_cells, n_cells + 1)
     a2 = np.where(ops >= 2, a, const)
@@ -625,20 +660,15 @@ def _check(device, **tensors) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def _schedule_args(la, lb, lo, dense: bool = False):
-    """(n_levels, width) of the schedule operands; refuses a width wider
-    than a window of the packed stream (a gate-free schedule passes at any
-    width)."""
+def _schedule_args(la, lb, lo):
+    """(n_levels, width) of the schedule operands, which must share one
+    2-D shape; the kernels run any width (a level wider than a window as
+    consecutive windows)."""
     if la.dim() != 2 or la.shape != lb.shape or la.shape != lo.shape:
         raise ValueError(f"schedule operands must share one 2-D shape, got "
                          f"{tuple(la.shape)}, {tuple(lb.shape)}, "
                          f"{tuple(lo.shape)}")
-    n_levels, width = la.shape
-    if n_levels and not 1 <= width <= WINDOW:
-        what = ("level-gather kernel runs dense schedules of" if dense else
-                "slot-scan kernel runs slot widths")
-        raise ValueError(f"the {what} 1 to {WINDOW} lanes, got {width}")
-    return n_levels, width
+    return tuple(la.shape)
 
 
 def _ptr(t: torch.Tensor) -> Optional[int]:
@@ -734,7 +764,7 @@ def _packed_on(dev, packed: Optional[Packed], la, lb, lo, n_cells: int,
     before."""
     if packed is None:
         _check(dev, la=la, lb=lb, lo=lo)
-        _schedule_args(la, lb, lo, dense=dense)
+        _schedule_args(la, lb, lo)
         pack = pack_levels if dense else pack_slots
         return pack(la.cpu(), lb.cpu(), lo.cpu(), n_cells=n_cells).to(dev)
     if packed.tiles.device != dev:
@@ -750,8 +780,8 @@ def slots_fused(in_vals, in_idx, la, lb, lo, out_idx, *, n_cells, one_cell,
                 packed: Optional[Packed] = None):
     """Fused slot executor (B1): per-row values int32[n_in_ports, n_rows]
     in, int32[n_out_ports, n_rows] out (ports of <= 32 cells, any
-    ``n_rows``, ``planes`` the word layout), a slot schedule of 1 to 8
-    lanes in between.  The kernel runs ``packed``, the schedule's
+    ``n_rows``, ``planes`` the word layout), a slot schedule of any width
+    in between.  The kernel runs ``packed``, the schedule's
     :func:`pack_slots` stream on the card (callers that run a schedule
     often pack it once, as ``kernels.ops`` does); without it the wrapper
     packs ``la/lb/lo`` through the host.  It reads the input and output
@@ -797,7 +827,7 @@ def level_fused(in_vals, in_idx, la, lb, lo, out_idx, *, n_cells, one_cell,
                 packed: Optional[Packed] = None):
     """Fused dense executor (B3), the signature of
     ``ref.pim_exec_ref_level_fused``: per-row values in and out, a dense
-    schedule of up to 8 lanes in between.  The kernel runs ``packed``, the
+    schedule of any width in between.  The kernel runs ``packed``, the
     schedule's :func:`pack_levels` stream on the card; ``packed`` and
     ``words_per_cta`` as for :func:`slots_fused`."""
     if in_vals.device.type == "cpu":

@@ -84,11 +84,11 @@ DEFAULT_LAYOUT = ROWS32
 # SLOT_WIDTH: W of the contiguous-slot allocator, and LEVEL_MAX_WIDTH the
 # dense schedule's width cap.  Both stay at the reference's 6 and 8 so both
 # packages levelize to byte-identical schedules (the parity tests hold the
-# executors against each other on those).  LEVEL_MAX_WIDTH is also the
-# widest window of the ring kernels' packed streams (kWin in csrc/ring.cuh):
-# the slot scan and the level gather run a level as one window of 2, 4 or
-# 8 records, so a cuda plan takes slot widths and dense caps of 1 to 8, and
-# a wider one runs only on 'ref'.
+# executors against each other on those).  Any other value a Backend takes
+# levelizes as the reference does and runs on 'cuda' as on 'ref': the slot
+# scan and the level gather run a level as one window of 2, 4, 6 or 8
+# records, and a level wider than 8 lanes as consecutive windows of at
+# most 8 (pim_exec.level_windows, csrc/ring.cuh).
 # SLOT_SEG_LEVELS: levels per segment of the plain static chain, which
 # drops dead bands at each segment boundary as the reference's does.  The
 # generated static kernel is one function whatever it is (PERF.md).
@@ -180,18 +180,6 @@ class ExecPlan:
                 "fault injection / verified execution require a levelized "
                 "backend (the numpy oracle is the fault-free reference; "
                 f"got backend={self.backend.name!r})")
-        if self.backend.name == "cuda" and \
-                self.backend.level_max_width > LEVEL_MAX_WIDTH:
-            raise ValueError(
-                f"backend 'cuda' runs dense schedules of at most "
-                f"{LEVEL_MAX_WIDTH} lanes (got level_max_width="
-                f"{self.backend.level_max_width})")
-        if self.backend.name == "cuda" and \
-                self.backend.slot_width > LEVEL_MAX_WIDTH:
-            raise ValueError(
-                f"backend 'cuda' runs slot schedules of at most "
-                f"{LEVEL_MAX_WIDTH} lanes (got slot_width="
-                f"{self.backend.slot_width})")
         if self.backend.name == "cuda":
             for device in (self.device,) + (self.mesh or ()):
                 if torch.device(device).type != "cuda":

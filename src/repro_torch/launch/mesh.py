@@ -45,11 +45,13 @@ def _ensure_group(size: int, device: str) -> None:
 
 
 def make_mesh(shape: Sequence[int], axes: Sequence[str], *,
-              device: str = "cpu") -> DeviceMesh:
+              device: str = "cuda") -> DeviceMesh:
     """``jax.make_mesh``: the ranks 0..N-1 of the process group in
     row-major order over ``shape``, dimensions named ``axes``; on a
     one-rank job with no group up, a one-rank group is made first
-    (:func:`_ensure_group`)."""
+    (:func:`_ensure_group`) on the card, or on the CPU for
+    ``device="cpu"``, as ``jax.make_mesh`` takes the default backend's
+    devices.  A running group decides the device type."""
     _ensure_group(math.prod(shape), device)
     return init_device_mesh(_device_type(), tuple(shape),
                             mesh_dim_names=tuple(axes))
@@ -66,8 +68,8 @@ def dp_axes(mesh) -> tuple:
     return tuple(a for a in mesh.mesh_dim_names if a in ("pod", "data"))
 
 
-def make_smoke_mesh(*, device: str = "cpu") -> DeviceMesh:
-    """1-device mesh for CPU smoke tests."""
+def make_smoke_mesh(*, device: str = "cuda") -> DeviceMesh:
+    """1-device mesh for smoke tests (``device="cpu"`` on the CPU)."""
     return make_mesh((1, 1), ("data", "model"), device=device)
 
 

@@ -333,15 +333,16 @@ def activation_sharder(mesh):
 
 
 @contextlib.contextmanager
-def launch_mesh(device: str = "cpu"):
+def launch_mesh(device: str = "cuda"):
     """The mesh the train and serve entry points run on, as the
     reference's launchers build it: ``(n_dev, 1)`` over ``("data",
     "model")``, with the activation sharder installed for the span.
     PyTorch runs a process a device, so ``n_dev`` is the process group's
     size: the running group's, a group made from torchrun's environment
     (``WORLD_SIZE`` above 1; ``nccl`` for a CUDA ``device``, ``gloo``
-    otherwise), or a one-rank group made for the span.  A group made
-    here is destroyed at the end."""
+    otherwise), or a one-rank group made for the span: on the card, or
+    on the CPU for ``device="cpu"``.  A group made here is destroyed at
+    the end."""
     made = not dist.is_initialized()
     if made and int(os.environ.get("WORLD_SIZE", "1")) > 1:
         cuda = torch.device(device).type == "cuda"

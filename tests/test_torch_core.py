@@ -75,6 +75,38 @@ def test_dense_schedule_matches_reference(kind, op, param):
     _assert_same_schedule(r, t)
 
 
+# Wide slot widths and dense caps: the widths a retuned Backend may carry,
+# run on the card as levels split into windows of at most 8 lanes.
+WIDE_WIDTHS = (12, 16, 32, 64)
+WIDE_PROGRAMS = [("fp-serial", "add", "fp32"), ("fp-parallel", "add", "fp32"),
+                 ("fp-serial", "mul", "fp32"), ("int-serial", "mul", 16)]
+
+
+@pytest.mark.parametrize("width", WIDE_WIDTHS)
+@pytest.mark.parametrize("kind,op,param", WIDE_PROGRAMS,
+                         ids=_ids(WIDE_PROGRAMS))
+def test_wide_schedules_match_reference(kind, op, param, width):
+    """Slot schedules at slot width ``width`` and dense schedules capped at
+    it, byte for byte the reference's, through each package's
+    compiled-program cache under a retuned Backend."""
+    from repro.kernels import plan as rplan
+    from repro_torch.kernels import plan as tplan
+    rprog, tprog = rpn.program_for(kind, op, param), \
+        tpn.program_for(kind, op, param)
+    for schedule, field in (("slots", "slot_width"),
+                            ("dense", "level_max_width")):
+        rp = rplan.as_plan(backend=rplan.Backend("ref", **{field: width}),
+                           schedule=schedule)
+        tp = tplan.as_plan(backend=tplan.Backend("ref", **{field: width}),
+                           device="cpu", schedule=schedule)
+        r = rops.program_schedule(rprog, rp)
+        t = tops.program_schedule(tprog, tp)
+        _assert_same_schedule(r, t)
+        assert t.width <= width
+        if schedule == "slots":
+            assert t.slot_width == width
+
+
 def test_fp16_add_modeled_cycles():
     """The tracked fp16-add row's modeled cost (1835 cycles) is a pure
     function of the schedule, so the port reproduces it exactly."""

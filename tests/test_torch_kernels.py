@@ -150,32 +150,48 @@ def test_wrappers_reject_other_devices():
 
 @pytest.mark.parametrize("width", range(1, 10))
 def test_kernel_takes_only_the_slot_width_it_is_built_for(width):
-    """The kernel runs slot widths 1 to 8, a level a window of 2, 4, 6 or 8
-    records of the packed stream; a wider schedule is refused before
-    launch, and a gate-free schedule passes whatever its width."""
+    """The kernel runs any slot width: a level of up to 8 lanes as one
+    window of 2, 4, 6 or 8 records of the packed stream, a wider one as
+    windows of at most 8 (9 lanes: 5 and 4, a body of 6); a schedule whose
+    operands disagree in shape is refused before launch, and a gate-free
+    schedule passes whatever its width."""
     sched = torch.zeros((3, width), dtype=torch.int32)
-    if width <= pim_exec.WINDOW:
-        assert pim_exec._schedule_args(sched, sched, sched) == (3, width)
-    else:
-        with pytest.raises(ValueError, match="slot widths 1 to 8 lanes"):
-            pim_exec._schedule_args(sched, sched, sched)
+    assert pim_exec._schedule_args(sched, sched, sched) == (3, width)
+    assert pim_exec.window_width(max(pim_exec.level_windows(width))) == \
+        [2, 2, 4, 4, 6, 6, 8, 8, 6][width - 1]
+    with pytest.raises(ValueError, match="one 2-D shape"):
+        pim_exec._schedule_args(sched, sched, sched[:2])
     none = torch.zeros((0, width), dtype=torch.int32)
     assert pim_exec._schedule_args(none, none, none) == (0, width)
 
 
-@pytest.mark.parametrize("width,ok", [(4, True), (8, True), (9, False)])
-def test_cuda_plans_take_slot_widths_up_to_eight(width, ok):
-    """A cuda plan levelizes slot schedules of up to 8 lanes, what the
-    slot scan runs; a wider one is refused before any schedule is built
-    and runs on ``ref``."""
-    backend = kplan.Backend("cuda", slot_width=width)
-    if ok:
-        assert kplan.as_plan(backend=backend).backend.slot_width == width
-    else:
-        with pytest.raises(ValueError, match="at most 8 lanes"):
-            kplan.as_plan(backend=backend)
+@pytest.mark.parametrize("width,narrow", [(4, True), (8, True), (9, False),
+                                          (16, False), (64, False)])
+def test_cuda_plans_take_slot_widths_up_to_eight(width, narrow):
+    """A cuda plan takes every slot width the reference takes: a level of
+    up to 8 lanes runs as one window (``narrow``), a wider one (9, 16, 64)
+    as consecutive windows of at most 8.  No width falls back to
+    ``ref``."""
+    plan = kplan.as_plan(backend=kplan.Backend("cuda", slot_width=width))
+    assert (plan.backend.name, plan.backend.slot_width) == ("cuda", width)
+    lens = pim_exec.level_windows(width)
+    assert (len(lens) == 1) == narrow and max(lens) <= pim_exec.WINDOW
     kplan.as_plan(backend=kplan.Backend("ref", slot_width=width),
                   device="cpu")
+
+
+def test_cuda_plans_take_every_width_to_64():
+    """Every slot width and dense cap from 1 to 64 makes a cuda plan, and
+    its default widths stay the reference's 6 and 8."""
+    for w in range(1, 65):
+        for kw in ({"slot_width": w}, {"level_max_width": w}):
+            plan = kplan.as_plan(backend=kplan.Backend("cuda", **kw),
+                                 schedule="dense" if "level_max_width" in kw
+                                 else None)
+            assert plan.backend.name == "cuda"
+    assert (kplan.SLOT_WIDTH, kplan.LEVEL_MAX_WIDTH) == (6, 8)
+    assert kplan.BACKENDS["cuda"].slot_width == 6
+    assert kplan.BACKENDS["cuda"].level_max_width == 8
 
 
 @pytest.mark.parametrize("n_cells,cap,want", [
@@ -289,6 +305,60 @@ def test_fp_add_runs_tuned_slot_widths_on_cuda(cuda, width):
         {"slot_scan_fused": 1}
 
 
+#: Slot widths and dense caps past one window: levels split into 2 (12,
+#: 16), 3 (24), 4 (32), 5 (33) and 8 (64) windows of at most 8.
+WIDE = [12, 16, 24, 32, 33, 64]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planes", [1, 2])
+@pytest.mark.parametrize("width", WIDE)
+@pytest.mark.parametrize("name", ["fp32-add", "uint32-add"])
+def test_slot_scan_runs_wide_slot_widths(cuda, name, width, planes):
+    """B1 on schedules levelized at slot widths past 8, each level split
+    into windows of at most 8, fused on ragged rows and io, under both
+    layouts, bit for bit against the plain version."""
+    layout = "rows64" if planes == 2 else "rows32"
+    plain = _resolved(name, slot_width=width)
+    r = _resolved(name, cuda, layout, slot_width=width)
+    lens = pim_exec.level_windows(width)
+    assert r.sched.width == width and \
+        r.packed.width == pim_exec.window_width(max(lens))
+    assert r.packed.n_windows == r.sched.n_levels * len(lens)
+    rng = np.random.default_rng(16)
+    if max(plain.in_widths + plain.out_widths) <= 32:
+        vals = _values(plain, rng, 100_003)
+        want = _np(_call("fused", plain, _t(vals), planes=planes))
+        got = _call("fused", r, _t(vals).to(cuda), planes=planes,
+                    packed=r.packed)
+        torch.cuda.synchronize()
+        assert np.array_equal(_np(got), want)
+    k_in = int(plain.in_idx.numel())
+    rows = _bits(rng, (k_in, 3001) if planes == 1 else (planes, k_in, 3001))
+    want = _np(_call("io", plain, _t(rows)))
+    got = _call("io", r, _t(rows).to(cuda), packed=r.packed)
+    torch.cuda.synchronize()
+    assert np.array_equal(_np(got), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("option", ["slot_width", "level_max_width"])
+@pytest.mark.parametrize("width", [16, 64])
+def test_fp_add_runs_wide_widths_on_cuda(cuda, option, width):
+    """``pim.fp_add`` under a cuda plan of a slot width or a dense cap past
+    8 launches B1 or B3 on the card, bit-exact against numpy."""
+    rng = np.random.default_rng(17)
+    a = rng.standard_normal(5000).astype(np.float32)
+    b = rng.standard_normal(5000).astype(np.float32)
+    pim_exec.reset_counts()
+    dense = option == "level_max_width"
+    plan = kplan.as_plan(backend=kplan.Backend("cuda", **{option: width}),
+                         schedule="dense" if dense else None)
+    assert np.array_equal(pim.fp_add(a, b, plan=plan), a + b)
+    key = "level_gather_fused" if dense else "slot_scan_fused"
+    assert {k: v for k, v in pim_exec.LAUNCHES.items() if v} == {key: 1}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["uint32-add", "uint32-mul", "uint16-add",
                                   "bp-mul16", "gate-free", "no-input"])
@@ -318,11 +388,13 @@ def test_main_path_launches_the_kernel(cuda):
 # everywhere: the B2, B3 and B4 wrappers, shapes and the static generator
 # --------------------------------------------------------------------------
 
-def _operands(name, kind="slots", device="cpu"):
+def _operands(name, kind="slots", device="cpu", **backend_kw):
     """Schedule ``kind`` of a program with its stacked operands, built
-    directly (not through ``resolve``) so each entry gets its own kind."""
+    directly (not through ``resolve``) so each entry gets its own kind;
+    ``backend_kw`` sets the slot width or the dense cap."""
     prog = PROGRAMS[name]()
-    plan = kplan.as_plan(backend="ref", device="cpu", schedule=kind)
+    plan = kplan.as_plan(backend=kplan.Backend("ref", **backend_kw),
+                         device="cpu", schedule=kind)
     s = ops.compiled(prog, plan).get_schedule(prog, plan)
     in_names = sorted(prog.in_ports)
     out_names = ops.output_names(s)
@@ -399,24 +471,19 @@ def test_dense_static_serial_wrappers_take_plain_version_on_cpu(entry):
 
 
 def test_level_gather_takes_dense_widths_up_to_eight():
-    for width in (1, 5, 8):
+    """Dense schedules of up to 8 lanes, and past them (9, 16, 64): the
+    wrapper and a cuda plan take every cap the reference takes, and the
+    kernels are built with the widest window, not the default cap."""
+    for width in (1, 5, 8, 9, 16, 64):
         sched = torch.zeros((3, width), dtype=torch.int32)
-        assert pim_exec._schedule_args(sched, sched, sched, dense=True) == \
-            (3, width)
-    wide = torch.zeros((3, 9), dtype=torch.int32)
-    with pytest.raises(ValueError, match="1 to 8 lanes"):
-        pim_exec._schedule_args(wide, wide, wide, dense=True)
-    # the plan refuses a cuda backend that would levelize wider than the
-    # kernel, before any schedule is built; narrower is fine
-    with pytest.raises(ValueError, match="at most 8 lanes"):
-        kplan.as_plan(backend=kplan.Backend("cuda", level_max_width=9),
-                      device="cuda")
-    kplan.as_plan(backend=kplan.Backend("cuda", level_max_width=4),
-                  device="cuda")
-    kplan.as_plan(backend=kplan.Backend("ref", level_max_width=9),
-                  device="cpu")
-    assert f"-DPIM_LEVEL_MAX_WIDTH={kplan.LEVEL_MAX_WIDTH}" in \
-        pim_exec.NVCC_FLAGS
+        assert pim_exec._schedule_args(sched, sched, sched) == (3, width)
+        plan = kplan.as_plan(backend=kplan.Backend(
+            "cuda", level_max_width=width), device="cuda", schedule="dense")
+        assert plan.backend.level_max_width == width
+        kplan.as_plan(backend=kplan.Backend("ref", level_max_width=width),
+                      device="cpu")
+    assert f"-DPIM_MAX_WINDOW={pim_exec.WINDOW}" in pim_exec.NVCC_FLAGS
+    assert not any("LEVEL_MAX_WIDTH" in f for f in pim_exec.NVCC_FLAGS)
 
 
 @pytest.mark.parametrize("n_cells,cap,planes,want", [
@@ -603,6 +670,49 @@ def test_level_gather_fused_matches_plain_version(cuda, name, planes):
             **o["kw"])
         torch.cuda.synchronize()
         assert np.array_equal(_np(got), want), wpc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planes", [1, 2])
+@pytest.mark.parametrize("cap", WIDE)
+@pytest.mark.parametrize("name", ["fp32-add", "uint32-mul"])
+def test_level_gather_runs_wide_dense_caps(cuda, name, cap, planes):
+    """B3 on dense schedules capped past 8 lanes, each level split into
+    windows of at most 8, fused and io, under both layouts, bit for bit
+    against the plain version."""
+    o = _operands(name, "dense", level_max_width=cap)
+    oc = _operands(name, "dense", cuda, level_max_width=cap)
+    rng = np.random.default_rng(18)
+    if max(o["in_widths"] + o["out_widths"]) <= 32:
+        vals = _vals(o, rng, 100_003)
+        want = _np(ref.pim_exec_ref_level_fused(
+            _t(vals), *o["args"], in_widths=o["in_widths"],
+            out_widths=o["out_widths"], planes=planes, **o["kw"]))
+        got = pim_exec.level_fused(
+            _t(vals).to(cuda), *oc["args"], in_widths=o["in_widths"],
+            out_widths=o["out_widths"], planes=planes, **o["kw"])
+        torch.cuda.synchronize()
+        assert np.array_equal(_np(got), want)
+    rows = _io_rows(o, rng, 3001, planes)
+    want = ref.pim_exec_ref_level_io(_t(rows), *o["args"], **o["kw"])
+    got = pim_exec.level_io(_t(rows).to(cuda), *oc["args"], **o["kw"])
+    torch.cuda.synchronize()
+    assert np.array_equal(_np(got), _np(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planes", [1, 2])
+@pytest.mark.parametrize("width", [16, 64])
+def test_static_kernel_runs_wide_slot_widths(cuda, width, planes):
+    """B2 generated from a slot schedule of 16 or 64 lanes a level, bit for
+    bit against its plain chain."""
+    o = _operands("fp32-add", "slots", slot_width=width)
+    k = _static(o, planes)
+    vals = _vals(o, np.random.default_rng(19), 100_003)
+    want = _np(k(_t(vals)))
+    got = k(_t(vals).to(cuda))
+    torch.cuda.synchronize()
+    assert np.array_equal(_np(got), want)
 
 
 @pytest.mark.cuda

@@ -9,8 +9,11 @@ load every operand of the window, then store in order) run on the packed
 stream must give the state of ``ref.pim_exec_ref`` and the numpy oracle
 (``Program.exec_packed``), the outputs of
 ``ref.pim_exec_ref_level_fused``/``_io`` under both layouts, or those of
-the JAX package's slot executors at slot widths 4, 6 and 8; the uint16
-limit; the CTA rule.  The ``cuda``-marked tests skip without a card.
+the JAX package's slot executors at slot widths 4, 6 and 8 (the wide
+widths 9 to 64 in ``test_torch_ring_wide.py``); the window rule of every
+width; streams of windows of 8 records or fewer held to digests of their
+earlier bytes; the uint16 limit; the CTA rule.  The ``cuda``-marked
+tests skip without a card.
 
 Only the slot packer's tests import the JAX package, inside the test, so
 this file runs on a machine with an NVIDIA GPU and no JAX:
@@ -185,6 +188,8 @@ def test_gate_window_counts():
     assert (p.n_windows, p.width) == (5608, pim_exec.GATE_WINDOW)
     p = pim_exec.pack_gates(ops_, a, b, o, n_cells=n_cells, window=1)
     assert (p.n_windows, p.width) == (len(ops_), 2)
+    with pytest.raises(ValueError, match="windows of 1 to 8 gates"):
+        pim_exec.pack_gates(ops_, a, b, o, n_cells=n_cells, window=9)
     assert [pim_exec.window_width(n) for n in range(9)] == \
         [2, 2, 2, 4, 4, 6, 6, 8, 8]
 
@@ -289,10 +294,15 @@ def test_widest_program_fits_uint16():
 # B3: the level packer
 # --------------------------------------------------------------------------
 
-def _dense(case):
+def _dense(case, cap=None):
+    """The dense schedule of ``case`` (at width cap ``cap`` if given) with
+    its operands as the kernel entries take them."""
     prog = _program(case) if case not in ("gate-free", "no-input") else \
         {"gate-free": _gate_free, "no-input": _no_input}[case]()
-    s = ops.program_schedule(prog, CPU_DENSE)
+    plan = CPU_DENSE if cap is None else kplan.as_plan(
+        backend=kplan.Backend("ref", level_max_width=cap), device="cpu",
+        schedule="dense")
+    s = ops.program_schedule(prog, plan)
     in_names = sorted(prog.in_ports)
     out_names = ops.output_names(s)
     in_cells = ops._stacked_cells([s.pack_cells(n) for n in in_names])
@@ -368,9 +378,21 @@ def test_narrow_levels_repeat_their_last_lane(width, body):
 
 
 def test_level_packer_refuses_levels_wider_than_a_window():
-    wide = np.zeros((2, 9), np.int32)
-    with pytest.raises(ValueError, match="1 to 8 lanes"):
-        pim_exec.pack_levels(wide, wide, wide, n_cells=4)
+    """A level wider than a window (8 lanes) is split into consecutive
+    windows, which is exact only if the level reads no cell it writes:
+    such a level is refused.  A level of one window may (its window reads
+    every operand first)."""
+    one = np.zeros((2, 8), np.int32)
+    p = pim_exec.pack_levels(one, one, one, n_cells=4)
+    assert (p.n_windows, p.width) == (2, 8)
+    for width, windows, body in ((9, 2, 6), (33, 5, 8), (64, 8, 8)):
+        wide = np.zeros((2, width), np.int32)
+        with pytest.raises(ValueError, match="reads a cell it writes"):
+            pim_exec.pack_levels(wide, wide, wide, n_cells=4)
+        a = np.tile(np.arange(width), (2, 1))
+        p = pim_exec.pack_levels(a, a, a + width, n_cells=2 * width)
+        assert (p.n_windows, p.n_gates, p.width) == \
+            (2 * windows, 2 * width, body)
 
 
 # --------------------------------------------------------------------------
@@ -501,12 +523,109 @@ def test_slot_bands_may_overwrite_their_own_operands():
 
 
 def test_slot_packer_refuses_levels_wider_than_a_window():
-    wide = np.zeros((2, 9), np.int32)
-    with pytest.raises(ValueError, match="1 to 8 lanes"):
-        pim_exec.pack_slots(wide, wide, wide, n_cells=16)
+    """As for the level packer: a slot level split over windows whose
+    band overwrites a cell it reads is refused; one of one window may."""
+    one = np.zeros((2, 8), np.int32)
+    assert pim_exec.pack_slots(one, one, one, n_cells=16).width == 8
+    for width, windows, body in ((9, 2, 6), (40, 5, 8)):
+        wide = np.zeros((2, width), np.int32)
+        with pytest.raises(ValueError, match="reads a cell it writes"):
+            pim_exec.pack_slots(wide, wide, wide, n_cells=64)
+        p = pim_exec.pack_slots(wide, wide, wide + 1, n_cells=64)
+        assert (p.n_windows, p.width) == (2 * windows, body)
     with pytest.raises(ValueError, match="65536"):
         pim_exec.pack_slots(wide[:, :6], wide[:, :6], wide[:, :6],
                             n_cells=1 << 16)
+
+
+# --------------------------------------------------------------------------
+# wide schedules: levels split into windows of at most 8
+# --------------------------------------------------------------------------
+
+FAMILY_IDS = ["-".join(map(str, f)) for f in FAMILIES]
+
+
+def test_window_rule_covers_every_width():
+    """The body a window of n gates takes, and the windows a level of any
+    width takes: one window up to 8 lanes, else the fewest windows of at
+    most 8, as even as they come."""
+    assert [pim_exec.window_width(n) for n in range(9)] == \
+        [2] * 3 + [4] * 2 + [6] * 2 + [8] * 2
+    with pytest.raises(ValueError, match="1 to 8 gates"):
+        pim_exec.window_width(9)
+    for width in range(1, 200):
+        lens = pim_exec.level_windows(width)
+        assert sum(lens) == width and max(lens) <= pim_exec.WINDOW
+        assert len(lens) == -(-width // 8) and max(lens) - min(lens) <= 1
+    assert pim_exec.level_windows(9) == [5, 4]
+    assert pim_exec.level_windows(12) == [6, 6]
+    assert pim_exec.level_windows(33) == [7, 7, 7, 6, 6]
+    assert pim_exec.level_windows(64) == [8] * 8
+
+
+@pytest.mark.parametrize("fam", FAMILIES, ids=FAMILY_IDS)
+def test_narrow_streams_keep_their_bytes(fam):
+    """Every stream of a schedule of 8 lanes or fewer is byte for byte
+    what it was before wider ones were split: the slot streams at slot widths 1
+    to 8, the dense streams at caps 1 to 8 and the gate-serial stream, of
+    each family (a digest of the tiles and counts, taken from the earlier
+    packer)."""
+    import hashlib
+    h = hashlib.sha256()
+    prog = program_for(*fam)
+    for w in range(1, 9):
+        for kind in ("slots", "dense"):
+            be = kplan.Backend("ref", slot_width=w) if kind == "slots" \
+                else kplan.Backend("ref", level_max_width=w)
+            s = ops.program_schedule(prog, kplan.as_plan(
+                backend=be, device="cpu", schedule=kind))
+            pack = pim_exec.pack_slots if kind == "slots" else \
+                pim_exec.pack_levels
+            p = pack(s.a, s.b, s.out, n_cells=s.n_cells)
+            h.update(np.asarray([p.n_windows, p.n_gates, p.width],
+                                np.int64).tobytes())
+            h.update(p.tiles.numpy().tobytes())
+    ops_, a, b, o, n_cells = prog.to_arrays()
+    p = pim_exec.pack_gates(ops_, a, b, o, n_cells=n_cells)
+    h.update(np.asarray([p.n_windows, p.n_gates, p.width],
+                        np.int64).tobytes())
+    h.update(p.tiles.numpy().tobytes())
+    assert h.hexdigest()[:16] == NARROW_DIGESTS["-".join(map(str, fam))]
+
+
+NARROW_DIGESTS = {
+    "int-serial-add-8": "b8f2016c4048b40e",
+    "int-serial-sub-8": "b97e895c77fb806b",
+    "int-serial-mul-8": "6d90d9a60a36817a",
+    "int-serial-div-8": "e621c84cdd65023a",
+    "int-parallel-add-8": "cfc9e2f92143a84f",
+    "int-parallel-sub-8": "b86ee54fa549fa98",
+    "int-parallel-mul-8": "898e8652c57b2c0f",
+    "int-parallel-div-8": "f6b71451d7ed599f",
+    "fp-serial-add-fp16": "1861d37bbea4f3fc",
+    "fp-serial-sub-fp16": "eda68ef9f813f230",
+    "fp-serial-mul-fp16": "f9a9a67da083938a",
+    "fp-serial-div-fp16": "c9b6a3bc4595f0a7",
+    "fp-parallel-add-fp16": "6950e2c0e23453cc",
+    "fp-parallel-mul-fp16": "9877c8f1b6fcc656",
+    "fp-parallel-div-fp16": "7ee798e60f74b897",
+}
+
+
+@pytest.mark.parametrize("kind", ["slots", "dense"])
+def test_reference_schedules_are_hazard_free_at_every_width(kind):
+    """What splitting a level rests on: in the schedules of both
+    allocators, at widths 8 to 64, no level reads a cell it writes, pad
+    lanes included."""
+    for fam in (("fp-serial", "add", "fp16"), ("int-parallel", "mul", 8)):
+        for width in (8, 16, 33, 64):
+            s = _slots(fam, width)[0] if kind == "slots" else \
+                _dense(fam, cap=width)[0]
+            out = s.out if kind == "dense" else \
+                s.out[:, :1] + np.arange(s.width)
+            for l in range(s.n_levels):
+                reads = set(s.a[l].tolist()) | set(s.b[l].tolist())
+                assert not set(out[l].tolist()) & reads, (width, l)
 
 
 # --------------------------------------------------------------------------

@@ -272,3 +272,16 @@ def test_mesh_for_takes_the_first_ranks_of_choose_mesh():
         sub = mesh_for(6, [4])              # 6 ranks: model 2, data 3
         assert tuple(sub.shape) == (3, 2)
         assert sub.mesh.flatten().tolist() == list(range(6))
+
+
+def test_meshes_default_to_the_card():
+    """As ``jax.make_mesh`` takes the default backend's devices, the port's
+    mesh constructors make a one-rank group on the card unless
+    ``device="cpu"`` says otherwise (a running group decides for itself:
+    ``fake_world`` above, ``gloo`` workers)."""
+    import inspect
+    from repro_torch.launch import mesh as MS
+    for fn in (MS.make_mesh, MS.make_smoke_mesh, SH.launch_mesh.__wrapped__):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    with fake_world(1):
+        assert MS.make_smoke_mesh().device_type == "cpu"

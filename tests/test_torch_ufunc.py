@@ -287,6 +287,29 @@ def test_fp_ufunc_options_match_reference(op, fmt, parallel):
         assert _same(g, want), o
 
 
+@pytest.mark.parametrize("fmt", ["fp16", "bf16", "fp32"])
+@pytest.mark.parametrize("width", ["slot_width", "level_max_width"])
+@pytest.mark.parametrize("op", ["fp_add", "fp_mul", "fp_div"])
+def test_fp_ufunc_wide_widths_match_reference(op, width, fmt):
+    """A plan retuned to slot width 16, or to a dense cap of 16, runs the
+    fp ufuncs bit for bit as the reference's plan with the same Backend
+    (the card runs their levels as windows of at most 8 lanes)."""
+    from repro.kernels import plan as rplan
+    from repro_torch.kernels import plan as tplan
+    x, y, kw = _fp_operands(fmt)
+    schedule = "dense" if width == "level_max_width" else None
+    tp = tplan.as_plan(backend=tplan.Backend("ref", **{width: 16}),
+                       device="cpu", schedule=schedule)
+    rp = rplan.as_plan(backend=rplan.Backend("ref", **{width: 16}),
+                       schedule=schedule)
+    got = getattr(tpim, op)(x, y, plan=tp, **kw)
+    assert _same(got, getattr(rpim, op)(x, y, plan=rp, **kw))
+    if not kw:
+        want = {"fp_add": np.add, "fp_mul": np.multiply,
+                "fp_div": np.divide}[op](x, y)
+        assert _same(got, want)
+
+
 @pytest.mark.parametrize("option", ["rows64", "dense"])
 def test_streaming_options_match_reference(option):
     """Chunks of 512 rows (three whole chunks and a ragged fourth), fused
