@@ -10,8 +10,10 @@
                                            # csrc is DIR, profiled
     python3 chip_smoke.py --probe [DIR]    # also print launch attributes and
                                            # time B1, B2 and B3 with no gates
-                                           # (and the same of the parent's
-                                           # package whose csrc is DIR)
+                                           # and B6 on its blocks (and the
+                                           # same of the parent's package
+                                           # whose csrc is DIR), then B1 io
+                                           # rows64 in turns with B6
 
 Phases, each of which raises (exit code 1) on failure:
 
@@ -29,9 +31,13 @@ Phases, each of which raises (exit code 1) on failure:
    to 8 windows of at most 8 records each; io at 16; rows64 at 16), the
    level gather at dense caps 16, 32 and 64, and B2 at slot width 16
    under both layouts; and the check fold of verified execution (B6) on fused
-   blocks of 1, 31, 32 and 33 ports at 1000, 1 Mi and 16 Mi rows and on
+   blocks of 1, 31, 32 and 33 ports at 1000, 1 Mi and 16 Mi rows, on
    packed rows32 and rows64 blocks of 1, 33 and 64 cells and odd word
-   counts, also against numpy's XOR reduction of the host copy;
+   counts, and on every path of its launcher (:func:`fold_paths`: each
+   width mod 4, k = 0, 1 and k about the unrolled 8 rows, widths about
+   the 16-byte rule and the copy's grid, blocks that start 4 bytes past
+   a 16-byte boundary), also against numpy's XOR reduction of the host
+   copy;
 4. drive the main path through the public entry points, each run checked
    against numpy with the launch counters zeroed just before and read just
    after -- its kernel must have run and no plain version may have:
@@ -65,8 +71,9 @@ Phases, each of which raises (exit code 1) on failure:
    with its health counters, walls and overheads (the check fold B6
    launched once a chunk attempt where both are set, never elsewhere);
    the faults without a policy (the result must differ at the injected
-   rows); ``pim.gemv`` fp16 4096x4096 under the faults and a policy, and
-   with ``verify=True`` alone (its blocks stay on the card: one D2H
+   rows); ``pim.gemv`` fp16 4096x4096 under the faults and a policy
+   (the shape of every block it folds recorded, :func:`folded_shapes`),
+   and with ``verify=True`` alone (its blocks stay on the card: one D2H
    copy); two shards on one card under the faults;
 
    serving: batched PIM serving (:func:`serving_phase`): the reference's
@@ -178,7 +185,11 @@ Phases, each of which raises (exit code 1) on failure:
    version, one PyTorch library call computing the same function, and its
    bound, with its launch attributes (CTAs an SM, registers, local bytes),
    B1, B3 and B2 on fp32 add also at the widths of :data:`WIDE_MAIN`, and
-   the check fold on a fused and a packed chunk;
+   the check fold on the faulty fp_add's fused chunk (beside
+   ``blk[0].clone()``) and on the blocks the faulty gemv folded, weighted
+   by their launches, each launch's block read from device memory (the
+   state of its bytes bound, :func:`cold_ms`) and from L2 (its state on
+   the path);
 11. examples: each PIM script of ``examples_torch/`` (quickstart, the int8
    linear layer, fusion with ``dot``/``gemv``, batched serving, streaming
    at 1 Mi rows) run on the card in process (:func:`examples_phase`), its
@@ -205,10 +216,14 @@ the last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import dataclasses
 import io
+import itertools
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -285,6 +300,24 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+#: Bytes of other copies :func:`cold_ms` reads between two reads of one
+#: copy of a block: over twice the H100's 50 MB L2.
+FLUSH_BYTES = 128 << 20
+
+
+def cold_ms(fn, block, iters: int) -> float:
+    """Mean device time of ``fn(b)`` over ``iters`` calls, as
+    :func:`cuda_ms` times them, but each call on the next of enough copies
+    ``b`` of ``block`` that at least :data:`FLUSH_BYTES` of other copies
+    are read between two reads of one: every call finds its block in
+    device memory, not in L2, the state a bytes bound at the HBM rate
+    assumes."""
+    n = 1 + -(-FLUSH_BYTES // (block.numel() * block.element_size()))
+    copies = itertools.cycle(block.expand((n,) + block.shape).contiguous()
+                             .unbind(0))
+    return cuda_ms(lambda: fn(next(copies)), iters)
 
 
 def resolved(program, backend: str = "cuda", pkg=None, schedule=None,
@@ -592,39 +625,79 @@ def check_kernels(progs, statics) -> dict:
     return worst
 
 
-#: Phase 3's check-fold cases (shape, axis): fused blocks (ports, rows)
-#: over the ports, packed blocks (cells, words) and rows64 blocks (2,
-#: cells, words) over the cells, at odd word counts.
-FOLD_CHECKS = ([((p, r), 0) for p in (1, 31, 32, 33)
+#: Phase 3's check-fold cases (shape, axis, offset) beside
+#: :func:`fold_paths`: fused blocks (ports, rows) over the ports, packed
+#: blocks (cells, words) and rows64 blocks (2, cells, words) over the
+#: cells, at odd word counts.
+FOLD_CHECKS = ([((p, r), 0, 0) for p in (1, 31, 32, 33)
                 for r in (1000, 1 << 20, 1 << 24)] +
-               [((k, w), 0) for k in (1, 33, 64) for w in (32769, 524289)] +
-               [((2, k, w), 1) for k in (1, 33, 64)
+               [((k, w), 0, 0) for k in (1, 33, 64) for w in (32769, 524289)] +
+               [((2, k, w), 1, 0) for k in (1, 33, 64)
                 for w in (16385, 262145)])
+
+
+def fold_constants() -> dict:
+    """The integer constants B6's source (``csrc/check_words.cu``) states:
+    its CTA width, the copy's CTAs an SM and units a thread, and the CTAs
+    an SM the fold's 16-byte units must give."""
+    src = (Path(__file__).resolve().parent /
+           ENTRIES["check_words"][1]).read_text()
+    return {name: int(v) for name, v in
+            re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+
+
+def fold_paths(sms: int) -> list:
+    """(shape, axis, offset) of blocks that reach each path of B6's
+    launcher on a card of ``sms`` SMs, from the constants its source
+    states: k = 0 and 1 (the copy), k about the fold's unrolled 8 rows,
+    on widths of every residue mod 4; widths about the fold's 16-byte
+    rule (``kWideCtasPerSm`` CTAs an SM); the copy's grid just filled and
+    one step past; rows64 blocks (outer 2); views that start ``offset``
+    words past a 16-byte boundary."""
+    c = fold_constants()
+    threads = c["kThreads"]
+    wide = 4 * threads * c["kWideCtasPerSm"] * sms   # fewest 16-byte words
+    copy_full = 4 * threads * c["kCopyUnits"] * c["kCopyCtasPerSm"] * sms
+    return ([((k, w), 0, 0) for k in (0, 1, 2, 3, 4, 5, 8, 9, 16, 17, 33)
+             for w in (4096, 4097, 4098, 4099)] +
+            [((k, w), 0, 0) for k in (2, 9, 16) for w in (wide - 4, wide)] +
+            [((1, w), 0, 0) for w in (copy_full, copy_full + 4 * threads *
+                                      c["kCopyUnits"])] +
+            [((2, k, w), 1, 0) for k in (0, 1, 3, 17) for w in (4097, 4099)] +
+            [((2, 9, wide // 2), 1, 0)] +
+            [((k, w), 0, 1) for k in (1, 2, 16) for w in (4096, wide)] +
+            [((2, 9, 4096), 1, 1)])
 
 
 def check_folds(worst: dict) -> None:
     """Phase 3 for B6: the check fold against its plain version on the
     card and against numpy's XOR reduction of the host copy, bit for bit,
-    on random bits made on the card."""
+    on random bits made on the card (a block with an offset is a view that
+    many words into its allocation)."""
     from repro_torch.kernels import pim_exec, ref as kref
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED)
-    for shape, axis in FOLD_CHECKS:
-        blk = torch.randint(-(1 << 31), 1 << 31, shape, dtype=torch.int32,
-                            device="cuda", generator=g)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for shape, axis, offset in FOLD_CHECKS + fold_paths(sms):
+        n = int(np.prod(shape))
+        base = torch.randint(-(1 << 31), 1 << 31, (offset + n,),
+                             dtype=torch.int32, device="cuda", generator=g)
+        blk = base[offset:].view(shape)
         got = pim_exec.check_words(blk, axis)
         torch.cuda.synchronize()
         want = kref.check_words(blk, axis)
         host = np.bitwise_xor.reduce(blk.cpu().numpy().view(np.uint32),
                                      axis=axis)
-        err = int((got.long() - want.long()).abs().max())
+        err = int((got.long() - want.long()).abs().max()) \
+            if got.numel() else 0
         worst["check_words"] = max(worst.get("check_words", 0), err)
         same = torch.equal(got, want) and \
             np.array_equal(got.cpu().numpy().view(np.uint32), host)
-        print(f"check check_words {shape} axis={axis}: equal={same} (plain "
-              "version and numpy)", flush=True)
+        print(f"check check_words {shape} axis={axis} offset={offset}: "
+              f"equal={same} (plain version and numpy)", flush=True)
         if not same:
-            raise AssertionError(f"check_words != plain version: {shape}")
+            raise AssertionError(f"check_words != plain version: {shape} "
+                                 f"offset {offset}")
 
 
 def _plain_calls() -> dict:
@@ -1184,6 +1257,25 @@ def _verified_turns(a, b, want, gpu: str, kw) -> dict:
     return folds
 
 
+@contextlib.contextmanager
+def folded_shapes():
+    """Count the (shape, axis) of each block that the card's check fold
+    (``pim_exec.check_words``, which ``ops`` looks up at each call) is
+    handed inside the span: yields the Counter."""
+    from repro_torch.kernels import pim_exec
+    shapes = collections.Counter()
+    fold = pim_exec.check_words
+
+    def recorded(block, axis):
+        shapes[(tuple(block.shape), axis % block.dim())] += 1
+        return fold(block, axis)
+    pim_exec.check_words = recorded
+    try:
+        yield shapes
+    finally:
+        pim_exec.check_words = fold
+
+
 def verified_phase(a, b, gpu: str, kw=None, gemv_shape=GEMV_SHAPE,
                    mesh=("cuda:0", "cuda:0")) -> dict:
     """The verified phase (after phase 9): verified execution under
@@ -1236,20 +1328,26 @@ def verified_phase(a, b, gpu: str, kw=None, gemv_shape=GEMV_SHAPE,
         def counted():
             return _counted(f"gemv {label}", keys,
                             lambda: pim.gemv(ga, gx, **opts, **kw))
-        if torch.cuda.is_available():
-            (got, launches, s), _, st = device_timeline(counted)
-        else:
-            (got, launches, s), st = counted(), None
+        with folded_shapes() as shapes:
+            if torch.cuda.is_available():
+                (got, launches, s), _, st = device_timeline(counted)
+            else:
+                (got, launches, s), st = counted(), None
         h = ops.drain_health()
         if not _same_bits(got, tree):
             raise AssertionError(f"gemv fp16 {label} != host tree")
         n_io = launches["slot_scan_io"]
         if "faults" in opts:
             if launches["check_words"] != n_io or \
-                    n_io != stages + h.get("retries", 0):
+                    n_io != stages + h.get("retries", 0) or \
+                    sum(shapes.values()) != n_io:
                 raise AssertionError(f"gemv {label}: launches {launches}, "
-                                     f"health {h}")
+                                     f"folds {shapes}, health {h}")
             ran["check_words_io"] = launches["check_words"]
+            ran["check_words_io_shapes"] = dict(shapes)
+            print(f"verified gemv fp16 {m}x{k} {label}: check folds "
+                  f"(shape, axis): launches {sorted(shapes.items())}",
+                  flush=True)
         elif n_io != stages or launches.get("check_words") or \
                 (st is not None and st["d2h_count"] != 1):
             raise AssertionError(f"gemv {label}: launches {launches}, "
@@ -3647,38 +3745,107 @@ def fold_bound(outer: int, k: int, inner: int, lop_rate: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def measure_folds(chunk_rows: int, launches: dict, worst: dict,
+def measure_folds(chunk_rows: int, folds: dict, worst: dict,
                   gpu: str) -> list:
-    """Phase 10 for B6: the check fold at one chunk, fused (one port,
-    ``chunk_rows`` rows) and packed (uint32 add's 33 output cells over the
-    chunk's words), beside its plain version and its bound.  torch has no
-    XOR reduction, so there is no library time."""
+    """Phase 10 for B6: the check fold on its two main paths beside its
+    plain version and its bound.  Fused: one chunk of the faulty fp_add's
+    one port, ``(1, chunk_rows)``, where ``blk[0].clone()`` computes the
+    same function (the library time).  Packed: each block the faulty gemv
+    folded (``folds["check_words_io_shapes"]``, recorded by
+    :func:`folded_shapes`), the row's times and bound the means over the
+    gemv's launches; torch has no XOR reduction over a longer axis, so
+    this row has no library time.  The bound reads the block at the HBM
+    rate, so the row's times are :func:`cold_ms`'s (each call's block read
+    from device memory); each block also prints its time in L2
+    (:func:`cuda_ms`, its state on the path) and its share of the bound,
+    and a row of several blocks its share over the blocks at or under
+    their bound."""
     from repro_torch.kernels import pim_exec, ref as kref
     sm_clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
     lop_rate = N_SMS * LOPS_PER_SM_CLOCK * sm_clock_hz
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED)
+    cases = {"check_words_fused": {((1, chunk_rows), 0): 1},
+             "check_words_io": folds["check_words_io_shapes"]}
     rows = []
-    for key, shape in (("check_words_fused", (1, chunk_rows)),
-                       ("check_words_io", (33, chunk_rows // 32))):
-        blk = torch.randint(-(1 << 31), 1 << 31, shape, dtype=torch.int32,
-                            device="cuda", generator=g)
-        ms = cuda_ms(lambda: pim_exec.check_words(blk, 0), 200)
-        plain_ms = cuda_ms(lambda: kref.check_words(blk, 0), 20)
-        bound_ms, bound_by = fold_bound(1, shape[0], shape[1], lop_rate)
-        print(f"time {key}: {gpu}; block {shape} folded over axis 0; kernel "
-              f"{ms:.6f} ms/launch, {launches[key]} launches on its main "
-              f"path; plain {plain_ms:.6f} ms; library none (torch has no "
-              f"XOR reduction); bound {bound_ms:.6f} ms ({bound_by})",
-              flush=True)
+    for key, shapes in cases.items():
+        fused = key == "check_words_fused"
+        sums = np.zeros(4)                      # ms, plain, lib, bound
+        under = np.zeros(2)                     # bound, ms at share <= 1
+        n_all = sum(shapes.values())
+        bound_of = {}                           # bound_by -> its share
+        for (shape, axis), n in sorted(shapes.items()):
+            blk = torch.randint(-(1 << 31), 1 << 31, shape,
+                                dtype=torch.int32, device="cuda",
+                                generator=g)
+            ms = cold_ms(lambda b: pim_exec.check_words(b, axis), blk, 200)
+            warm_ms = cuda_ms(lambda: pim_exec.check_words(blk, axis), 200)
+            plain_ms = cold_ms(lambda b: kref.check_words(b, axis), blk, 20)
+            lib_ms = cold_ms(lambda b: b[0].clone(), blk, 200) if fused \
+                else float("nan")
+            outer = int(np.prod(shape[:axis]))
+            inner = int(np.prod(shape[axis + 1:]))
+            bound_ms, bound_by = fold_bound(outer, shape[axis], inner,
+                                            lop_rate)
+            sums += n * np.array([ms, plain_ms, lib_ms, bound_ms])
+            if bound_ms <= ms:
+                under += n * np.array([bound_ms, ms])
+            bound_of[bound_by] = bound_of.get(bound_by, 0) + n * bound_ms
+            lib = (f"library {lib_ms:.6f} ms (blk[0].clone(); "
+                   f"{cuda_ms(lambda: blk[0].clone(), 200):.6f} in L2)") \
+                if fused else \
+                "library none (torch has no XOR reduction)"
+            print(f"time {key}: {gpu}; block {shape} folded over axis "
+                  f"{axis}, {n} of the path's {n_all} launches; kernel "
+                  f"{ms:.6f} ms/launch from device memory ({warm_ms:.6f} "
+                  f"with the block in L2); plain {plain_ms:.6f} ms; "
+                  f"{lib}; bound {bound_ms:.6f} ms ({bound_by}), "
+                  f"{bound_ms / ms:.3f} of it", flush=True)
+        ms, plain_ms, lib_ms, bound_ms = sums / n_all
+        bound_by = max(bound_of, key=bound_of.get)
+        if len(shapes) > 1:
+            print(f"time {key}: {gpu}; mean over the path's {n_all} "
+                  f"launches of {len(shapes)} shapes, from device memory: "
+                  f"kernel {ms:.6f} ms/launch; plain {plain_ms:.6f} ms; "
+                  f"bound {bound_ms:.6f} ms ({bound_by}); over the launches "
+                  "of blocks at or under their bound "
+                  f"{under[0] / max(under[1], 1e-30):.3f}"
+                  " of it", flush=True)
         replaces, source = ENTRIES["check_words"]
         rows.append({
             "name": key, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[key],
+            "replaces": replaces, "launches": folds[key],
             "max_abs_err": worst["check_words"], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None})
+            "library_ms": None if np.isnan(lib_ms) else lib_ms})
     return rows
+
+
+def fold_turns(progs, chunk_rows: int, io_shapes: dict, gpu: str) -> None:
+    """B1 io under rows64 (uint32 add at one chunk, as :func:`measure`
+    times it) twice in turns with B6's two rows (the fused chunk and the
+    gemv's most launched block): whether B1 io rows64's time moves between
+    runs of one call."""
+    from repro_torch.kernels import pim_exec
+    rng = np.random.default_rng(SEED)
+    c = schedule_of(progs, "uint32 add", "slots", 2)
+    x = random_inputs(c, chunk_rows, False, rng)
+    (shape, axis), _ = max(io_shapes.items(),
+                           key=lambda kv: (kv[1], np.prod(kv[0][0])))
+    blocks = {"B6 fused": ((1, chunk_rows), 0), "B6 io": (shape, axis)}
+    runs = {"B1 io rows64": lambda: run_entry(c, x, False, True)}
+    for label, (shape, axis) in blocks.items():
+        blk = torch.randint(-(1 << 31), 1 << 31, shape, dtype=torch.int32,
+                            device="cuda")
+        runs[label] = (lambda blk=blk, axis=axis:
+                       pim_exec.check_words(blk, axis))
+    for rep in range(2):
+        for label, fn in runs.items():
+            ms = cuda_ms(fn, 200 if label.startswith("B6") else 50)
+            what = f"block {blocks[label][0]}" if label in blocks else \
+                f"uint32 add rows={chunk_rows}"
+            print(f"turns-time {label} run {rep}: {gpu}; {what} kernel "
+                  f"{ms:.6f} ms/launch", flush=True)
 
 
 def bound(entry: str, s, n_rows: int, fused, lop_rate: float,
@@ -4207,7 +4374,8 @@ def probe_runs(progs, pkg) -> dict:
     return runs
 
 
-def probe(progs, statics, gpu: str, parent) -> None:
+def probe(progs, statics, gpu: str, parent, folds: dict,
+          chunk_rows: int) -> None:
     """What holds B1 and B2 back: the launch attributes of this tree's
     slot scan (B1), static kernel (B2, fp32 add), level gather (B3) and
     gate-serial kernel (B4) and, when ``parent`` names the parent's
@@ -4216,7 +4384,8 @@ def probe(progs, statics, gpu: str, parent) -> None:
     :func:`probe_runs` at 1 Mi rows, this tree's and the parent's in
     turns (parent, tree, tree, parent) with one timer, each result held
     equal between the two, and this tree's B1 on windows of 6 and of 8
-    records."""
+    records; with ``parent``, :func:`fold_probe` on the blocks the faulty
+    gemv folded (``folds``); last :func:`fold_turns`."""
     from repro_torch.kernels import ops, pim_exec, plan as kplan
     prog = progs["fp32 add"]
     static = statics[("fp32 add", 1)]
@@ -4295,6 +4464,47 @@ def probe(progs, statics, gpu: str, parent) -> None:
             print(f"probe time {label} {tree} run {rep}: {gpu}; fp32 add "
                   f"(B1 io: uint32 add) rows={1 << 20} kernel {ms:.6f} "
                   "ms/launch", flush=True)
+    if parent:
+        fold_probe(gpu, parent, folds, chunk_rows)
+    fold_turns(progs, chunk_rows, folds, gpu)
+
+
+def fold_probe(gpu: str, parent, folds: dict, chunk_rows: int = 1 << 20):
+    """B6 of this tree and of the parent's package whose ``csrc`` is
+    ``parent`` in turns (parent, tree, tree, parent), each result held
+    equal between the two: on the fused chunk ``(1, chunk_rows)`` and on
+    each block of ``folds`` ((shape, axis) -> launches: the faulty gemv's,
+    as the verified phase prints them), with the mean over their
+    launches; the blocks in L2, as on the path.  Alone, without the
+    smoke's phases::
+
+        python3 -c "import chip_smoke as c; c.fold_probe(c.smi('name,power.limit'), 'PARENT/src/repro_torch/csrc', {((16, 1 << e), 0): 2 for e in range(7, 20)})"
+    """
+    from repro_torch.kernels import pim_exec
+    trees = {"parent": parent_package(parent).pim_exec,
+             "this tree": pim_exec}
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+    blocks = {((1, chunk_rows), 0): 0, **folds}
+    bits = {key: torch.randint(-(1 << 31), 1 << 31, key[0], dtype=torch.int32,
+                               device="cuda", generator=g) for key in blocks}
+    for (shape, axis), blk in bits.items():
+        got, want = (px.check_words(blk, axis) for px in trees.values())
+        if not torch.equal(got, want):
+            raise AssertionError(f"fold probe {shape}: this tree != parent")
+    for rep, tree in enumerate(("parent", "this tree", "this tree",
+                                "parent")):
+        px, mean = trees[tree], 0.0
+        for (shape, axis), n in blocks.items():
+            ms = cuda_ms(lambda: px.check_words(bits[(shape, axis)], axis),
+                         200)
+            mean += n * ms
+            print(f"probe time B6 {shape} axis {axis} {tree} run {rep}: "
+                  f"{gpu}; kernel {ms:.6f} ms/launch, the block in L2",
+                  flush=True)
+        print(f"probe time B6 gemv mean {tree} run {rep}: {gpu}; over the "
+              f"faulty gemv's {sum(folds.values())} folds "
+              f"{mean / sum(folds.values()):.6f} ms/launch", flush=True)
 
 
 def split_probe(progs, gpu: str) -> None:
@@ -4362,8 +4572,9 @@ def main() -> None:
     ap.add_argument("--probe", nargs="?", const="", default=None,
                     metavar="PARENT_CSRC",
                     help="also print the launch attributes of B1 to B4 and "
-                    "time B1, B2 and B3 with no gates, this tree's and "
-                    "(given PARENT_CSRC) the parent's in turns")
+                    "time B1, B2 and B3 with no gates and B6 on the gemv's "
+                    "blocks, this tree's and (given PARENT_CSRC) the "
+                    "parent's in turns")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -4431,7 +4642,8 @@ def main() -> None:
     if args.turns:
         turns(main["a"], main["b"], gpu, args.turns)
     if args.probe is not None:
-        probe(progs, statics, gpu, args.probe)
+        probe(progs, statics, gpu, args.probe,
+              folds["check_words_io_shapes"], chunk_rows)
     if args.sweep:
         sweep(gpu)
     if args.split_probe:

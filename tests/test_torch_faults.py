@@ -146,6 +146,32 @@ def test_check_words_packed_matches_reference(k, planes, n_words):
     _check_words_both(_bits(rng, shape), len(shape) - 2)
 
 
+def _fold_paths() -> list:
+    """``chip_smoke.fold_paths`` on the H100's SM count: the blocks that
+    reach each path of the card's fold (held there in
+    tests/test_torch_kernels.py), some views ``offset`` words into their
+    buffer."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke.fold_paths(smoke.N_SMS)
+
+
+KERNEL_BRANCHES = _fold_paths()
+
+
+@pytest.mark.parametrize("shape,axis,offset", KERNEL_BRANCHES,
+                         ids=[f"{s}-axis{a}" + (f"-offset{o}" if o else "")
+                              for s, a, o in KERNEL_BRANCHES])
+def test_check_words_kernel_branches_match_reference(shape, axis, offset):
+    rng = np.random.default_rng(_seed(shape, axis, offset))
+    flat = _bits(rng, (offset + int(np.prod(shape)),))
+    _check_words_both(flat[offset:].reshape(shape), axis)
+
+
 def test_check_words_through_ops_matches_reference():
     """``ops.check_words`` (the wrapper: the plain version on a CPU
     tensor) against ``repro.kernels.ops.check_words``."""

@@ -987,22 +987,44 @@ def test_check_words_rejects_other_devices():
         pim_exec.check_words(meta, 0)
 
 
-#: (shape, axis) of the fold on the card: fused blocks of 1, 31, 32 and 33
-#: ports, packed rows32 and rows64 blocks of odd word counts.
-CHECK_SHAPES = [((1, 1000), 0), ((31, 1000), 0), ((32, 4097), 0),
-                ((33, (1 << 20) + 3), 0), ((1, 7), 0), ((33, 32769), 0),
-                ((64, 33), 0), ((2, 1, 5), 1), ((2, 33, 32769), 1),
-                ((2, 64, 4097), 1)]
+def _smoke():
+    """``chip_smoke.py``, whose :func:`fold_paths` lists the blocks that
+    reach each path of the fold's launcher."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+_SMOKE = _smoke()
+#: (shape, axis, offset) of the fold on the card: fused blocks of 1, 31,
+#: 32 and 33 ports, packed rows32 and rows64 blocks of odd word counts;
+#: then each path of the launcher on this card's SM count (the H100's
+#: without a card), as ``chip_smoke.fold_paths`` derives them from the
+#: kernel's constants, some ``offset`` words past a 16-byte boundary.
+CHECK_SHAPES = ([((1, 1000), 0, 0), ((31, 1000), 0, 0), ((32, 4097), 0, 0),
+                 ((33, (1 << 20) + 3), 0, 0), ((1, 7), 0, 0),
+                 ((33, 32769), 0, 0), ((64, 33), 0, 0), ((2, 1, 5), 1, 0),
+                 ((2, 33, 32769), 1, 0), ((2, 64, 4097), 1, 0)] +
+                _SMOKE.fold_paths(
+                    torch.cuda.get_device_properties(0).multi_processor_count
+                    if torch.cuda.is_available() else _SMOKE.N_SMS))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,axis", CHECK_SHAPES,
-                         ids=[f"{s}-axis{a}" for s, a in CHECK_SHAPES])
-def test_check_words_matches_plain_version(cuda, shape, axis):
+@pytest.mark.parametrize("shape,axis,offset", CHECK_SHAPES,
+                         ids=[f"{s}-axis{a}" + (f"-offset{o}" if o else "")
+                              for s, a, o in CHECK_SHAPES])
+def test_check_words_matches_plain_version(cuda, shape, axis, offset):
     rng = np.random.default_rng(27)
-    blk = _bits(rng, shape)
+    flat = _bits(rng, (offset + int(np.prod(shape)),))
+    blk = flat[offset:].reshape(shape)
+    on_card = _t(flat).to(cuda)[offset:].view(shape)
     pim_exec.reset_counts()
-    got = pim_exec.check_words(_t(blk).to(cuda), axis)
+    got = pim_exec.check_words(on_card, axis)
     torch.cuda.synchronize()
     assert pim_exec.LAUNCHES["check_words"] == 1
     assert not ref.CALLS["check_words"]

@@ -162,3 +162,23 @@ def test_offload_phase_runs_on_the_cpu(smoke, monkeypatch, capsys):
     assert out.count("offload plan: PIM offload plan:") == 10
     assert "op classes offload at batch 1 seq 8" in out
     assert out.count("fig9 measured:") == 2 and "fig9 fp32 add:" in out
+
+
+def test_folded_shapes_counts_each_block_and_restores_the_fold(smoke):
+    """The verified phase times B6's packed row at the blocks the gemv
+    hands the card's fold: each call inside the span is counted by
+    (shape, axis), the axis taken modulo the rank, its result is the
+    fold's own, and the wrapper is back in place after the span."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import pim_exec, ref as kref
+    fold = pim_exec.check_words
+    blk = torch.from_numpy(np.arange(2 * 3 * 5, dtype=np.int32)
+                           .reshape(2, 3, 5))
+    with smoke.folded_shapes() as shapes:
+        got = pim_exec.check_words(blk, -2)
+        pim_exec.check_words(blk, 1)
+        pim_exec.check_words(blk[0], 0)
+    assert pim_exec.check_words is fold
+    assert dict(shapes) == {((2, 3, 5), 1): 2, ((3, 5), 0): 1}
+    assert torch.equal(got, kref.check_words(blk, 1))
