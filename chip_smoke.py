@@ -175,7 +175,11 @@ Phases, each of which raises (exit code 1) on failure:
    weights and batches (losses within :data:`MESH_TRAIN_TOL`; step ms
    and peak memory of both); ``compressed_psum`` over that group on
    qwen3-8b's embedding and LM head shapes in bf16 (1.24 G elements)
-   beside its bytes bound (:data:`PSUM_PASSES`); a line that collectives
+   beside its bytes bound (:data:`PSUM_PASSES`); ``elastic.mesh_for(1,
+   [8])`` with no group up (a one-rank NCCL mesh) and ``reshard_plan`` of
+   a saved ``qwen3-8b`` state at full width, :data:`ELASTIC_LAYERS`
+   layers, onto it (DTensors of the asked placements, values equal, the
+   bytes restored; :func:`_mesh_elastic`); a line that collectives
    across distinct cards were not measured; the dry run of ``qwen3-8b``
    for every shape on both production meshes, a process a cell, all at
    once on the host's CPU (each cell's trace seconds, FLOP ratio
@@ -3508,6 +3512,96 @@ def _mesh_psum(gpu: str) -> None:
     del grads, res, red
 
 
+#: Layers of the state :func:`_mesh_elastic` saves and restores:
+#: ``qwen3-8b`` at full width, so every leaf has its real shape (the
+#: 151936 x 4096 embedding and head, each layer's projections stacked over
+#: two layers).  1,630,552,576 parameters, about 16.3 GB of bf16 weights
+#: and float32 moments, written to disk and restored beside the saved
+#: state on the card (twice that at once).  :data:`TRAIN_LAYERS` would be
+#: 45.2 GB, 90 GB with its restored copy: more than the card.
+ELASTIC_LAYERS = 2
+
+
+def _mesh_elastic(gpu: str) -> None:
+    """``elastic.mesh_for(1, [8])`` with no process group up (a one-rank
+    NCCL group made on the card, as the reference builds its mesh over
+    ``jax.devices()``), then ``reshard_plan`` of a saved ``qwen3-8b``
+    state at full width (:data:`ELASTIC_LAYERS` layers, parameters and
+    AdamW moments) onto that mesh: every leaf a DTensor of the placements
+    asked, its values the saved ones; the group destroyed after."""
+    import tempfile
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import registry
+    from repro_torch.launch import sharding as SH
+    from repro_torch.models import convert
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.elastic import mesh_for, reshard_plan
+    _check(not dist.is_initialized(), "mesh elastic: a process group is up")
+    cfg = dataclasses.replace(registry.get(LM_ARCH), n_layers=ELASTIC_LAYERS)
+    params = M.init_model(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED), device="cuda")
+    tree = {"params": params, "opt": adamw.init(params)}
+
+    def shardings(mesh, tpl):
+        pshard = SH.param_shardings(mesh, tpl["params"])
+        return {"params": pshard,
+                "opt": SH.opt_shardings(mesh, tpl["opt"], pshard)}
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    free = shutil.disk_usage(build).free
+    try:
+        mesh = mesh_for(1, [8])
+        made = (dist.get_backend(), dist.get_world_size(), mesh.device_type,
+                tuple(mesh.shape), tuple(mesh.mesh_dim_names))
+        with tempfile.TemporaryDirectory(dir=build) as work:
+            ckpt = CheckpointManager(str(Path(work) / "ckpt"))
+            t0 = time.perf_counter()
+            ckpt.save(1, tree)
+            t_saved = time.perf_counter()
+            on_disk = sum(f.stat().st_size
+                          for f in Path(work).rglob("*.npy"))
+            placed = reshard_plan(ckpt, tree, mesh, shardings)
+            torch.cuda.synchronize()
+            t_placed = time.perf_counter()
+        want = shardings(mesh, tree)
+        parts = lambda t: {"params": t["params"], "m": t["opt"]["m"],
+                           "v": t["opt"]["v"]}
+        saved, asked = parts(tree), parts(want)
+        n = bad = placed_bytes = 0
+        for key, part in parts(placed).items():
+            values = dict(saved[key].named_parameters())
+            for name, t in part.named_parameters():
+                n += 1
+                placed_bytes += t.numel() * t.element_size()
+                bad += not (isinstance(t, DTensor) and
+                            tuple(t.placements) == asked[key][name].placements
+                            and t.device.type == "cuda" and
+                            torch.equal(t.full_tensor(), values[name]))
+        step_ok = int(convert.to_numpy(placed["opt"]["step"])) == \
+            int(convert.to_numpy(tree["opt"]["step"]))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    ok = made == ("nccl", 1, "cuda", (1, 1), ("data", "model")) and \
+        bad == 0 and step_ok
+    print(f"mesh elastic: {gpu}; mesh_for(1, [8]) with no group up gave "
+          f"backend, ranks, device, shape, axes {made}; reshard_plan of a "
+          f"saved {LM_ARCH} state at full width, {ELASTIC_LAYERS} layers "
+          f"({n} parameter and moment leaves, {on_disk} B on disk of "
+          f"{free} B free) onto it: {n - bad} DTensors of the asked "
+          f"placements equal to the saved values, {placed_bytes} B "
+          f"restored onto the card, step equal {step_ok}; save "
+          f"{t_saved - t0:.3f} s, restore {t_placed - t_saved:.3f} s "
+          f"(the file cache warm): {'passed' if ok else 'FAILED'}",
+          flush=True)
+    _check(ok, "mesh elastic: mesh_for or reshard_plan is wrong on the card")
+    _check(not dist.is_initialized(), "mesh elastic: the group is still up")
+
+
 def _mesh_dryrun(gpu: str) -> None:
     """The dry run of qwen3-8b on both meshes, a process a cell, then the
     roofline over its records."""
@@ -3585,6 +3679,9 @@ def mesh_phase(gpu: str) -> None:
         gc.collect()
         torch.cuda.empty_cache()
         _mesh_psum(gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _mesh_elastic(gpu)
     gc.collect()
     torch.cuda.empty_cache()
     print(f"mesh collectives: {gpu}; collectives across distinct cards "

@@ -67,6 +67,7 @@ from . import pim_exec
 from . import ref as kref
 from . import slots as kslots
 from . import transfer
+from .transfer import checked_device as _checked_device
 from .pim_exec import check_words  # noqa: F401
 from .plan import (BACKENDS, DEFAULT_LAYOUT, DEFAULT_PLAN,  # noqa: F401
                    DEFAULT_SCHEDULE, LAYOUTS, ROWS32, ROWS64, SCHEDULES,
@@ -421,18 +422,6 @@ def _static_key(plan: ExecPlan, in_names, in_widths, out_widths) -> tuple:
     """What ``_Compiled.static`` keys B2's kernel on."""
     return ("kernel", tuple(in_names), tuple(in_widths), tuple(out_widths),
             plan.layout.planes, plan.backend.words_per_cta)
-
-
-def _checked_device(device) -> str:
-    """``device`` as a string; raises when it names a CUDA device and
-    there is none (the port never drops to the CPU)."""
-    if torch.device(device).type == "cuda" and \
-            not torch.cuda.is_available():
-        raise RuntimeError(
-            f"no CUDA device for device={device!r}; pass "
-            "device='cpu', backend='ref' to run the plain version on "
-            "the CPU")
-    return str(torch.device(device))
 
 
 @dataclasses.dataclass

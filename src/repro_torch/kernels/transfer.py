@@ -47,10 +47,23 @@ class Streams:
 _streams: Dict[str, Streams] = {}
 
 
+def checked_device(device) -> str:
+    """``device`` as a string; raises when it names a CUDA device and
+    there is none (the port never drops to the CPU)."""
+    if torch.device(device).type == "cuda" and \
+            not torch.cuda.is_available():
+        raise RuntimeError(
+            f"no CUDA device for device={device!r}; pass "
+            "device='cpu', backend='ref' to run the plain version on "
+            "the CPU")
+    return str(torch.device(device))
+
+
 def device_name(device) -> str:
     """``device`` as a name with its index ("cuda" is the current CUDA
-    device), so that one device has one set of streams and lanes."""
-    dev = torch.device(device)
+    device), so that one device has one set of streams and lanes; raises
+    as :func:`checked_device` does."""
+    dev = torch.device(checked_device(device))
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return str(dev)

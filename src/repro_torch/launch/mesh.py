@@ -22,23 +22,32 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
+from ..kernels.transfer import checked_device
+
 
 def _device_type() -> str:
     return "cuda" if dist.get_backend() == "nccl" else "cpu"
 
 
+def _backend_for(device: str) -> str:
+    """The process group's backend for ``device``: ``nccl`` for a CUDA
+    device (raising when there is none), ``gloo`` otherwise."""
+    return "nccl" if torch.device(checked_device(device)).type == "cuda" \
+        else "gloo"
+
+
 def _ensure_group(size: int, device: str) -> None:
     """A process group of ``size`` ranks: the running one, or, when none
     is up and ``size`` is 1, a one-rank group on an in-process store
-    (``nccl`` for a CUDA ``device``, ``gloo`` otherwise).  Raises when the
-    running group has another size or none is up for more ranks."""
+    (:func:`_backend_for` ``device``).  Raises when the running group has
+    another size, when none is up for more ranks, and when ``device``
+    names a CUDA device and there is none (before any group is made)."""
     if not dist.is_initialized():
         if size != 1:
             raise RuntimeError(f"a {size}-device mesh needs a process group "
                                f"of {size} ranks; none is up")
-        backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
-        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
-                                world_size=1)
+        dist.init_process_group(_backend_for(device), store=dist.HashStore(),
+                                rank=0, world_size=1)
     if dist.get_world_size() != size:
         raise RuntimeError(f"a {size}-device mesh on a process group of "
                            f"{dist.get_world_size()} ranks")
@@ -58,9 +67,11 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], *,
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
+    """The 16x16 (or 2x16x16) mesh over a process group of 256 (512)
+    ranks: a real job's or :func:`fake_world`'s."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return init_device_mesh(_device_type(), shape, mesh_dim_names=axes)
+    return make_mesh(shape, axes)
 
 
 def dp_axes(mesh) -> tuple:

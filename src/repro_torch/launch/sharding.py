@@ -43,7 +43,7 @@ from torch.distributed.tensor import (DTensor, Replicate, Shard,
                                       distribute_tensor)
 
 from ..models import convert
-from .mesh import axis_size, dp_axes, make_mesh
+from .mesh import _backend_for, axis_size, dp_axes, make_mesh
 
 FSDP = "data"       # params are fully sharded over the in-pod data axis
 
@@ -345,10 +345,10 @@ def launch_mesh(device: str = "cuda"):
     the end."""
     made = not dist.is_initialized()
     if made and int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        cuda = torch.device(device).type == "cuda"
-        if cuda:
+        backend = _backend_for(device)
+        if backend == "nccl":
             torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
-        dist.init_process_group("nccl" if cuda else "gloo")
+        dist.init_process_group(backend)
     n_dev = dist.get_world_size() if dist.is_initialized() else 1
     try:
         mesh = make_mesh((n_dev, 1), ("data", "model"), device=device)

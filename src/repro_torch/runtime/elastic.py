@@ -7,7 +7,8 @@ counts), and ``reshard_plan`` pairs a checkpoint restore with the new mesh's
 shardings -- the checkpoint manager's placement on restore does the actual
 movement.  Growth works identically.  On PyTorch a device is a rank of the
 process group, so the new mesh spans the group's first ``data * model``
-ranks.
+ranks; with no group up, a one-device mesh makes its one-rank group as
+``launch.mesh.make_mesh`` does.
 """
 
 from __future__ import annotations
@@ -15,9 +16,10 @@ from __future__ import annotations
 from typing import List, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
-from ..launch.mesh import _device_type
+from ..launch.mesh import _device_type, _ensure_group
 
 
 def choose_mesh(n_devices: int, *, model_divisors: List[int],
@@ -41,10 +43,16 @@ def choose_mesh(n_devices: int, *, model_divisors: List[int],
     raise ValueError("no usable mesh")
 
 
-def mesh_for(n_devices: int, model_divisors: List[int]) -> DeviceMesh:
+def mesh_for(n_devices: int, model_divisors: List[int], *,
+             device: str = "cuda") -> DeviceMesh:
     """The (data, model) mesh of :func:`choose_mesh` over the process
-    group's first ``data * model`` ranks (built on every rank)."""
+    group's first ``data * model`` ranks (built on every rank).  With no
+    group up, a one-rank group is made first on ``device`` (the card by
+    default), as ``launch.mesh.make_mesh`` does; more ranks with none up
+    raise."""
     data, model = choose_mesh(n_devices, model_divisors=model_divisors)
+    if not dist.is_initialized():
+        _ensure_group(data * model, device)
     ranks = torch.arange(data * model).reshape(data, model)
     return DeviceMesh(_device_type(), ranks, mesh_dim_names=("data", "model"))
 
