@@ -1401,7 +1401,12 @@ def _dispatch_levelized(program, inputs: Dict[str, np.ndarray], n_rows: int,
     When ``telemetry.TRACER`` is enabled, finalize records an ``exec``
     event (``cat="pim.exec"``, with ``rows``, ``levels`` and ``kind``)
     from the launch to its own return; for a ``device_out`` stage that is
-    when the tensor is handed over, not when the device is done."""
+    when the tensor is handed over, not when the device is done.  While
+    the tracer is live, the host's own work is ``pim.host`` spans that
+    never nest in one another: ``run.stage`` (filling a staging buffer
+    with values or a packed block), ``run.pack`` (packing port bits),
+    ``run.unpack`` (a result back in host rows; ``run.wait`` is the
+    copy's, in ``kernels.transfer``)."""
     comp = compiled(program, plan)
     in_names = sorted(inputs)
     devices = tuple(_checked_device(d) for d in plan.devices)
@@ -1450,9 +1455,10 @@ def _dispatch_levelized(program, inputs: Dict[str, np.ndarray], n_rows: int,
                 lane = transfer.lane(dev, s)
                 staged = lane.stage((len(vals),
                                      wps * rpw if injects else hi - lo))
-                for p, v in enumerate(vals):
-                    staged.array[p, :hi - lo] = v[lo:hi]  # cast in place
-                    staged.array[p, hi - lo:] = 0
+                with tracer.span("run.stage", "pim.host"):
+                    for p, v in enumerate(vals):
+                        staged.array[p, :hi - lo] = v[lo:hi]  # cast in place
+                        staged.array[p, hi - lo:] = 0
                 outs = _run_fused(comp, program, plan, rs[dev], in_names,
                                   lane.upload(staged))
                 parts.append(lane.download(outs) if fold is None else
@@ -1463,7 +1469,8 @@ def _dispatch_levelized(program, inputs: Dict[str, np.ndarray], n_rows: int,
                     if fctx is not None:
                         o = fctx.process_values(o, r.out_widths,
                                                 r.sched.n_levels, chk)
-                    return o[:, :n_rows].astype(np.uint64)
+                    with tracer.span("run.unpack", "pim.host"):
+                        return o[:, :n_rows].astype(np.uint64)
                 o = _gathered(parts, consume)
                 return {n: o[p] for p, n in enumerate(r.names)}
             return traced(finalize)
@@ -1486,17 +1493,20 @@ def _dispatch_levelized(program, inputs: Dict[str, np.ndarray], n_rows: int,
             else:
                 staged = lane.stage(layout.state_shape(k_in, wps))
                 if packed_in is not None:
-                    staged.array[...] = packed_in[..., w0:w0 + wps]
+                    with tracer.span("run.stage", "pim.host"):
+                        staged.array[...] = packed_in[..., w0:w0 + wps]
                 else:
                     lo = min(w0 * rpw, n_rows)
                     hi = min(lo + wps * rpw, n_rows)
                     off = 0
-                    for n in in_names:
-                        nc = len(r.sched.pack_cells(n))
-                        staged.array[..., off:off + nc, :] = \
-                            _pack_port_words(np.asarray(inputs[n])[lo:hi],
-                                             nc, wps, layout)
-                        off += nc
+                    with tracer.span("run.pack", "pim.host"):
+                        for n in in_names:
+                            nc = len(r.sched.pack_cells(n))
+                            staged.array[..., off:off + nc, :] = \
+                                _pack_port_words(
+                                    np.asarray(inputs[n])[lo:hi], nc, wps,
+                                    layout)
+                            off += nc
                 x = lane.upload(staged)
             subs.append(_run_io(comp, program, plan, rs[dev], in_names, x))
         if device_out:
@@ -1515,7 +1525,8 @@ def _dispatch_levelized(program, inputs: Dict[str, np.ndarray], n_rows: int,
                 sub = fctx.process_packed(sub, r.sched.n_levels, chk)
             if packed_out:
                 return np.array(sub)
-            return _unpack_sub(sub, name_widths, n_rows)
+            with tracer.span("run.unpack", "pim.host"):
+                return _unpack_sub(sub, name_widths, n_rows)
         return _gathered(parts, consume)
     return traced(finalize)
 
@@ -1532,7 +1543,8 @@ def _run_gate_serial(program, inputs: Dict[str, np.ndarray], n_rows: int,
     *gates, packed = comp.get_gates(program, device)
     lane = transfer.lane(device)
     staged = lane.stage(ROWS32.state_shape(n_cells, ROWS32.n_words(n_rows)))
-    pack_rows(inputs, program.ports, n_rows, n_cells, out=staged.array)
+    with telemetry.TRACER.span("run.pack", "pim.host"):
+        pack_rows(inputs, program.ports, n_rows, n_cells, out=staged.array)
     with transfer.computing((device,)):
         state = lane.upload(staged)
         if plan.backend.name == "cuda":
@@ -1540,8 +1552,12 @@ def _run_gate_serial(program, inputs: Dict[str, np.ndarray], n_rows: int,
         else:
             final = kref.pim_exec_ref(state, *gates)
         out = lane.download(final)
-    return out.result(lambda st: unpack_rows(st, program.ports, n_rows,
-                                             names=output_names(program)))
+
+    def consume(st):
+        with telemetry.TRACER.span("run.unpack", "pim.host"):
+            return unpack_rows(st, program.ports, n_rows,
+                               names=output_names(program))
+    return out.result(consume)
 
 
 def run_program(program, inputs: Dict[str, np.ndarray], n_rows: int,
@@ -1615,7 +1631,8 @@ def run_program_streaming(program, inputs: Dict[str, np.ndarray],
     dispatch and between chunks (:class:`DeadlineExceeded` on expiry).
     A plan with a fault model or a verify policy runs every chunk through
     the detect -> retry -> remap loop, one :class:`_VerifyRun` for the
-    whole run."""
+    whole run.  Joining the chunks' results is a ``run.join`` span of
+    ``telemetry.TRACER``."""
     plan = as_plan(plan, backend=backend, chunk_rows=chunk_rows, mesh=mesh,
                    schedule=schedule, layout=layout, device=device)
     if plan.backend.name == "numpy":
@@ -1646,8 +1663,9 @@ def run_program_streaming(program, inputs: Dict[str, np.ndarray],
             parts.append(pending())     # waits on k-1 while k runs
         pending = fin
     parts.append(pending())
-    return {name: np.concatenate([p[name] for p in parts])
-            for name in parts[0]}
+    with telemetry.TRACER.span("run.join", "pim.host"):
+        return {name: np.concatenate([p[name] for p in parts])
+                for name in parts[0]}
 
 
 def dispatch_program(program, inputs: Dict[str, np.ndarray], n_rows: int,

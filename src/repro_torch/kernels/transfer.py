@@ -24,6 +24,11 @@ host-to-device copy runs while chunk k's kernel runs:
 
 ``finalize`` waits on its own copy's event, never on the device.  On the
 CPU the same calls take plain tensors and no streams.
+
+The bytes handed to the copies are counted on every device, the CPU's
+too (``pim.transfer.h2d_bytes``, ``pim.transfer.d2h_bytes`` in
+``telemetry.REGISTRY``), and the host's waits on a copy are ``run.wait``
+spans of ``telemetry.TRACER`` (``on="h2d"`` or ``"d2h"``).
 """
 
 from __future__ import annotations
@@ -34,6 +39,8 @@ from typing import Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
+
+from ..runtime import telemetry
 
 
 @dataclasses.dataclass
@@ -122,7 +129,8 @@ class Download:
 
     def result(self, consume: Callable[..., object]):
         if self._event is not None:
-            self._event.synchronize()
+            with telemetry.TRACER.span("run.wait", "pim.host", on="d2h"):
+                self._event.synchronize()
         try:
             return consume(*(h.numpy().view(np.uint32)
                              for h in self._hosts))
@@ -158,7 +166,9 @@ class Lane:
         slot = self._ins[self._turn_in]
         self._turn_in ^= 1
         if slot.event is not None:
-            slot.event.synchronize()     # the copy that last read it is done
+            # the copy that last read it is done
+            with telemetry.TRACER.span("run.wait", "pim.host", on="h2d"):
+                slot.event.synchronize()
             slot.event = None
         if slot.buf is None or slot.buf.numel() < n:
             slot.buf = _pinned(n)
@@ -168,6 +178,8 @@ class Lane:
     def upload(self, staged: Staged) -> torch.Tensor:
         """``staged`` on the device, copied on the ``h2d`` stream; the
         compute stream waits for the copy."""
+        telemetry.REGISTRY.inc("pim.transfer.h2d_bytes",
+                               staged.tensor.nbytes)
         if not self.cuda:
             return staged.tensor
         s = streams(self.device)
@@ -187,6 +199,8 @@ class Lane:
         device's compute stream) to one pinned buffer on the ``d2h``
         stream."""
         ts = (t,) + beside
+        telemetry.REGISTRY.inc("pim.transfer.d2h_bytes",
+                               sum(x.nbytes for x in ts))
         if not self.cuda:
             return Download(list(ts))
         s = streams(self.device)

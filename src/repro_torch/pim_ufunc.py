@@ -24,6 +24,11 @@ GPU a default call raises; it never drops to the CPU.
 
 Per the paper, FP operands must be normal-range or zero: NaN/Inf and
 subnormals are rejected up front (``check=False`` skips the scan).
+
+While ``runtime.telemetry.TRACER`` is live (enabled, or under a torch
+profiler), the frontend's operand checks are ``frontend.validate`` spans,
+its widening to uint64 rows ``frontend.widen``, and decoding the result
+in ``Prepared.run`` ``run.finish``.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from .core.floatfmt import FORMATS
 from .core.pim_numerics import program_for
 from .kernels import ops as kops
 from .kernels import plan as kplan
+from .runtime import telemetry
 
 __all__ = ["add", "sub", "mul", "div",
            "fp_add", "fp_sub", "fp_mul", "fp_div",
@@ -277,8 +283,9 @@ class Prepared:
     def run(self):
         """Execute through the streaming executor (identical to the plain
         ufunc call)."""
-        return self._finish(_run(self.program, self.inputs, self.n_rows,
-                                 self.plan))
+        outs = _run(self.program, self.inputs, self.n_rows, self.plan)
+        with telemetry.TRACER.span("run.finish", "pim.host"):
+            return self._finish(outs)
 
     def warm(self, rows: int = 1) -> None:
         """Levelize, copy the schedule to the device and build the kernels
@@ -363,15 +370,17 @@ def _vmax(v):
 
 
 def _prepare_int(op, x, y, width, kw) -> Prepared:
-    xr, yr, shape, w = _int_operands(op, x, y, width)
+    with telemetry.TRACER.span("frontend.validate", "pim.host"):
+        xr, yr, shape, w = _int_operands(op, x, y, width)
     plan, parallel = _resolve(kw, family=f"{op}:{w}")
     prog = program_for("int-parallel" if parallel else "int-serial", op, w)
     if op == "div":
         if xr.size and _vmin(yr) == 0:
             raise ValueError("pim.div: zero divisor")
         # the divider takes a double-width dividend port z and divisor d
-        inputs = {"z": xr.astype(np.uint64) if xr.dtype != object else xr,
-                  "d": yr}
+        with telemetry.TRACER.span("frontend.widen", "pim.host"):
+            z = xr.astype(np.uint64) if xr.dtype != object else xr
+        inputs = {"z": z, "d": yr}
         finish = lambda outs: (outs["q"].reshape(shape),
                                outs["r"].reshape(shape))
     else:
@@ -457,8 +466,9 @@ def _prepare_fp(op, x, y, kw) -> Prepared:
                 "bit-pattern arrays")
         fmt_name = _NP_FMT[x.dtype]
         view = _FMT_VIEW[fmt_name]
-        xb = x.ravel().view(view).astype(np.uint64)
-        yb = y.ravel().view(view).astype(np.uint64)
+        with telemetry.TRACER.span("frontend.widen", "pim.host"):
+            xb = x.ravel().view(view).astype(np.uint64)
+            yb = y.ravel().view(view).astype(np.uint64)
         decode = lambda bits: bits.astype(view).view(x.dtype).reshape(x.shape)
     else:
         if fmt not in FORMATS:
@@ -466,23 +476,27 @@ def _prepare_fp(op, x, y, kw) -> Prepared:
                              f"(known: {sorted(FORMATS)})")
         fmt_name = fmt
         nbits = FORMATS[fmt].nbits
-        for name, v in (("x", x), ("y", y)):
-            if v.dtype.kind not in "uiO":
-                raise TypeError(
-                    f"pim.fp_{op}: fmt={fmt!r} takes bit-pattern integer "
-                    f"arrays, got dtype {v.dtype}")
-            if v.size and (_vmin(v) < 0 or _vmax(v) >> nbits):
-                raise ValueError(
-                    f"pim.fp_{op}: operand {name} has bit patterns outside "
-                    f"[0, 2**{nbits})")
-        xb = x.ravel().astype(np.uint64)
-        yb = y.ravel().astype(np.uint64)
+        with telemetry.TRACER.span("frontend.validate", "pim.host"):
+            for name, v in (("x", x), ("y", y)):
+                if v.dtype.kind not in "uiO":
+                    raise TypeError(
+                        f"pim.fp_{op}: fmt={fmt!r} takes bit-pattern "
+                        f"integer arrays, got dtype {v.dtype}")
+                if v.size and (_vmin(v) < 0 or _vmax(v) >> nbits):
+                    raise ValueError(
+                        f"pim.fp_{op}: operand {name} has bit patterns "
+                        f"outside [0, 2**{nbits})")
+        with telemetry.TRACER.span("frontend.widen", "pim.host"):
+            xb = x.ravel().astype(np.uint64)
+            yb = y.ravel().astype(np.uint64)
         decode = lambda bits: bits.reshape(x.shape)
     plan, parallel = _resolve(kw, family=f"fp_{op}:{fmt_name}")
     f = FORMATS[fmt_name]
     if check and xb.size:
-        _check_fp_bits(f"fp_{op}", "x", xb, f)
-        _check_fp_bits(f"fp_{op}", "y", yb, f, reject_zero=(op == "div"))
+        with telemetry.TRACER.span("frontend.validate", "pim.host"):
+            _check_fp_bits(f"fp_{op}", "x", xb, f)
+            _check_fp_bits(f"fp_{op}", "y", yb, f,
+                           reject_zero=(op == "div"))
     if parallel and op == "sub":
         # the bit-parallel suite has no subtractor: flip y's sign, add
         yb = yb ^ np.uint64(1 << (f.nbits - 1))

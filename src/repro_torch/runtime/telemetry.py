@@ -2,8 +2,8 @@
 
 One module owns every observable signal the pipeline produces:
 
-* :class:`MetricsRegistry` -- a thread-safe registry of **counters**,
-  **gauges** and **log-bucketed histograms** (p50/p95/p99 summaries) with
+* :class:`MetricsRegistry` -- a thread-safe registry of **counters** and
+  **log-bucketed histograms** (p50/p95/p99 summaries) with
   snapshot/drain semantics.  A single re-entrant lock guards all mutation,
   so executor threads, the serving reader thread and the media scrubber
   can increment concurrently without losing updates -- the fix for the
@@ -17,9 +17,12 @@ One module owns every observable signal the pipeline produces:
   timing through the whole pipeline (prepare -> enqueue -> coalesce/pack
   -> dispatch -> exec -> unpack -> finish), exportable as Chrome-trace /
   Perfetto-compatible JSON (``chrome://tracing``, ``ui.perfetto.dev``).
-  Disabled by default: a disabled span is one attribute read, which is
-  what keeps the tracer inside the <2% tracked-kernel overhead budget.
-* :class:`PimCostModel` -- the analytical cost gauge: per executed
+  A span is live while ``enabled`` is set or a torch profiler records;
+  under the profiler it is also a ``record_function`` range, on the
+  profiler's clock beside the kernels and copies, and every live span
+  adds to running totals (:meth:`Tracer.totals`).  Off, a span is one
+  predicate call and the shared null context.
+* :class:`PimCostModel` -- the analytical cost model: per executed
   program, modeled PIM cycles (gate count + output-copy stage + INIT,
   one column op per cycle -- the paper's §7 execution model) and energy
   (per-command pJ from :data:`ENERGY_PJ`), recorded next to wall clock so
@@ -34,8 +37,9 @@ Metric naming scheme (dots group, Prometheus rendering maps to ``_``):
 ``pim.serve.*``       serving runtime counters + latency histograms
 ``pim.batch.*``       per-batch histograms (exec_us, occupancy, groups)
 ``pim.cache.*``       compiled-program LRU hit/miss/eviction counters
-``pim.exec.*``        dispatch counters (dispatches, rows, levels)
-``pim.model.*``       analytical cost gauges (cycles, energy_pj)
+``pim.exec.*``        dispatch counters (dispatches, rows)
+``pim.model.*``       analytical cost counters (cycles, energy_pj)
+``pim.transfer.*``    bytes handed to the host<->device copies
 ====================  ====================================================
 
 This module sits at the bottom of the package's import graph: it imports
@@ -51,6 +55,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import sys
 import threading
 import time
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
@@ -166,7 +171,7 @@ class Histogram:
 # --------------------------------------------------------------------------
 
 class MetricsRegistry:
-    """Thread-safe registry of counters, gauges and histograms.
+    """Thread-safe registry of counters and histograms.
 
     All mutation happens under one re-entrant lock; reads return plain
     copies, never live references.  ``drain`` (snapshot-and-reset) is the
@@ -179,7 +184,6 @@ class MetricsRegistry:
     def __init__(self):
         self._lock = threading.RLock()
         self._counters: Dict[str, float] = {}
-        self._gauges: Dict[str, float] = {}
         self._hists: Dict[str, Histogram] = {}
 
     # ------------------------------------------------------------ counters
@@ -210,16 +214,6 @@ class MetricsRegistry:
         """A Counter-shaped view over ``prefix``-named counters."""
         return CounterGroup(self, prefix)
 
-    # ------------------------------------------------------------ gauges
-
-    def set_gauge(self, name: str, value: float) -> None:
-        with self._lock:
-            self._gauges[name] = float(value)
-
-    def gauge(self, name: str, default: float = 0.0) -> float:
-        with self._lock:
-            return self._gauges.get(name, default)
-
     # ------------------------------------------------------------ histograms
 
     def observe(self, name: str, value: float) -> None:
@@ -248,21 +242,19 @@ class MetricsRegistry:
     # drain
 
     def snapshot(self) -> dict:
-        """Point-in-time copy: ``{"counters": {...}, "gauges": {...},
-        "histograms": {name: summary}}``.  Zero-valued counters are kept
+        """Point-in-time copy: ``{"counters": {...}, "histograms":
+        {name: summary}}``.  Zero-valued counters are kept
         (they exist because someone incremented them past zero and back
         via drain -- snapshot never filters)."""
         with self._lock:
             return {"counters": dict(self._counters),
-                    "gauges": dict(self._gauges),
                     "histograms": {n: h.summary()
                                    for n, h in self._hists.items()}}
 
     def drain(self, prefix: str = "") -> Dict[str, float]:
         """Snapshot-and-reset every counter whose name starts with
         ``prefix`` (all of them for ""); returns the non-zero removed
-        values.  Histograms and gauges are untouched -- they are windowed
-        by :meth:`drain_histograms` / overwritten in place."""
+        values.  Histograms are untouched."""
         with self._lock:
             out = {}
             for name in [n for n in self._counters
@@ -270,14 +262,6 @@ class MetricsRegistry:
                 v = self._counters.pop(name)
                 if v:
                     out[name] = int(v) if float(v).is_integer() else v
-            return out
-
-    def drain_histograms(self, prefix: str = "") -> Dict[str, dict]:
-        """Snapshot-and-reset matching histograms (their summaries)."""
-        with self._lock:
-            out = {}
-            for name in [n for n in self._hists if n.startswith(prefix)]:
-                out[name] = self._hists.pop(name).summary()
             return out
 
 
@@ -357,28 +341,45 @@ class CounterGroup:
 # --------------------------------------------------------------------------
 
 class _Span:
-    """One open span: a context manager that emits a complete ("X") event
-    on exit.  Cheap on purpose -- two perf_counter reads and one deque
-    append."""
+    """One open live span: a context manager that adds its wall time to
+    the tracer's totals on exit, emits a complete ("X") event when the
+    tracer is enabled, and is a ``record_function`` range while a torch
+    profiler records.  Cheap on purpose -- two perf_counter reads, one
+    lock."""
 
-    __slots__ = ("_tracer", "name", "cat", "args", "_t0")
+    __slots__ = ("_tracer", "name", "cat", "args", "_t0", "_range")
 
-    def __init__(self, tracer: "Tracer", name: str, cat: str, args: dict):
+    def __init__(self, tracer: "Tracer", name: str, cat: str, args: dict,
+                 profiler=None):
         self._tracer = tracer
         self.name = name
         self.cat = cat
         self.args = args
+        self._range = None if profiler is None else \
+            profiler.record_function(name)
 
     def __enter__(self) -> "_Span":
+        if self._range is not None:
+            self._range.__enter__()
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc) -> None:
-        self._tracer.event(self.name, self._t0, time.perf_counter(),
-                           cat=self.cat, **self.args)
+        t1 = time.perf_counter()
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        self._tracer._close(self, t1)
 
 
 _NULL_SPAN = contextlib.nullcontext()
+
+
+def _recording_profiler():
+    """``torch.autograd.profiler`` while a torch profiler records, else
+    None.  torch is looked up in ``sys.modules``, never imported: a
+    process without torch has no profiler."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof if prof is not None and prof._is_profiler_enabled else None
 
 
 class Tracer:
@@ -386,34 +387,65 @@ class Tracer:
     Chrome-trace JSON (the ``{"traceEvents": [...]}`` envelope both
     ``chrome://tracing`` and Perfetto load directly).
 
-    Spans nest naturally: events carry real thread ids and microsecond
-    ``ts``/``dur``, which is all the Chrome trace model needs to stack
-    them.  The buffer is a bounded ring (``capacity`` events, oldest
+    A span is live while ``enabled`` is set (``serve.py
+    --pim-trace-file``) or a torch profiler records (:attr:`live`); off,
+    :meth:`span` returns the shared null context.  A live span adds its
+    count and seconds to running totals under its name (:meth:`totals`),
+    so a long window loses nothing to the ring's capacity; under a
+    profiler it is also a ``record_function`` range, a
+    ``user_annotation`` event on the profiler's clock, nested under the
+    caller's range.
+
+    Events go to the ring only while ``enabled``: they carry real thread
+    ids and microsecond ``ts``/``dur`` on this tracer's own
+    ``perf_counter`` epoch, which is all the Chrome trace model needs to
+    stack them.  The ring is bounded (``capacity`` events, oldest
     dropped), so a long-running server can leave tracing on without
-    unbounded growth.  ``enabled`` defaults to False and a disabled
-    :meth:`span` returns a shared null context -- one attribute read on
-    the hot path, nothing allocated."""
+    unbounded growth."""
 
     def __init__(self, capacity: int = 1 << 16):
         self.enabled = False
         self._lock = threading.Lock()
         self._events: "collections.deque" = collections.deque(
             maxlen=capacity)
+        self._totals: Dict[str, List[float]] = {}
         self._epoch = time.perf_counter()
 
+    @property
+    def live(self) -> bool:
+        """True while ``enabled`` is set or a torch profiler records."""
+        return self.enabled or _recording_profiler() is not None
+
     def span(self, name: str, cat: str = "pim", **args):
-        """Context manager timing one pipeline stage; no-op when the
-        tracer is disabled."""
-        if not self.enabled:
+        """Context manager timing one pipeline stage; the shared null
+        context unless the tracer is live."""
+        prof = _recording_profiler()
+        if prof is None and not self.enabled:
             return _NULL_SPAN
-        return _Span(self, name, cat, args)
+        return _Span(self, name, cat, args, prof)
+
+    def _close(self, span: _Span, t1: float) -> None:
+        with self._lock:
+            tot = self._totals.get(span.name)
+            if tot is None:
+                tot = self._totals[span.name] = [0, 0.0]
+            tot[0] += 1
+            tot[1] += t1 - span._t0
+        if self.enabled:
+            self.event(span.name, span._t0, t1, cat=span.cat, **span.args)
+
+    def totals(self) -> Dict[str, Tuple[int, float]]:
+        """``{name: (count, seconds)}`` of the live spans closed since the
+        last :meth:`drain`."""
+        with self._lock:
+            return {n: (int(c), s) for n, (c, s) in self._totals.items()}
 
     def event(self, name: str, t0: float, t1: float, cat: str = "pim",
               **args) -> None:
         """Record a retroactive span from ``perf_counter`` stamps --
         how queue-wait (admission -> dequeue) is traced: the waiting
         thread never blocks on instrumentation; the dequeuer back-fills
-        the span."""
+        the span.  Only while ``enabled``."""
         if not self.enabled:
             return
         ev = {"name": name, "cat": cat, "ph": "X",
@@ -433,9 +465,11 @@ class Tracer:
         self.event(name, now, now, cat=cat, **args)
 
     def drain(self) -> List[dict]:
+        """The ring's events; clears them and the totals."""
         with self._lock:
             out = list(self._events)
             self._events.clear()
+            self._totals.clear()
         return out
 
     def write_chrome_trace(self, path: str) -> int:
@@ -547,8 +581,8 @@ class PimCostModel:
 #: their per-instance stats so tests stay isolated.
 REGISTRY = MetricsRegistry()
 
-#: The default tracer (disabled until ``--pim-trace-file`` or a test
-#: flips ``TRACER.enabled``).
+#: The default tracer: its spans are live under a torch profiler, and it
+#: keeps events once ``--pim-trace-file`` or a test sets ``enabled``.
 TRACER = Tracer()
 
 #: The default analytical cost model.
@@ -557,7 +591,7 @@ COST_MODEL = PimCostModel()
 
 def record_dispatch(n_rows: int, model: Optional[ModeledCost]) -> None:
     """Fold one levelized dispatch into the global registry: dispatch /
-    row / level counters plus the modeled cycle+energy gauges.  ONE lock
+    row counters plus the modeled cycle and energy counters.  ONE lock
     acquisition with a prebuilt dict -- the per-dispatch overhead is a
     handful of dict ops, independent of ``n_rows`` and schedule size
     (pinned by tests/test_telemetry.py)."""
@@ -568,7 +602,6 @@ def record_dispatch(n_rows: int, model: Optional[ModeledCost]) -> None:
     REGISTRY.add_many({
         "pim.exec.dispatches": 1,
         "pim.exec.rows": n_rows,
-        "pim.exec.levels": model.levels,
         "pim.model.cycles": model.cycles,
         "pim.model.energy_pj": model.energy_pj_per_row * n_rows,
     })
@@ -592,7 +625,7 @@ def _prom_name(name: str) -> str:
 
 def render_prometheus(*registries: MetricsRegistry) -> str:
     """Prometheus-style text exposition of one or more registries:
-    counters/gauges as single samples, histograms as summaries
+    counters as single samples, histograms as summaries
     (``{quantile="0.5|0.95|0.99"}`` + ``_count``/``_sum``).  Written by
     ``serve.py --pim-metrics-file`` so any textfile-collector style
     scraper can pick serving metrics up without a wire protocol."""
@@ -603,10 +636,6 @@ def render_prometheus(*registries: MetricsRegistry) -> str:
             pn = _prom_name(name)
             lines.append(f"# TYPE {pn} counter")
             lines.append(f"{pn} {snap['counters'][name]:g}")
-        for name in sorted(snap["gauges"]):
-            pn = _prom_name(name)
-            lines.append(f"# TYPE {pn} gauge")
-            lines.append(f"{pn} {snap['gauges'][name]:g}")
         for name in sorted(snap["histograms"]):
             pn = _prom_name(name)
             s = snap["histograms"][name]
