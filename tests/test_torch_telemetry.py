@@ -3,7 +3,8 @@ off, a span is the shared null context; under a torch profiler it is a
 ``record_function`` range on the profiler's clock and adds to running
 totals; the host spans of the ufunc path never overlap; the transfer
 counters count the staged bytes; the modelled cycles are the resolved
-schedule's.  Everything runs the plain version on the CPU."""
+schedule's; the operand check's counters count the rows it scanned.
+Everything runs the plain version on the CPU."""
 
 import json
 
@@ -222,3 +223,41 @@ def test_the_registry_keeps_counters_and_histograms_only(tracer):
     assert "# TYPE pim_h summary" in text and "gauge" not in text
     assert not hasattr(reg, "set_gauge") and \
         not hasattr(reg, "drain_histograms")
+
+
+def _check_counts():
+    c = telemetry.REGISTRY.snapshot()["counters"]
+    return (c.get("pim.frontend.check_rows", 0),
+            c.get("pim.frontend.check_rows_object", 0))
+
+
+@pytest.mark.parametrize("op", ["fp_add", "fp_sub", "fp_mul", "fp_div"])
+def test_the_check_counts_both_operands_rows(tracer, op):
+    x, y = _operands("fp_add")
+    pim.prepare(op, x, y, **CPU)
+    assert _check_counts() == (2 * N, 0)
+    pim.prepare(op, x, y, check=False, **CPU)
+    assert _check_counts() == (2 * N, 0)
+
+
+def test_a_lazy_leaf_counts_its_rows(tracer):
+    x, _ = _operands("fp_add")
+    pim.lazy(x)
+    pim.lazy(x.view(np.uint32), fmt="fp32")
+    pim.lazy(x, check=False)
+    assert _check_counts() == (2 * N, 0)
+
+
+@pytest.mark.parametrize("op", ["add", "sub", "mul", "div"])
+def test_an_int_ufunc_runs_no_check(tracer, op):
+    x, y = _operands(op)
+    pim.prepare(op, x, y | np.uint32(1), **CPU)
+    assert _check_counts() == (0, 0)
+
+
+def test_only_object_patterns_take_the_per_element_check(tracer):
+    x, y = (v.view(np.uint32) for v in _operands("fp_add"))
+    pim.prepare("fp_add", x.astype(np.int64), y, fmt="fp32", **CPU)
+    assert _check_counts() == (2 * N, 0)
+    pim.prepare("fp_add", x.astype(object), y, fmt="fp32", **CPU)
+    assert _check_counts() == (3 * N, N)

@@ -5,9 +5,12 @@ PyTorch executor) is held bit for bit against ``repro.pim_ufunc`` on its
 default ``ref`` backend, with inputs made from a seed with numpy: the int
 ufuncs at 8/16/32 bits and the fp ufuncs at fp16/fp32 and bf16, bit-serial
 and bit-parallel, the streaming executor, and the reference's validation
-errors; then the same grid under ``schedule="dense"``,
+errors, with excluded encodings planted at the operand check's block
+edges; then the same grid under ``schedule="dense"``,
 ``schedule="slots-static"`` and ``layout="rows64"``.
 """
+
+import tracemalloc
 
 import numpy as np
 import pytest
@@ -215,6 +218,102 @@ def test_validation_errors_match_reference(op, x, y, kw):
     requests raise what the reference raises, before any execution."""
     _errors_alike(lambda: tpim.prepare(op, x, y, **kw, **CPU),
                   lambda: rpim.prepare(op, x, y, **kw))
+
+
+#: The operand check's blocks: two whole ones and a ragged third.
+BLOCK = tpim._CHECK_BLOCK_ROWS
+N_CHECK = 2 * BLOCK + 123
+#: The rows a planted encoding sits at: the first, the last of a block,
+#: the first of the next, the last of the ragged final block.
+CHECK_ROWS = {"first": 0, "block_end": BLOCK - 1, "next_block": BLOCK,
+              "ragged_end": N_CHECK - 1}
+#: The operand arrays, by id: (format, dtype).  Native floats for fp16
+#: and fp32; signed (bf16) and unsigned (fp64) bit patterns with fmt=, in
+#: native and in big-endian byte order.
+CHECK_FORMATS = {"fp16": ("fp16", np.float16), "fp32": ("fp32", np.float32),
+                 "bf16": ("bf16", np.int64), "fp64": ("fp64", np.uint64),
+                 "fp32-be-u4": ("fp32", ">u4"), "bf16-be-i8": ("bf16", ">i8"),
+                 "fp64-be-u8": ("fp64", ">u8")}
+
+
+def _rejected(fmt, kind):
+    f = FORMATS[fmt]
+    sign, inf = 1 << (f.nbits - 1), ((1 << f.ne) - 1) << f.nm
+    return {"nan": inf | 1, "+inf": inf, "-inf": sign | inf,
+            "subnormal": sign | ((1 << f.nm) - 1), "zero": 0}[kind]
+
+
+def _check_operands(arrays, plant=()):
+    """Two normal-range operands of N_CHECK rows in the ``arrays`` of
+    CHECK_FORMATS, with each ``(operand, row, encoding)`` of ``plant``
+    written in."""
+    fmt, dtype = CHECK_FORMATS[arrays]
+    x, y, kw = _fp_operands(fmt, n=N_CHECK)
+    x, y = (v.view(np.dtype(f"u{v.itemsize}")) for v in (x, y))
+    for name, row, kind in plant:
+        (x if name == "x" else y)[row] = _rejected(fmt, kind)
+    if np.dtype(dtype).kind == "f":
+        return x.view(dtype), y.view(dtype), kw
+    return x.astype(dtype), y.astype(dtype), {"fmt": fmt}
+
+
+_PLANTED = [(arrays, kind, where, at)
+            for arrays in CHECK_FORMATS
+            for kind in ("nan", "+inf", "-inf", "subnormal", "zero")
+            for where in ("x", "y", "both")
+            for at in CHECK_ROWS]
+
+
+@pytest.mark.parametrize("arrays,kind,where,at", _PLANTED,
+                         ids=["-".join(p) for p in _PLANTED])
+def test_check_finds_each_planted_encoding_like_the_reference(
+        arrays, kind, where, at):
+    """Over more than one block of the operand check, an excluded
+    encoding at a block's edge raises what the reference raises; a zero
+    is planted under fp_div, where only y's is rejected."""
+    row = CHECK_ROWS[at]
+    names = ("x", "y") if where == "both" else (where,)
+    x, y, kw = _check_operands(arrays, [(n, row, kind) for n in names])
+    op = "fp_div" if kind == "zero" else "fp_add"
+    port = lambda: tpim.prepare(op, x, y, **kw, **CPU)
+    ref = lambda: rpim.prepare(op, x, y, **kw)
+    if kind == "zero" and where == "x":      # a zero dividend is valid
+        port(), ref()
+    else:
+        _errors_alike(port, ref)
+
+
+@pytest.mark.parametrize("arrays", list(CHECK_FORMATS))
+def test_check_reports_nan_before_an_earlier_subnormal(arrays):
+    x, y, kw = _check_operands(arrays, [("x", 0, "subnormal"),
+                                        ("x", N_CHECK - 1, "nan"),
+                                        ("y", BLOCK, "zero")])
+    port = lambda: tpim.prepare("fp_div", x, y, **kw, **CPU)
+    _errors_alike(port, lambda: rpim.prepare("fp_div", x, y, **kw))
+    with pytest.raises(ValueError, match="operand x contains NaN/Inf"):
+        port()
+
+
+@pytest.mark.parametrize("op", ["fp_add", "fp_div"])
+@pytest.mark.parametrize("arrays", list(CHECK_FORMATS))
+def test_check_passes_valid_operands_of_many_blocks(arrays, op):
+    x, y, kw = _check_operands(arrays)
+    assert tpim.prepare(op, x, y, **kw, **CPU).n_rows == N_CHECK
+    assert rpim.prepare(op, x, y, **kw).n_rows == N_CHECK
+
+
+def test_check_makes_no_operand_sized_temporary():
+    """The check of a 4 Mi-row fp32 operand holds a few blocks' scratch
+    at most, far below the operand's 16 MB."""
+    bits = np.full(4 << 20, 0x3F800000, np.uint32)
+    tracemalloc.start()
+    try:
+        tpim._check_fp_bits("fp_add", "x", bits, FORMATS["fp32"],
+                            reject_zero=True)
+        _, peak = tracemalloc.get_traced_memory()
+    finally:
+        tracemalloc.stop()
+    assert peak < 4 * BLOCK * bits.itemsize <= bits.nbytes // 16
 
 
 @pytest.mark.parametrize("kw,exc", [
