@@ -65,6 +65,18 @@ def load_cell(name: str, root: Path = ROOT) -> dict:
     }
 
 
+def kind(spec: dict) -> str:
+    """The harness branch that runs a cell: ``"lm"`` where its
+    configuration says so, else ``"ufunc"``."""
+    return spec["config"].get("kind", "ufunc")
+
+
+def cell_names(of_kind: str, root: Path = ROOT) -> list:
+    """The names of the cells of one kind, in ``BENCHMARK.json``'s order."""
+    return [w["name"] for w in load_benchmark(root)["workloads"]
+            if kind(load_cell(w["name"], root)) == of_kind]
+
+
 def metric_reader(name: str, root: Path = ROOT) -> Callable[[dict],
                                                            Optional[float]]:
     """The ``read`` function of ``pimbench/metrics/<name>.py``."""

@@ -36,6 +36,9 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     from pimbench import cells
     spec = cells.load_cell(args.workload, ROOT)
+    if cells.kind(spec) == "lm":
+        from pimbench import lm
+        return lm.control_main(spec, args.seeds, args.device)
     rows = int(spec["traffic"]["rows_per_call"])
     least = None
     for seed in args.seeds:

@@ -79,6 +79,9 @@ def main(argv=None) -> int:
               f"device(s), this machine has {have}; no result",
               file=sys.stderr)
         return 2
+    if cells.kind(spec) == "lm":
+        from pimbench import lm
+        return lm.main(args, spec, before, AGE - T0, power_limit)
     from pimbench import bench, timeline
     work = ROOT / bench.WORK_DIR
     before["harness"] += time.perf_counter() - t_query

@@ -84,10 +84,17 @@ def test_entries_have_the_contract_keys_and_names():
 def test_a_cell_is_found_by_name_from_its_files(cell):
     spec = cells.load_cell(cell)
     assert spec["name"] == cell and spec["chips"] == 1
-    assert spec["traffic"]["op"] in ("fp_add", "add", "sub")
-    assert spec["config"]["rows"] >= spec["traffic"]["rows_per_call"]
-    assert {"nor_gates", "rows_per_word", "bytes_per_row",
-            "executor_kernels"} <= set(spec["frozen"])
+    if cells.kind(spec) == "ufunc":
+        assert spec["traffic"]["op"] in ("fp_add", "add", "sub")
+        assert spec["config"]["rows"] >= spec["traffic"]["rows_per_call"]
+        assert {"nor_gates", "rows_per_word", "bytes_per_row",
+                "executor_kernels"} <= set(spec["frozen"])
+    else:
+        assert cells.kind(spec) == "lm"
+        assert spec["traffic"]["kind"] == "decode"
+        assert (ROOT / spec["config"]["reference"]).is_file()
+        assert {"flops_per_step", "flops_per_context", "bytes_per_step",
+                "bytes_per_context"} <= set(spec["frozen"])
     e2e = {m["name"] for m in spec["end_to_end"]}
     assert "setup_s" in e2e and len(e2e) >= 2
     assert spec["per_layer"]

@@ -15,7 +15,7 @@ if str(ROOT) not in sys.path:
 from pimbench import cells, control, reference, traffic  # noqa: E402
 
 SEEDS = [0, 1, 2 ** 31 - 1, 2 ** 31 + 11, 2 ** 40 + 3, 2 ** 63 + 5, -7]
-CELLS = [w["name"] for w in cells.load_benchmark()["workloads"]]
+CELLS = cells.cell_names("ufunc")
 
 
 def small(cell, rows=4096):

@@ -27,7 +27,7 @@ SPAN_READERS = {"widen_share": ("frontend.widen",),
                 "unpack_share": ("run.unpack", "run.finish"),
                 "join_share": ("run.join",)}
 COUNTER_READERS = ("staged_bytes_per_row", "model_cycles")
-CELLS = [w["name"] for w in cells.load_benchmark()["workloads"]]
+CELLS = cells.cell_names("ufunc")
 
 
 def _read(name, ctx):

@@ -23,7 +23,7 @@ if str(ROOT) not in sys.path:
 from pimbench import bench, cells  # noqa: E402
 
 CPU = {"device": "cpu", "backend": "ref", "chunk_rows": 1024}
-CELLS = [w["name"] for w in cells.load_benchmark()["workloads"]]
+CELLS = cells.cell_names("ufunc")
 
 
 def run_on_cpu(cell, seed=2 ** 31 + 3, rows=2048, seconds=0.05,
