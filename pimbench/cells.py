@@ -15,7 +15,8 @@ metric's reader:
   the metric's value, or None where it finds nothing to read.
 
 So a later change adds a configuration, a traffic mix, a cell or a metric by
-adding files, and edits none.
+adding files and appending to ``BENCHMARK.json``, and edits no file under
+``pimbench/``.
 """
 
 from __future__ import annotations

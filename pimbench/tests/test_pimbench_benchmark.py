@@ -25,64 +25,65 @@ def _line(s: str) -> bool:
     return 1 <= len(s) <= 200 and "\n" not in s and "\t" not in s
 
 
-def test_top_level_keys_and_command():
-    assert set(BENCH) == {"command", "paths", "run_seconds", "configs",
+def assert_top_level_keys_and_command(root):
+    bench = cells.load_benchmark(root)
+    assert set(bench) == {"command", "paths", "run_seconds", "configs",
                           "workloads", "end_to_end", "per_layer"}
-    assert BENCH["paths"] == ["pimbench"]
-    assert len(BENCH["command"]) <= 32
-    assert all(_line(w) for w in BENCH["command"])
-    assert (ROOT / BENCH["command"][1]).is_file()
-    assert len((ROOT / "BENCHMARK.json").read_bytes()) <= 64 << 10
+    assert bench["paths"] == ["pimbench"]
+    assert len(bench["command"]) <= 32
+    assert all(_line(w) for w in bench["command"])
+    assert (root / bench["command"][1]).is_file()
+    assert len((root / "BENCHMARK.json").read_bytes()) <= 64 << 10
 
 
-def test_run_seconds_fits_a_full_check_of_24_cells():
-    rs = BENCH["run_seconds"]
+def assert_run_seconds_fits_a_full_check_of_24_cells(root):
+    rs = cells.load_benchmark(root)["run_seconds"]
     assert 1 <= rs <= 51 and isinstance(rs, int)
     assert (2 + 14 * 24) * (rs + 60) + 24 * 2 * 90 + 1200 <= 43200
 
 
-def test_entries_have_the_contract_keys_and_names():
-    for c in BENCH["configs"]:
+def assert_entries_have_the_contract_keys_and_names(root):
+    bench = cells.load_benchmark(root)
+    for c in bench["configs"]:
         assert set(c) == {"name", "source", "file", "reduced", "why"}
         assert NAME.match(c["name"]) and _line(c["source"]) and \
             _line(c["why"])
         assert c["file"].startswith("pimbench/")
         assert len(c["reduced"]) <= 16
         assert all(NAME.match(k) for k in c["reduced"])
-    assert len({c["file"] for c in BENCH["configs"]}) == len(BENCH["configs"])
-    assert len({c["source"] for c in BENCH["configs"]}) == \
-        len(BENCH["configs"])
+    assert len({c["file"] for c in bench["configs"]}) == len(bench["configs"])
+    assert len({c["source"] for c in bench["configs"]}) == \
+        len(bench["configs"])
     pairs = set()
-    for w in BENCH["workloads"]:
+    for w in bench["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
         assert NAME.match(w["name"]) and NAME.match(w["traffic"])
         assert w["chips"] == 1 and _line(w["why"])
         pairs.add((w["config"], w["traffic"]))
-    assert len(pairs) == len(BENCH["workloads"])
-    names = [m["name"] for m in BENCH["end_to_end"] + BENCH["per_layer"]]
+    assert len(pairs) == len(bench["workloads"])
+    names = [m["name"] for m in bench["end_to_end"] + bench["per_layer"]]
     assert len(names) == len(set(names)) and all(NAME.match(n) for n in names)
-    for m in BENCH["end_to_end"]:
+    for m in bench["end_to_end"]:
         assert set(m) - {"workloads"} == {"name", "unit", "better", "bound",
                                           "source"}
         assert m["source"] in ("host_clock", "device_trace")
         assert 0.01 <= m["bound"] <= 0.25
-    assert {m["name"]: m["bound"] for m in BENCH["end_to_end"]}[
+    assert {m["name"]: m["bound"] for m in bench["end_to_end"]}[
         "setup_s"] == 0.25
-    e2e = {m["name"] for m in BENCH["end_to_end"]}
-    for m in BENCH["per_layer"]:
+    e2e = {m["name"] for m in bench["end_to_end"]}
+    for m in bench["per_layer"]:
         assert set(m) - {"workloads"} == {"name", "unit", "better", "source",
                                           "layer", "moves"}
         assert m["moves"] in e2e and _line(m["layer"])
-        assert set(m["workloads"]) <= set(CELLS)
-    for m in BENCH["end_to_end"] + BENCH["per_layer"]:
+        assert set(m["workloads"]) <= {w["name"] for w in bench["workloads"]}
+    for m in bench["end_to_end"] + bench["per_layer"]:
         assert UNIT.match(m["unit"]) and m["better"] in ("lower", "higher")
         if m["name"].endswith("_roofline"):
             assert m["unit"] == "%"
 
 
-@pytest.mark.parametrize("cell", CELLS)
-def test_a_cell_is_found_by_name_from_its_files(cell):
-    spec = cells.load_cell(cell)
+def assert_a_cell_is_found_by_name_from_its_files(cell, root):
+    spec = cells.load_cell(cell, root)
     assert spec["name"] == cell and spec["chips"] == 1
     if cells.kind(spec) == "ufunc":
         assert spec["traffic"]["op"] in ("fp_add", "add", "sub")
@@ -92,14 +93,40 @@ def test_a_cell_is_found_by_name_from_its_files(cell):
     else:
         assert cells.kind(spec) == "lm"
         assert spec["traffic"]["kind"] == "decode"
-        assert (ROOT / spec["config"]["reference"]).is_file()
+        assert (root / spec["config"]["reference"]).is_file()
         assert {"flops_per_step", "flops_per_context", "bytes_per_step",
                 "bytes_per_context"} <= set(spec["frozen"])
     e2e = {m["name"] for m in spec["end_to_end"]}
     assert "setup_s" in e2e and len(e2e) >= 2
     assert spec["per_layer"]
     for m in spec["per_layer"]:
-        assert callable(cells.metric_reader(m["name"]))
+        assert callable(cells.metric_reader(m["name"], root))
+
+
+def assert_the_contract(root):
+    """Every check above, on the benchmark at ``root``."""
+    assert_top_level_keys_and_command(root)
+    assert_run_seconds_fits_a_full_check_of_24_cells(root)
+    assert_entries_have_the_contract_keys_and_names(root)
+    for w in cells.load_benchmark(root)["workloads"]:
+        assert_a_cell_is_found_by_name_from_its_files(w["name"], root)
+
+
+def test_top_level_keys_and_command():
+    assert_top_level_keys_and_command(ROOT)
+
+
+def test_run_seconds_fits_a_full_check_of_24_cells():
+    assert_run_seconds_fits_a_full_check_of_24_cells(ROOT)
+
+
+def test_entries_have_the_contract_keys_and_names():
+    assert_entries_have_the_contract_keys_and_names(ROOT)
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_a_cell_is_found_by_name_from_its_files(cell):
+    assert_a_cell_is_found_by_name_from_its_files(cell, ROOT)
 
 
 def test_an_unknown_cell_is_refused():

@@ -2,12 +2,13 @@
 reference against the port's forward and decode steps on seeded weights; a
 sound run is correct and a run whose timed path is broken underneath is
 not, for each fault a decode cell can have; the fp8 control is refused;
-the yardstick against hand counts; the readers; a later LM configuration
-added by files alone."""
+the yardstick against hand counts; the readers; each LM cell's files; a
+later LM family, and a second LM cell, added by files and entries alone."""
 
 import ast
 import dataclasses
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -19,13 +20,21 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[2]
-for p in (ROOT, ROOT / "src"):
+for p in (ROOT, ROOT / "src", Path(__file__).resolve().parent):
     if str(p) not in sys.path:
         sys.path.insert(0, str(p))
 
 from pimbench import bench, cells, lm, lm_work  # noqa: E402
+from test_pimbench_benchmark import (  # noqa: E402
+    assert_a_cell_is_found_by_name_from_its_files, assert_the_contract)
 
 CELL = "qwen3-8b-decode-b256"
+#: the LM cells of ``BENCHMARK.json``, read and never pinned: a later
+#: configuration adds its cell by files and entries alone
+LM_CELLS = cells.cell_names("lm")
+#: the readers every decode cell reports
+DECODE_READERS = ("mfu", "step_roofline", "launches_per_step",
+                  "device_idle.decode")
 SEED = 2 ** 31 + 29
 #: the port's forward in bfloat16 against the float32 reference, two
 #: layers of width 64: bfloat16 keeps 8 significant bits, so each rounded
@@ -390,72 +399,147 @@ def test_idle_gaps_are_named_by_the_innermost_host_op():
     assert lm.host_gaps(tl, events) == [["aten::mm", 50e-6]]
 
 
-def test_a_later_lm_configuration_is_added_by_files_alone(tmp_path):
-    """A mixture-of-experts family (the port's qwen3-moe at a small width),
-    its own reference (a stub here), traffic, frozen work and a reader are
-    new files and entries; no file of the harness changes, and a run on the
-    CPU finds and runs them all."""
-    shutil.copytree(ROOT / "pimbench", tmp_path / "pimbench",
-                    ignore=shutil.ignore_patterns("__pycache__", "tests"))
-    bench_json = json.loads((ROOT / "BENCHMARK.json").read_text())
-    bench_json["configs"].append({
-        "name": "qwen3-moe-tiny", "source": "a later family",
-        "file": "pimbench/configs/qwen3-moe-tiny.json",
-        "reduced": ["num_hidden_layers"], "why": "a later family"})
-    bench_json["workloads"].append({
-        "name": "qwen3-moe-tiny-decode", "config": "qwen3-moe-tiny",
-        "traffic": "decode.tiny", "chips": 1, "why": "a later cell"})
-    tokens = [m for m in bench_json["end_to_end"]
-              if m["name"] == "tokens_per_s"]
-    tokens[0]["workloads"].append("qwen3-moe-tiny-decode")
-    bench_json["per_layer"].append({
-        "name": "steps_traced", "unit": "steps", "better": "higher",
-        "source": "host_clock", "layer": "model step",
-        "moves": "tokens_per_s", "workloads": ["qwen3-moe-tiny-decode"]})
-    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench_json))
-    here = tmp_path / "pimbench"
-    sizes = {"hidden_size": 64, "intermediate_size": 32,
-             "num_hidden_layers": 1, "num_attention_heads": 4,
-             "num_key_value_heads": 2, "head_dim": 16, "vocab_size": 128}
-    (here / "configs" / "qwen3-moe-tiny.json").write_text(json.dumps(dict(
-        sizes, kind="lm", arch="qwen3-moe-235b-a22b",
-        reference="pimbench/lm_reference/stub.py",
+def _qwen3_moe_tree(state, spec):
+    assert state["cfg"].moe.n_experts == 4
+    assert state["shapes"]["layers.0.moe.w1"][0] == (4, 64, 32)
+
+
+def _deepseek_v2_tree(state, spec):
+    """Latent attention in every layer, a leading dense FFN, then routed
+    experts as 3-D stacks beside the shared experts; each stack drawn at
+    the scale of its fan_in, the second-to-last axis."""
+    shapes = state["shapes"]
+    for i in range(3):
+        assert {f"layers.{i}.attn.wq_a", f"layers.{i}.attn.wkv_b"} <= \
+            set(shapes)
+    assert shapes["layers.0.ffn.w1"][0] == (64, 128)
+    assert not any(n.startswith("layers.0.moe.") for n in shapes)
+    for i in (1, 2):
+        assert shapes[f"layers.{i}.moe.w1"][0] == (8, 64, 32)
+        assert shapes[f"layers.{i}.moe.w2"][0] == (8, 32, 64)
+        assert shapes[f"layers.{i}.moe.shared.w1"][0] == (64, 2 * 32)
+        assert f"layers.{i}.ffn.w1" not in shapes
+    weights = lm.make_weights(shapes, spec["config"], SEED, "cpu")
+    for name in ("layers.1.moe.w1", "layers.1.moe.w2"):
+        w = weights[name].float()
+        assert 0.9 < w.std() * math.sqrt(w.shape[-2]) < 1.1
+
+
+#: later families at a small width: the port's ``arch``, its published
+#: keys, the port's cut, what it holds fixed, and what its drawn tree shows
+LATER_FAMILIES = {
+    "qwen3-moe": dict(
+        arch="qwen3-moe-235b-a22b",
+        published={"hidden_size": 64, "intermediate_size": 32,
+                   "num_hidden_layers": 1, "num_attention_heads": 4,
+                   "num_key_value_heads": 2, "head_dim": 16,
+                   "vocab_size": 128},
         port_replace={"n_layers": 1, "d_model": 64, "n_heads": 4,
                       "n_kv_heads": 2, "head_dim": 16, "d_ff": 32,
                       "vocab": 128, "moe": {"n_experts": 4, "top_k": 2,
                                             "d_expert": 32}},
-        port_fields={"d_model": "hidden_size", "vocab": "vocab_size"},
         port_values={"group": ["moe"]},
+        tree=_qwen3_moe_tree),
+    "deepseek-v2": dict(
+        arch="deepseek-v2-236b",
+        published={"hidden_size": 64, "intermediate_size": 128,
+                   "moe_intermediate_size": 32, "num_hidden_layers": 3,
+                   "num_attention_heads": 4, "num_key_value_heads": 4,
+                   "n_routed_experts": 8, "num_experts_per_tok": 2,
+                   "n_shared_experts": 2, "first_k_dense_replace": 1,
+                   "q_lora_rank": 32, "kv_lora_rank": 16,
+                   "qk_rope_head_dim": 8, "qk_nope_head_dim": 16,
+                   "v_head_dim": 16, "vocab_size": 128},
+        port_replace={"n_layers": 3, "d_model": 64, "n_heads": 4,
+                      "n_kv_heads": 4, "head_dim": 24, "vocab": 128,
+                      "moe": {"n_experts": 8, "top_k": 2, "d_expert": 32,
+                              "n_shared": 2, "d_ff_dense": 128},
+                      "mla": {"q_lora": 32, "kv_lora": 16,
+                              "rope_head_dim": 8, "nope_head_dim": 16,
+                              "v_head_dim": 16}},
+        port_values={"group": ["moe"], "prefix": ["moe_dense"]},
+        tree=_deepseek_v2_tree),
+}
+
+
+def _copy_harness(root):
+    """The harness under ``root``, without its tests."""
+    shutil.copytree(ROOT / "pimbench", root / "pimbench",
+                    ignore=shutil.ignore_patterns("__pycache__", "tests"))
+
+
+def _new_file(path, text):
+    """Write a file the harness does not have: adding a cell edits none."""
+    assert not path.exists(), path
+    path.write_text(text)
+
+
+@pytest.mark.parametrize("family", list(LATER_FAMILIES))
+def test_a_later_lm_configuration_is_added_by_files_alone(family, tmp_path):
+    """A mixture-of-experts family (the port's qwen3-moe, or DeepSeek-V2
+    with latent attention, at a small width), its own reference (a stub
+    here), traffic, frozen work and a reader are new files and entries; no
+    file of the harness changes, and a run on the CPU finds and runs them
+    all."""
+    f = LATER_FAMILIES[family]
+    name, cell = f"{family}-tiny", f"{family}-tiny-decode"
+    _copy_harness(tmp_path)
+    bench_json = cells.load_benchmark()
+    bench_json["configs"].append({
+        "name": name, "source": "a later family",
+        "file": f"pimbench/configs/{name}.json",
+        "reduced": ["num_hidden_layers"], "why": "a later family"})
+    bench_json["workloads"].append({
+        "name": cell, "config": name, "traffic": "decode.tiny", "chips": 1,
+        "why": "a later cell"})
+    tokens = [m for m in bench_json["end_to_end"]
+              if m["name"] == "tokens_per_s"]
+    tokens[0]["workloads"].append(cell)
+    bench_json["per_layer"].append({
+        "name": "steps_traced", "unit": "steps", "better": "higher",
+        "source": "host_clock", "layer": "model step",
+        "moves": "tokens_per_s", "workloads": [cell]})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench_json))
+    here = tmp_path / "pimbench"
+    _new_file(here / "configs" / f"{name}.json", json.dumps(dict(
+        f["published"], kind="lm", arch=f["arch"],
+        reference="pimbench/lm_reference/stub.py",
+        port_replace=f["port_replace"],
+        port_fields={"d_model": "hidden_size", "n_layers":
+                     "num_hidden_layers", "n_heads": "num_attention_heads",
+                     "vocab": "vocab_size"},
+        port_values=f["port_values"],
         weights={"embed": 0.02, "vectors": 0.1},
         check={"served_gap_max": 0.0})))
-    (here / "lm_reference" / "stub.py").write_text(
-        "import torch\n\n\n"
-        "def forward(config, weights, tokens, first):\n"
-        "    \"\"\"Every token ties: any served token is at the best.\"\"\"\n"
-        "    return torch.zeros(len(tokens) - first,"
-        " config['vocab_size'])\n")
-    (here / "traffic" / "decode.tiny.json").write_text(json.dumps(
+    _new_file(here / "lm_reference" / "stub.py",
+              "import torch\n\n\n"
+              "def forward(config, weights, tokens, first):\n"
+              "    \"\"\"Every token ties: any served token is at the best."
+              "\"\"\"\n"
+              "    return torch.zeros(len(tokens) - first,"
+              " config['vocab_size'])\n")
+    _new_file(here / "traffic" / "decode.tiny.json", json.dumps(
         {"kind": "decode", "batch": 2, "prompt_len": 4, "gen": 3, "pool": 2,
          "prompt_ids": {"kind": "uniform"}, "check_requests": 2,
          "trace_positions": [1, 3, 5]}))
-    (here / "workloads" / "qwen3-moe-tiny-decode.json").write_text(
-        json.dumps({"flops_per_step": 1, "flops_per_context": 0,
-                    "bytes_per_step": 1, "bytes_per_context": 0}))
-    (here / "metrics" / "steps_traced.py").write_text(
-        "def read(ctx):\n    return len(ctx['steps'])\n")
-    spec = cells.load_cell("qwen3-moe-tiny-decode", tmp_path)
+    _new_file(here / "workloads" / f"{cell}.json", json.dumps(
+        {"flops_per_step": 1, "flops_per_context": 0, "bytes_per_step": 1,
+         "bytes_per_context": 0}))
+    _new_file(here / "metrics" / "steps_traced.py",
+              "def read(ctx):\n    return len(ctx['steps'])\n")
+    spec = cells.load_cell(cell, tmp_path)
     assert cells.kind(spec) == "lm"
     assert [m["name"] for m in spec["end_to_end"]] == ["tokens_per_s",
                                                        "setup_s"]
     assert [m["name"] for m in spec["per_layer"]] == ["steps_traced"]
     state, win, checks, held = run_on_cpu(spec, trace=True)
+    assert win["calls"] == 1 and win["failed"] == 0
     assert held == 2 and bench.passed(checks)
-    assert state["cfg"].moe.n_experts == 4
+    f["tree"](state, spec)
     ctx = {"steps": win["span"].steps}
     assert bench.per_layer(spec, ctx) == {
         "steps_traced": {"value": 2.0, "unit": "steps"}}
-    assert cells.cell_names("lm", tmp_path) == [CELL,
-                                                "qwen3-moe-tiny-decode"]
+    assert cells.cell_names("lm", tmp_path) == LM_CELLS + [cell]
 
 
 def _imports(path):
@@ -487,17 +571,59 @@ def test_without_a_card_an_lm_run_prints_no_result_and_fails():
     assert "needs 1 CUDA device" in p.stderr
 
 
-def test_the_lm_cell_s_files():
-    spec = cells.load_cell(CELL)
-    assert cells.kind(spec) == "lm" and spec["chips"] == 1
-    assert cells.cell_names("lm") == [CELL]
-    assert (ROOT / spec["config"]["reference"]).is_file()
-    assert spec["config"]["reduced"] == []
-    t = spec["traffic"]
+def assert_a_decode_cell(cell, root=ROOT):
+    """What every decode cell of the benchmark at ``root`` needs, and what
+    ``qwen3-8b-decode-b256`` alone has."""
+    assert_a_cell_is_found_by_name_from_its_files(cell, root)
+    bench_json = cells.load_benchmark(root)
+    name = next(w["config"] for w in bench_json["workloads"]
+                if w["name"] == cell)
+    entry = next(c for c in bench_json["configs"] if c["name"] == name)
+    spec = cells.load_cell(cell, root)
+    config, t = spec["config"], spec["traffic"]
+    assert cells.kind(spec) == "lm"
+    assert config["reduced"] == entry["reduced"]
+    assert set(entry["reduced"]) <= set(config)
     a, b, c = t["trace_positions"]
     assert 0 <= a < b < c <= t["prompt_len"] + t["gen"] - 1
-    assert np.isfinite(spec["config"]["check"]["served_gap_max"])
+    gap = config["check"]["served_gap_max"]
+    assert np.isfinite(gap) and gap > 0
     assert {m["name"] for m in spec["end_to_end"]} == {"tokens_per_s",
                                                       "setup_s"}
-    assert {m["name"] for m in spec["per_layer"]} == {
-        "mfu", "step_roofline", "launches_per_step", "device_idle.decode"}
+    per_layer = {m["name"] for m in spec["per_layer"]}
+    assert set(DECODE_READERS) <= per_layer
+    if cell == CELL:
+        assert config["reduced"] == []
+        assert per_layer == set(DECODE_READERS)
+
+
+@pytest.mark.parametrize("cell", LM_CELLS)
+def test_the_lm_cell_s_files(cell):
+    assert LM_CELLS[0] == CELL
+    assert_a_decode_cell(cell)
+
+
+def test_a_second_lm_cell_needs_no_edit(tmp_path):
+    """A second ``qwen3-8b`` cell, at batch 64, added by entries and new
+    files alone: the copy keeps to the contract, and each of its LM cells
+    to what a decode cell needs."""
+    cell, traffic = "qwen3-8b-later-decode", "decode.later-b64-p512-g64"
+    _copy_harness(tmp_path)
+    bench_json = cells.load_benchmark()
+    bench_json["workloads"].append({
+        "name": cell, "config": "qwen3-8b", "traffic": traffic, "chips": 1,
+        "why": "a later cell: the same model and lengths at batch 64"})
+    for m in bench_json["end_to_end"] + bench_json["per_layer"]:
+        if m["name"] in ("tokens_per_s",) + DECODE_READERS:
+            m["workloads"].append(cell)
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench_json))
+    here, spec = tmp_path / "pimbench", cells.load_cell(CELL)
+    _new_file(here / "traffic" / f"{traffic}.json",
+              json.dumps(dict(spec["traffic"], batch=64)))
+    _new_file(here / "workloads" / f"{cell}.json", json.dumps(dict(
+        lm_work.dense_decode_step(spec["config"], 64), batch=64)))
+    names = cells.cell_names("lm", tmp_path)
+    assert names == LM_CELLS + [cell] and names[0] == CELL
+    assert_the_contract(tmp_path)
+    for name in names:
+        assert_a_decode_cell(name, tmp_path)
