@@ -106,8 +106,9 @@ Phases, each of which raises (exit code 1) on failure:
    disk hits, no disk error, and B1, B2 and B3 launched and no plain
    version; time to the first answer, walls and bytes on disk by tier;
 
-   lm: LM decode serving (:func:`lm_phase`; no kernel of its own, the
-   LM reaches no TPU kernel): ``qwen3-8b`` at full width (8,190,735,360
+   lm: LM decode serving (:func:`lm_phase`; the LM reaches no TPU
+   kernel, and its one kernel is the decode attention,
+   ``csrc/decode_attn.cu``): ``qwen3-8b`` at full width (8,190,735,360
    parameters) built on the card from seed 0; ``serve.main`` at the
    reference's defaults (batch 4, prompt 32, gen 16), its tokens checked
    and its steps timed with CUDA events beside their bound, then the same
@@ -120,10 +121,13 @@ Phases, each of which raises (exit code 1) on failure:
    batch 32 with a 512-token prompt and 64 generated tokens; a 4 x 1024
    prefill (two 512-query chunks) against ``forward``; a
    ``torch.profiler`` trace of 3 decode steps (busy share, launches a
-   step, the top 5 device ops);
+   step, the top 5 device ops), each layer's attention through the
+   decode-attention kernel (``lm.decode_attn.kernel`` one a layer a
+   step, ``lm.decode_attn.plain`` none);
 
    lm families: the other layer families (:func:`lm_families_phase`,
-   ROADMAP A14; no kernel of their own, they reach no TPU kernel), one
+   ROADMAP A14; they reach no TPU kernel, and their full-attention
+   decode steps run the decode-attention kernel), one
    model at a time at full width, built on the card from seed 0 with
    the parameter counts of :data:`FAMILIES`: ``recurrentgemma-2b`` and
    ``rwkv6-1.6b`` whole, ``qwen3-moe-235b-a22b`` and
@@ -193,7 +197,11 @@ Phases, each of which raises (exit code 1) on failure:
    ``blk[0].clone()``) and on the blocks the faulty gemv folded, weighted
    by their launches, each launch's block read from device memory (the
    state of its bytes bound, :func:`cold_ms`) and from L2 (its state on
-   the path);
+   the path); and the decode-attention kernel (``csrc/decode_attn.cu``,
+   no TPU kernel) at the benchmark cell's shape at positions 287 and 575
+   (:func:`measure_decode_attn`) beside the plain ``_group_attn``, one
+   ``scaled_dot_product_attention`` call (a yardstick the port never
+   calls) and its bytes bound;
 11. examples: each PIM script of ``examples_torch/`` (quickstart, the int8
    linear layer, fusion with ``dot``/``gemv``, batched serving, streaming
    at 1 Mi rows) run on the card in process (:func:`examples_phase`), its
@@ -226,6 +234,7 @@ import dataclasses
 import io
 import itertools
 import json
+import math
 import os
 import re
 import shutil
@@ -2256,7 +2265,11 @@ def _serve_line(text: str) -> dict:
 
 def lm_phase(gpu: str) -> None:
     """LM decode serving of ``qwen3-8b`` at full width on the card (see
-    the module docstring); raises on any failed check."""
+    the module docstring); raises on any failed check.  Every decode
+    step's attention runs the decode-attention kernel
+    (``csrc/decode_attn.cu`` through ``kernels.attention.decode_attn``),
+    in bfloat16 and in the float32 checks alike; the profiled steps count
+    it."""
     import contextlib
     import copy
     import gc
@@ -2449,7 +2462,19 @@ def lm_phase(gpu: str) -> None:
 
     steps()
     torch.cuda.synchronize()
+    from repro_torch.kernels import pim_exec
+    from repro_torch.runtime import telemetry
+    telemetry.REGISTRY.drain("lm.decode_attn.")
+    pim_exec.LAUNCHES["decode_attn"] = 0
     _, wall, st = device_timeline(steps)
+    calls = telemetry.REGISTRY.drain("lm.decode_attn.")
+    launches = pim_exec.LAUNCHES["decode_attn"]
+    want = PROFILE_STEPS * cfg.n_layers
+    print(f"lm decode attention: {PROFILE_STEPS} steps of {cfg.n_layers} "
+          f"layers at batch {b}: counters {calls}, {launches} launches",
+          flush=True)
+    if calls != {"lm.decode_attn.kernel": want} or launches != want:
+        raise AssertionError(f"lm decode attention: {calls}, {launches}")
     if st is None:
         print(f"lm profile: {gpu}; {PROFILE_STEPS} decode steps, wall "
               f"{wall * 1e3:.3f} ms; the profiler shows no device time "
@@ -3918,6 +3943,101 @@ def measure_folds(chunk_rows: int, folds: dict, worst: dict,
     return rows
 
 
+#: The decode-attention kernel's timed shape: the benchmark cell
+#: ``qwen3-8b-decode-b256``'s batch, cache slots, query heads, KV heads and
+#: head dim, and the positions timed.
+DECODE_ATTN_CELL = (256, 576, 32, 8, 128)
+DECODE_ATTN_POSITIONS = (287, 575)
+
+
+def decode_attn_bytes(b: int, kh: int, hd: int, p: int,
+                      itemsize: int = 2) -> int:
+    """The bytes decode attention must move at position ``p``: the keys
+    and values of slots 0..p read once (1,048,576 (p + 1) B a layer at
+    the cell in bfloat16); the query and output are under 0.1 % of it."""
+    return 2 * b * kh * hd * itemsize * (p + 1)
+
+
+def decode_attn_exact(q, k, v, p: int):
+    """Decode attention of q [B, 1, H, hd] over k, v [B, S, K, hd] at the
+    slots 0..p, in float64: what the kernel and the plain version are
+    held to."""
+    b, _, h, hd = q.shape
+    kh = k.shape[2]
+    q64 = q.double().reshape(b, kh, h // kh, hd)
+    sc = torch.einsum("bkgd,bskd->bkgs", q64, k[:, :p + 1].double())
+    a = torch.softmax(sc / math.sqrt(hd), -1)
+    return torch.einsum("bkgs,bskd->bkgd", a,
+                        v[:, :p + 1].double()).reshape(b, 1, h, hd)
+
+
+def measure_decode_attn(gpu: str) -> list:
+    """Phase 10 for the decode-attention kernel: at the cell's shape
+    (:data:`DECODE_ATTN_CELL`, bfloat16) and each position of
+    :data:`DECODE_ATTN_POSITIONS`, its time beside its bytes bound, the
+    plain ``_group_attn`` (what the LM ran before the kernel) and one
+    ``scaled_dot_product_attention`` call over the slots up to the
+    position (the library yardstick; the port never calls it).  The
+    caches (302 MB each) are far over the 50 MB L2, so each launch reads
+    them from device memory.  Raises where an output's error against
+    :func:`decode_attn_exact` exceeds the plain version's largest by more
+    than one bfloat16 ulp of the output, or a call launches other than
+    once."""
+    from repro_torch.kernels import attention, pim_exec
+    b, s, h, kh, hd = DECODE_ATTN_CELL
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+               .to(torch.bfloat16)
+               for shape in ((b, 1, h, hd), (b, s, kh, hd), (b, s, kh, hd)))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    for p in DECODE_ATTN_POSITIONS:
+        pos = torch.full((b, 1), p, dtype=torch.long, device="cuda")
+        before = pim_exec.LAUNCHES["decode_attn"]
+        got = attention.decode_attn(q, k, v, pos)
+        launches = pim_exec.LAUNCHES["decode_attn"] - before
+        want = decode_attn_exact(q, k, v, p)
+        err = (got.double() - want).abs()
+        plain_err = float((attention.plain(q, k, v, pos).double() - want)
+                          .abs().max())
+        # one bfloat16 ulp of each output: 2 ** (exponent - 7)
+        ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(
+            torch.finfo(torch.bfloat16).tiny))) - 7)
+        bad = int((err > plain_err + ulp).sum())
+        err = float(err.max())
+        del want, ulp
+        ms = cuda_ms(lambda: attention.decode_attn(q, k, v, pos), 50)
+        plain_ms = cuda_ms(lambda: attention.plain(q, k, v, pos), 5)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k[:, :p + 1],
+                                                   v[:, :p + 1]))
+        lib_ms = cuda_ms(lambda: sdpa(qt, kt, vt, enable_gqa=True), 50)
+        nbytes = decode_attn_bytes(b, kh, hd, p)
+        bound_ms = nbytes / H100.hbm_bw * 1e3
+        key = f"decode_attn@p{p}"
+        print(f"time {key}: {gpu}; q [{b}, 1, {h}, {hd}] over k, v [{b}, "
+              f"{s}, {kh}, {hd}] bf16 up to slot {p}: kernel {ms:.6f} "
+              f"ms/launch ({launches} launch a call), {bound_ms / ms:.3f} "
+              f"of its bound; plain _group_attn {plain_ms:.6f} ms; library "
+              f"{lib_ms:.6f} ms (scaled_dot_product_attention, "
+              f"enable_gqa); bound {bound_ms:.6f} ms (bytes: {nbytes} B at "
+              f"{H100.hbm_bw / 1e12:g} TB/s); max error against float64 "
+              f"{err} (plain {plain_err}; {bad} outputs over the plain "
+              f"error plus one bf16 ulp)", flush=True)
+        if bad or launches != 1:
+            raise AssertionError(f"time {key}: {bad} outputs over the "
+                                 f"plain error plus one ulp, {launches} "
+                                 f"launches")
+        rows.append({
+            "name": key, "route": "cuda",
+            "source": "src/repro_torch/csrc/decode_attn.cu",
+            "replaces": "none (the einsums of _group_attn)",
+            "launches": launches, "max_abs_err": err,
+            "plain_max_abs_err": plain_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": lib_ms})
+    return rows
+
+
 def fold_turns(progs, chunk_rows: int, io_shapes: dict, gpu: str) -> None:
     """B1 io under rows64 (uint32 add at one chunk, as :func:`measure`
     times it) twice in turns with B6's two rows (the fused chunk and the
@@ -4733,7 +4853,8 @@ def main() -> None:
     phase("mesh", mesh_phase, gpu)
     kernels = phase("time", lambda: measure(
         progs, statics, chunk_rows, main["launches"], worst, gpu)
-        + measure_folds(chunk_rows, folds, worst, gpu))
+        + measure_folds(chunk_rows, folds, worst, gpu)
+        + measure_decode_attn(gpu))
     phase("examples", examples_phase, gpu)
     phase("offload", offload_phase, gpu)
     if args.turns:

@@ -18,6 +18,11 @@ Five CUDA kernels, one per kernel of ``repro.kernels.pim_exec``:
   an output block over one axis, the counterpart of ``check_words`` (jnp
   there, no Pallas): :func:`check_words`.
 
+Beside them ``csrc/decode_attn.cu``, the LM's grouped-query attention of
+one decode step, which replaces no TPU kernel (the reference's einsums):
+built and bound here like the others, wrapped in
+:mod:`repro_torch.kernels.attention`.
+
 B1, B2 and B3 share ``csrc/pim_state.cuh`` (the state in shared memory,
 the fused bridges as warp transposes) and run both word layouts.  B1, B3
 and B4 share ``csrc/ring.cuh``: the packed stream (8-byte records of
@@ -66,7 +71,8 @@ CSRC = _PKG / "csrc"
 SOURCES = {"slot_scan": CSRC / "slot_scan.cu",
            "level_gather": CSRC / "level_gather.cu",
            "gate_serial": CSRC / "gate_serial.cu",
-           "check_words": CSRC / "check_words.cu"}
+           "check_words": CSRC / "check_words.cu",
+           "decode_attn": CSRC / "decode_attn.cu"}
 #: Headers the sources include; part of every build's key.
 HEADERS = (CSRC / "pim_state.cuh", CSRC / "ring.cuh")
 BUILD_DIR = _PKG.parent.parent / "build" / "repro_torch"
@@ -115,6 +121,7 @@ LAUNCHES = {f"{e}{sfx}": 0
             for sfx in ("", "_rows64")}
 LAUNCHES["gate_serial"] = 0
 LAUNCHES["check_words"] = 0
+LAUNCHES["decode_attn"] = 0
 
 #: ``nvcc`` runs (one a source) and the seconds spent waiting on them in
 #: this process -- what a warm start from the artifact cache drives to 0.
@@ -137,6 +144,8 @@ _ARGTYPES = {
     "level_gather_fused": _FUSED_ARGS, "level_gather_io": _IO_ARGS,
     "gate_serial": [_P, _P, _P, _I, _I, _I, _LL, _I, _I, _I, _P],
     "check_words": [_P, _P, _LL, _I, _LL, _P],
+    "decode_attn": [_P] * 5 + [_I] * 5 + [_LL] * 8 + [_I] * 3
+    + [ctypes.c_float, _P],
     "kernel_info": [_I, _I, _I, _I, _P],
     "slots_static_fused": [_P, _P, _I, _P, _I, _P, _P, _I, _I, _P, _LL, _I,
                            _I, _I, _I, _I, _P],

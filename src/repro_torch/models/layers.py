@@ -10,7 +10,11 @@ dtypes: norms, the attention scores and softmax, the router, the
 recurrent gates and the WKV scan in float32, projections and the PV
 product in the weights' dtype.  The projections are plain ``@``, as they
 are outside any Pallas kernel in the reference; the attention is the
-reference's einsums, not a fused library attention.
+reference's einsums, not a fused library attention, except where a
+full-attention decode step runs on plain CUDA tensors: that one query
+position goes through the port's own kernel
+(:func:`repro_torch.kernels.attention.decode_attn`), the same function
+read in one pass over the slots up to the position.
 
 Parameters live in :class:`Params` nodes (``nn.Module``s that index like
 the reference's dicts, ``p["wq"]``, ``"bq" in p``); every ``apply_*``
@@ -49,6 +53,8 @@ from torch.distributed.tensor._utils import \
     compute_local_shape_and_global_offset
 from torch.distributed.tensor.experimental import local_map
 
+from ..kernels import attention
+from ..runtime import telemetry
 from .config import ModelConfig
 
 ATTN_CHUNK = 512          # query-chunked attention threshold / block
@@ -412,6 +418,15 @@ def _group_attn_on_mesh(q, k, v, mask):
                      redistribute_inputs=True)(q, k, v, mask)
 
 
+def _decode_kernel_takes(q, ck, cv) -> bool:
+    """Whether a full-attention decode step runs the card's kernel
+    (:func:`repro_torch.kernels.attention.decode_attn`): one query
+    position, and plain (not DTensor) CUDA tensors.  Else
+    :func:`_group_attn` under the mask of the slots up to the position."""
+    return q.shape[1] == 1 and all(
+        not isinstance(t, DTensor) and t.is_cuda for t in (q, ck, cv))
+
+
 def _pad_front(x, n: int, value: float = 0.0):
     """``x`` with ``n`` positions of ``value`` in front of axis 1
     (``pad(x, (0, 0, n, 0))``); a DTensor's by a concatenation, which
@@ -492,9 +507,16 @@ def apply_attention(cfg: ModelConfig, p, x, *, pos, kind: str, cache=None,
             write_at(ck, pos[0], k.to(ck.dtype))
             write_at(cv, pos[0], v.to(cv.dtype))
             new_cache = {"k": ck, "v": cv}
-            valid = (torch.arange(ck.shape[1], device=x.device)[None]
-                     <= pos[:1, :1]).expand(b, -1)
-        out = _group_attn(q, ck, cv, valid[:, None, :])
+            valid = None
+            if not _decode_kernel_takes(q, ck, cv):
+                valid = (torch.arange(ck.shape[1], device=x.device)[None]
+                         <= pos[:1, :1]).expand(b, -1)
+        if valid is None:
+            out = attention.decode_attn(q, ck, cv, pos)
+            telemetry.REGISTRY.inc("lm.decode_attn.kernel")
+        else:
+            telemetry.REGISTRY.inc("lm.decode_attn.plain")
+            out = _group_attn(q, ck, cv, valid[:, None, :])
     else:
         causal = not cfg.encoder_only and kind != "cross"
         out = _sdpa(q, k, v, causal=causal,

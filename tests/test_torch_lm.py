@@ -40,6 +40,7 @@ from repro_torch.launch import serve, steps
 from repro_torch.models import convert
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
+from repro_torch.runtime import telemetry
 
 F32_TOL = 2e-5
 BF16_TOL = 2 ** -5
@@ -434,6 +435,24 @@ def test_decode_step_refuses_a_position_past_the_cache():
     caches = M.init_caches(cfg, 1, 4, device="cpu")
     with pytest.raises(ValueError, match="outside the 4-position cache"):
         M.decode_step(cfg, lm, caches, torch.zeros(1, dtype=torch.long), 4)
+
+
+@pytest.mark.parametrize("case", [CASES[0], LOCAL], ids=["qwen3-8b",
+                                                         "qwen3-8b-local"])
+def test_decode_attention_on_the_cpu_counts_the_plain_path(case):
+    """On CPU tensors each one-query decode step's attention layer, full
+    or ``local``, runs the plain ``_group_attn``: ``lm.decode_attn.plain``
+    counts one a layer a step and ``lm.decode_attn.kernel`` stays 0."""
+    _, cfg, _, lm = _models(case)
+    kinds = M.layer_kinds(cfg)
+    assert set(kinds) == set(cfg.group) and "attn" in kinds
+    caches = M.init_caches(cfg, 2, 6, device="cpu")
+    _, tt = _tokens(cfg, 2, 3)
+    telemetry.REGISTRY.drain("lm.decode_attn.")
+    for t in range(3):
+        M.decode_step(cfg, lm, caches, tt[:, t], t)
+    assert telemetry.REGISTRY.drain("lm.decode_attn.") == {
+        "lm.decode_attn.plain": 3 * len(kinds)}
 
 
 @pytest.mark.parametrize("case", [CASES[0], LOCAL], ids=["qwen3-8b",

@@ -83,6 +83,16 @@ def test_decode_bound_counts_each_cache_kind(smoke):
     assert smoke.cache_bytes(cfg, "cross", b, 5) == 0
 
 
+@pytest.mark.parametrize("p", [0, 287, 575])
+def test_decode_attn_bytes_at_the_cell(smoke, p):
+    """The decode-attention row's bound: the keys and values of slots
+    0..p, 1,048,576 (p + 1) B a layer at batch 256, 8 KV heads of 128."""
+    b, s, h, kh, hd = smoke.DECODE_ATTN_CELL
+    assert (b, s, h, kh, hd) == (256, 576, 32, 8, 128)
+    assert smoke.decode_attn_bytes(b, kh, hd, p) == 1_048_576 * (p + 1)
+    assert p in smoke.DECODE_ATTN_POSITIONS or p == 0
+
+
 def test_grow_caches_grows_only_a_sequence_axis(smoke):
     import torch
     from repro_torch.configs.registry import ARCHS
